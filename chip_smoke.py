@@ -9,9 +9,12 @@ Phases, in order; any failure exits non-zero:
   1. build every CUDA kernel of ``src/repro_torch/csrc`` (one nvcc each,
      all started together);
   2. hold each kernel against its plain PyTorch twin on the card, at the
-     main path's shapes, and time kernel, twin and (for attention)
-     ``scaled_dot_product_attention``: device time from ``torch.profiler``
-     (CUDA events when it records none) and per-call time with events;
+     main paths' shapes, and time kernel, twin and the one PyTorch call
+     that computes the same function where there is one
+     (``scaled_dot_product_attention``; ``index_select`` for
+     ``gather_rows``, ``index_copy_`` on a clone for ``scatter_rows``):
+     device time from ``torch.profiler`` (CUDA events when it records
+     none) and per-call time with events;
   3. check the port end to end on a small input: the smoke config on the
      card (kernels) against the same weights on the CPU (plain twins);
   4. build granite-8b at full width from a seeded ``torch.Generator`` on
@@ -21,7 +24,19 @@ Phases, in order; any failure exits non-zero:
      ``ngram_spec=4`` and ``cpm_backend="cuda"``, with the launch counters
      set to 0 just before and read just after; the speculative tokens must
      equal the scan tokens, flash attention must launch at least once per
-     layer per prefill and ``fused_stream`` once per speculative round.
+     layer per prefill and ``fused_stream`` once per speculative round;
+  6. serve 12 greedy requests through ``Gateway.tick`` over the paged
+     session pool on the same weights (8 slots in 2 banks, chunk 4,
+     32-token pages, 24 pages per bank, no backend named so that the
+     engine and its banks default to the kernels, LRU preemption on): 4 incumbents of 128 prompt tokens and budget 32 at
+     tick 0, bursts of 4 at ticks 2 (64 tokens) and 3 (256 tokens), budget
+     8.  Every request must finish with its budget, its tokens must equal
+     a solo ``Engine.generate`` (a differing token only at a near-tie of
+     the solo path's teacher-forced logits, within 2e-2 of the max), the
+     pool must preempt and give every page back; over one steady
+     ``pool.step()`` (counters set to 0 just before), ``gather_rows``,
+     ``fused_stream`` and ``scatter_rows`` must each launch once per bank
+     and the decode chunk must not synchronize with the host.
 
 The lines before the last are the card (``nvidia-smi`` name and power
 limit) and one JSON object with every kernel's launches, error and
@@ -48,6 +63,12 @@ BF16_FLOPS_PER_S = 989e12
 
 PROMPT_LEN, MAX_NEW, BATCH, SPEC = 256, 64, 4, 4
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# phase 6: the paged pool behind the gateway
+POOL = dict(slots=8, n_banks=2, chunk=4, page_size=32, pages_per_bank=24)
+POOL_MAX_LEN = 384
+#: (gateway tick, requests, prompt tokens, budget)
+POOL_TRAFFIC = ((0, 4, 128, 32), (2, 4, 64, 8), (3, 4, 256, 8))
+NEAR_TIE = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -303,6 +324,85 @@ def check_fused_stream(torch, np, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the paged-row kernels at the pool's shapes
+# ---------------------------------------------------------------------------
+
+def check_rows(torch, np, dev):
+    """gather_rows / scatter_rows against their twins, bit for bit, on
+    int32 token banks at phase 6's shapes: a chunk moves rows_per_bank x C
+    pages per bank, clean pages carry the sentinel ``pages_per_bank``;
+    a park reads one session's pages."""
+    from repro_torch.kernels import cpm_kernels as ck
+
+    ppb, pg = POOL["pages_per_bank"], POOL["page_size"]
+    rpb, c = POOL["slots"] // POOL["n_banks"], POOL_MAX_LEN // pg
+    rng = np.random.default_rng(9)
+    bank = torch.from_numpy(
+        rng.integers(0, 49152, (ppb, pg)).astype(np.int32)).to(dev)
+    # a chunk's page table: each row's pages unique, the tail sentinel
+    table = np.full((rpb, c), ppb, np.int32)
+    free = list(rng.permutation(ppb))
+    for r in range(rpb):
+        for j in range(int(rng.integers(2, 6))):
+            table[r, j] = free.pop()
+    flat = torch.from_numpy(table.reshape(-1)).to(dev)
+    gather_ids = flat.clamp(0, ppb - 1).contiguous()
+    dirty = np.where(np.arange(c)[None] >= rng.integers(0, 3, (rpb, 1)),
+                     table, ppb).reshape(-1)
+    scatter_ids = torch.from_numpy(dirty.astype(np.int32)).to(dev)
+    src = torch.from_numpy(
+        rng.integers(0, 49152, (rpb * c, pg)).astype(np.int32)).to(dev)
+    park_ids = torch.from_numpy(table[0, :4].copy()).to(dev)
+    cases = {"gather_rows": [(bank, gather_ids), (bank, park_ids)],
+             "scatter_rows": [(bank, scatter_ids, src)]}
+    kernels = {"gather_rows": (ck.gather_rows, ck.gather_rows_plain),
+               "scatter_rows": (ck.scatter_rows, ck.scatter_rows_plain)}
+    for name, args_list in cases.items():
+        fn, plain = kernels[name]
+        for args in args_list:
+            got = fn(*args)
+            torch.cuda.synchronize()
+            same = torch.equal(got, plain(*args))
+            shapes = " ".join(str(tuple(a.shape)) for a in args)
+            print(f"{name} int32 {shapes} (sentinel {ppb}): "
+                  f"max_abs_err={0.0 if same else 'inf'} tol=0 "
+                  f"(bit-identical) {'ok' if same else 'MISMATCH'}")
+            if not same:
+                fail(f"{name} disagrees with its plain twin at {shapes}")
+
+    keep = scatter_ids < ppb                      # the library call cannot
+    lib_ids = scatter_ids[keep].long()            # drop: give it only the
+    lib_src = src[keep]                           # in-range rows
+    out = []
+    for name, args, lib, nbytes in (
+            ("gather_rows", (bank, gather_ids),
+             lambda: torch.index_select(bank, 0, gather_ids),
+             # distinct rows read once, every output row written once
+             (gather_ids.unique().numel() + gather_ids.numel()) * pg * 4
+             + gather_ids.numel() * 4),
+            ("scatter_rows", (bank, scatter_ids, src),
+             lambda: bank.clone().index_copy_(0, lib_ids, lib_src),
+             # each output row reads one row (of src or of dst) once
+             (2 * bank.numel() + scatter_ids.numel()) * 4)):
+        fn, plain = kernels[name]
+        ms, src_, call_ms = timed(lambda: fn(*args), 200)
+        plain_ms, _, plain_call = timed(lambda: plain(*args), 50)
+        lib_ms, _, _ = timed(lib, 200)
+        bound_ms, by = bound(nbytes)
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/csrc/rows.cu",
+                    "replaces": ("src/repro/kernels/cpm_kernels.py:670"
+                                 if name == "gather_rows" else
+                                 "src/repro/kernels/cpm_kernels.py:698"),
+                    "launches": None, "max_abs_err": 0.0, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": by, "library_ms": lib_ms,
+                    "ms_source": src_, "call_ms": call_ms,
+                    "plain_call_ms": plain_call})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: small input, card against CPU
 # ---------------------------------------------------------------------------
 
@@ -430,7 +530,239 @@ def serve_granite(torch, dev, layers, record):
           f"({stats['accepted']}/{stats['proposed']}); spec == scan")
     print(f"launches on the main path: {counts} (after scan: {after_scan})")
     record["serve"] = serve
+    return counts, cfg, params
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the paged session pool behind the gateway, full width
+# ---------------------------------------------------------------------------
+
+def _solo_gaps(torch, engine, prompt, seq):
+    """The solo path's teacher-forced logits over ``seq``: per generated
+    token, the max logit minus the token's logit; the tolerance; and how
+    many tokens are not the solo path's own choice (an exact bf16 tie of
+    the max counts here with gap 0)."""
+    from repro_torch.models import lm
+    from repro_torch.serve import kv_cache
+
+    s = prompt.shape[0]
+    lg0, caches = lm.prefill(engine.params, engine.cfg,
+                             {"tokens": prompt[None]},
+                             max_len=engine.max_len)
+    caches = kv_cache.broadcast_lens(caches, 1)
+    new = seq[None, s:]
+    lg, _, _ = lm.decode_multi(engine.params, engine.cfg, new[:, :-1],
+                               caches, torch.full((1,), s, dtype=torch.int32,
+                                                  device=seq.device))
+    lg = torch.cat([lg0, lg], dim=1)[0, :, :engine.cfg.vocab_size].float()
+    picked = lg.gather(-1, new[0, :, None].long())[:, 0]
+    tol = NEAR_TIE * max(1.0, float(lg.abs().max()))
+    other = int((lg.argmax(-1) != new[0]).sum())
+    return (lg.amax(-1) - picked).cpu(), tol, other
+
+
+def serve_pool(torch, dev, cfg, params, record):
+    """Phase 6 (see the module docstring).  Returns the launch counts of
+    the gateway run."""
+    import warnings
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import repeated_prompts
+    from repro_torch.serve import Engine, Gateway, GenConfig
+
+    # no backend named: on the card the engine and the pool's banks
+    # default to the kernels
+    engine = Engine(cfg, params, max_len=POOL_MAX_LEN)
+    gw = Gateway(engine, **POOL)
+    pool = gw.pool
+    if engine.cpm_backend != "cuda" or \
+            {b.backend for b in pool.banks} != {"cuda"}:
+        fail("the pool on the card does not default to the cuda banks")
+    arrivals = []
+    for i, (tick, n, plen, budget) in enumerate(POOL_TRAFFIC):
+        prompts = repeated_prompts(n, plen, cfg.vocab_size, 20 + i,
+                                   device=dev)
+        arrivals += [(tick, prompts[j], budget) for j in range(n)]
+
+    ops.reset_launch_counts()                      # the pool path, counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids, reports, nxt = [], [], 0
+    while nxt < len(arrivals) or gw.loop.pending():
+        while nxt < len(arrivals) and arrivals[nxt][0] <= gw.loop.ticks:
+            _, prompt, budget = arrivals[nxt]
+            rids.append((gw.submit(prompt, budget), prompt, budget))
+            nxt += 1
+        reports.append(gw.tick())
+        if gw.loop.ticks > 200:
+            fail("the gateway did not drain in 200 ticks")
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = gw.stats()
+
+    # every request finished with its budget
+    for rid, prompt, budget in rids:
+        req = gw.request(rid)
+        if not req.done or req.cancelled or \
+                len(req.tokens) != prompt.shape[0] + budget:
+            fail(f"request {rid} did not finish with its budget "
+                 f"({None if req.tokens is None else len(req.tokens)} "
+                 f"tokens for {prompt.shape[0]} + {budget})")
+    if st["preemptions"] <= 0:
+        fail("the burst preempted nothing")
+    if st["pages_free"] != pool.total_pages:
+        fail(f"{st['pages_free']} of {pool.total_pages} pages free after "
+             f"the drain")
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"{name} was not launched on the pool path ({counts})")
+
+    # tokens against solo generation, near-ties allowed
+    t0 = time.perf_counter()
+    identical, tie_steps, worst, worst_tol = 0, 0, 0.0, None
+    for rid, prompt, budget in rids:
+        got = torch.as_tensor(gw.request(rid).tokens).to(dev)
+        solo, _ = engine.generate({"tokens": prompt[None]},
+                                  GenConfig(max_new_tokens=budget))
+        if torch.equal(got, solo[0]):
+            identical += 1
+            continue
+        gaps, tol, other = _solo_gaps(torch, engine, prompt, got)
+        if float(gaps.max()) >= worst:
+            worst, worst_tol = float(gaps.max()), tol
+        tie_steps += other
+        if not float(gaps.max()) <= tol:
+            fail(f"request {rid}: a pool token lies {float(gaps.max())} "
+                 f"below the solo path's max logit (tol {tol})")
+    t_solo = time.perf_counter() - t0
+    print(f"pool tokens vs solo Engine.generate: {identical}/{len(rids)} "
+          f"requests identical; in the others {tie_steps} steps took a "
+          f"token other than the solo path's choice on the same prefix, "
+          f"each a near-tie (largest gap {worst:.3e}, its tol {worst_tol} "
+          f"= {NEAR_TIE} x max(1, |logit|))")
+
+    # one steady step: 8 sessions seated, none waiting, finishing or parked
+    for i in range(POOL["slots"]):
+        gw.submit(repeated_prompts(1, 64, cfg.vocab_size, 40 + i,
+                                   device=dev)[0], 24)
+    gw.tick()                                      # admission + one chunk
+    before = gw.stats()
+    if before["waiting"] or before["active"] != POOL["slots"]:
+        fail(f"the steady step is not steady: {before}")
+    inner = pool._chunk
+    syncs = []
+
+    def watched(*a, **k):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return inner(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs.extend(str(w.message) for w in caught
+                             if "synchronizing CUDA operation"
+                             in str(w.message))
+
+    pool._chunk = watched
+    done_before = pool.table.active_count()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    pool.step()
+    ev1.record()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    del pool._chunk
+    dispatch_s = pool.last_chunk_s
+    steady = ops.launch_counts()
+    after = pool.stats()
+    moved = {k: (before[k], after[k]) for k in ("admits", "restores",
+                                                "preemptions", "cancels")
+             if after[k] != before[k]}
+    if moved or pool.table.active_count() != done_before:
+        fail(f"the steady step admitted, restored, parked or retired: "
+             f"{moved}, active {done_before} -> "
+             f"{pool.table.active_count()}")
+    want = {"gather_rows": POOL["n_banks"], "fused_stream": POOL["n_banks"],
+            "scatter_rows": POOL["n_banks"], "flash_attention": 0}
+    if steady != want:
+        fail(f"one steady pool.step() launched {steady}, want {want}")
+    if syncs:
+        fail(f"the decode chunk synchronized with the host: {syncs[:3]}")
+    chunk_tokens = POOL["slots"] * POOL["chunk"]
+    busy_ms, top = steady_profile(torch, pool)
+    while gw.loop.pending():
+        gw.tick()
+    if gw.stats()["pages_free"] != pool.total_pages:
+        fail("pages leaked after the steady-step drain")
+
+    pool_rec = {
+        **POOL, "max_len": POOL_MAX_LEN, "layers": cfg.n_layers,
+        "requests": len(rids), "traffic": POOL_TRAFFIC,
+        "ticks": st["ticks"], "run_s": t_run,
+        "tokens_out": sum(b for _, _, b in rids),
+        "run_tok_s": sum(b for _, _, b in rids) / t_run,
+        "prefill_launches": st["prefill_launches"],
+        "admits": st["admits"], "preemptions": st["preemptions"],
+        "restores": st["restores"], "page_stalls": st["page_stalls"],
+        "slo_met": st["slo_met"], "identical": identical,
+        "near_tie_steps": tie_steps, "largest_gap": worst,
+        "largest_gap_tol": worst_tol, "solo_check_s": t_solo,
+        "launches": counts, "steady_launches": steady,
+        "steady_step_ms": step_s * 1e3,
+        "steady_step_device_ms": ev0.elapsed_time(ev1),
+        "steady_dispatch_ms": dispatch_s * 1e3,
+        "steady_decode_tok_s": chunk_tokens / step_s,
+        "steady_device_busy_ms": busy_ms,
+        "steady_idle_share": 1.0 - busy_ms / (step_s * 1e3),
+        "steady_top_kernels": top,
+        "ticks_report": [{k: r[k] for k in (
+            "tick", "step", "admitted", "restored", "preempted", "finished",
+            "emitted", "chunk_wall_s", "wall_s", "active", "waiting",
+            "parked", "pages_free")} for r in reports],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    record["pool"] = pool_rec
+    print(f"pool: {len(rids)} requests in {st['ticks']} ticks, "
+          f"{t_run:.2f}s ({pool_rec['run_tok_s']:.1f} new tok/s incl. "
+          f"prefill); prefill launches {st['prefill_launches']} for "
+          f"{st['admits']} admits; preemptions {st['preemptions']}, "
+          f"restores {st['restores']}, page stalls {st['page_stalls']}")
+    print(f"pool steady step ({POOL['slots']} rows x chunk "
+          f"{POOL['chunk']}): {step_s * 1e3:.1f} ms synchronized, "
+          f"{ev0.elapsed_time(ev1):.1f} ms between events, chunk dispatch "
+          f"{dispatch_s * 1e3:.1f} ms; {chunk_tokens / step_s:.1f} "
+          f"decode tok/s; launches {steady}; host syncs in the chunk 0")
+    print(f"pool steady step under torch.profiler: device busy "
+          f"{busy_ms:.1f} ms of the {step_s * 1e3:.1f} ms unprofiled step "
+          f"(idle share {1.0 - busy_ms / (step_s * 1e3):.3f}); top kernels "
+          f"(ms, calls): {top}")
+    print(f"launches on the pool path: {counts}")
     return counts
+
+
+def steady_profile(torch, pool):
+    """One more steady ``pool.step()`` under ``torch.profiler``: the summed
+    device time of its kernels and copies (ms), and the eight largest by
+    device time as ``[name, ms, calls]``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pool.step()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")
+           and e.self_device_time_total > 0]
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    return busy, [[e.key[:60], round(e.self_device_time_total / 1e3, 3),
+                   e.count] for e in dev[:8]]
 
 
 def nvidia_smi_line() -> str:
@@ -479,18 +811,23 @@ def main(argv=None) -> int:
                          "n_kv_heads": full.n_kv_heads,
                          "head_dim": full.dh}}
     kernels = [check_flash(torch, dev, record),
-               check_fused_stream(torch, np, dev)]
+               check_fused_stream(torch, np, dev),
+               *check_rows(torch, np, dev)]
     check_small_model(torch, dev)
-    counts = serve_granite(torch, dev, args.layers, record)
+    gen_counts, cfg, params = serve_granite(torch, dev, args.layers, record)
+    pool_counts = serve_pool(torch, dev, cfg, params, record)
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        # the newest main path (the pool); the generate path's count too
+        k["launches"] = pool_counts[k["name"]]
+        k["launches_by_path"] = {"generate": gen_counts[k["name"]],
+                                 "pool": pool_counts[k["name"]]}
         print(f"{k['name']}: {k['ms']:.4f} ms on the card "
               f"({k['ms_source']}; {k['call_ms']:.4f} ms per call with "
               f"host time), plain {k['plain_ms']:.4f} ms "
               f"({k['plain_call_ms']:.4f} per call), bound "
               f"{k['bound_ms']:.6f} ms by {k['bound_by']}, library "
-              f"{k['library_ms']} ms; {k['launches']} launches on the "
-              f"main path; {card}")
+              f"{k['library_ms']} ms; {k['launches_by_path']} launches "
+              f"on the main paths; {card}")
     record["kernels"] = kernels
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)

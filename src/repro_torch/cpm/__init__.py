@@ -1,5 +1,5 @@
 """repro_torch.cpm — the paper's memory device behind one operator surface
-(the slice of ``repro.cpm`` that the serving commit path needs).
+(the slice of ``repro.cpm`` that the serving paths need).
 
   * :class:`CPMArray` / :func:`cpm_array` — a physical buffer plus its
     §4.2 ``used_len`` register; every op dispatches to a backend.
@@ -9,6 +9,8 @@
     (a verbatim copy of the JAX package's pure-Python table).
   * ``semantics`` — the canonical result conventions.
   * ``program`` — record, schedule and execute instruction streams.
+  * ``pool`` — paged banks, the self-managing allocator and the
+    multi-bank packer under the serving session pool.
 """
 
 from . import backends, optable, program, reference, semantics

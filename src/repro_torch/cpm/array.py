@@ -15,8 +15,9 @@ inside ``with record() as prog:`` the call is appended to the program
 and still returns its eager value.  The in-place move ops (shift,
 insert, delete) take a scalar ``used_len`` per call; batched devices
 with per-row lengths run them through the program executor, which
-replays row by row.  The reductions, sort, histogram and compact wait
-for ROADMAP Queue 1 item 2.
+replays row by row.  ``count``, ``global_limit`` and ``compact`` (what
+the pool's allocator needs) run on the reference backend; the other
+reductions, sort and histogram wait for ROADMAP Queue 2.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from . import backends, semantics
 from ._tensor import asarray
 from .program.ir import recordable
-from .reference import movable
+from .reference import movable, pe_array
 
 
 @dataclass(frozen=True)
@@ -140,7 +141,25 @@ class CPMArray:
             x, d = self.data.to(ct), d.to(ct)
         return self._b("compare").compare(x, d, op) & self._live()
 
+    @recordable("count")
+    def count(self, datum, op: str = "eq", mask=None) -> torch.Tensor:
+        """Rule-6 parallel count of matching PEs."""
+        return pe_array.count_matches(self.compare(datum, op, mask))
+
     # -- compute (§7) ---------------------------------------------------
+    def _masked(self, fill) -> torch.Tensor:
+        return torch.where(self._live(), self.data,
+                           asarray(fill, self.dtype, self.device))
+
+    @recordable("global_limit")
+    def global_limit(self, mode: str = "max",
+                     section: int | None = None) -> torch.Tensor:
+        """Two-phase per-row max/min of the used region (§7.5); the tail
+        takes the reduction's identity."""
+        fill = semantics.limit_identity(self.dtype, mode)
+        return self._b("global_limit").global_limit(self._masked(fill),
+                                                    mode, section)
+
     @recordable("template_match")
     def template_match(self, template, mask_tail: bool = True):
         """SAD of an M-item template at every start address; with
@@ -161,6 +180,17 @@ class CPMArray:
         x = torch.where(self._live(), self.data,
                         torch.zeros((), dtype=self.dtype, device=self.device))
         return self._b("stencil").stencil(x, taps, wrap=False)
+
+    # -- pack (§4.2) ----------------------------------------------------
+    @recordable("compact")
+    def compact(self, keep, fill=0) -> "CPMArray":
+        """Stable §4.2 pack: flagged items inside the used region move to
+        the front in order, vacated slots take ``fill``, ``used_len``
+        becomes the survivor count."""
+        keep = asarray(keep, torch.bool, self.device) & self._live()
+        data, new_len = self._b("compact").compact(
+            self.data, keep, asarray(fill, self.dtype, self.device))
+        return self._with(data=data, used_len=new_len)
 
 
 def cpm_array(data, used_len=None, backend: str = "auto",

@@ -32,6 +32,8 @@ class Backend(Protocol):
     def compare(self, x, datum, op: str = "eq"): ...
     def template_match(self, data, template): ...
     def stencil(self, x, taps, wrap: bool = False): ...
+    def global_limit(self, x, mode: str = "max", section=None): ...
+    def compact(self, x, keep, fill=0): ...                # (data, new_len)
 
     def fused_stream(self, x, used_len, instrs, operands,
                      block_r: int = 1):

@@ -3,10 +3,10 @@
 This slice ports its ``fused_stream``: a fused instruction group runs as
 ONE ``csrc/fused_stream.cu`` launch with the row block and its length
 register resident.  The per-op kernels (activate, shift_range, compare,
-substring/template match, stencil, ...) are still to port (ROADMAP
-Queue 2), so ``supports`` is False for every single op and a call raises:
-the pin-compatibility contract — a forced backend that lacks an op
-raises, it never substitutes another realization.
+substring/template match, stencil, global_limit, compact, ...) are still
+to port (ROADMAP Queue 2), so ``supports`` is False for every single op
+and a call raises: the pin-compatibility contract — a forced backend
+that lacks an op raises, it never substitutes another realization.
 """
 
 from __future__ import annotations
@@ -43,6 +43,12 @@ class CudaBackend:
 
     def stencil(self, x, taps, wrap=False):
         _missing("stencil")
+
+    def global_limit(self, x, mode="max", section=None):
+        _missing("global_limit")
+
+    def compact(self, x, keep, fill=0):
+        _missing("compact")
 
     def fused_stream(self, x, used_len, instrs, operands, block_r: int = 1):
         """One ``fused_stream`` kernel launch for a whole fused group (the

@@ -1,11 +1,34 @@
-"""The two §7 row filters the fused stream covers (a port of
-``template_match_1d`` and ``stencil_1d`` of
-``repro.cpm.reference.computable``; the reductions and sorts wait for
-ROADMAP Queue 1 item 2)."""
+"""The §7 row filters the fused stream covers and the §7.5 global limit
+the pool's allocator uses (a port of ``template_match_1d``,
+``stencil_1d`` and ``section_limit`` of
+``repro.cpm.reference.computable``; the sums, sorts and §8 trees wait
+for ROADMAP Queue 2)."""
 
 from __future__ import annotations
 
 import torch
+
+from ..optable import optimal_section
+
+
+def section_limit(x: torch.Tensor, section: int | None = None,
+                  mode: str = "max") -> torch.Tensor:
+    """Paper §7.5: per-row max/min along the last axis, two-phase — every
+    M-item section reduces, then the N/M section limits combine.  The pad
+    to a whole number of sections takes the reduction's identity."""
+    from ..semantics import limit_identity
+
+    n = x.shape[-1]
+    m = section or optimal_section(n)
+    pad = (-n) % m
+    if pad:
+        fill = torch.full((*x.shape[:-1], pad),
+                          limit_identity(x.dtype, mode), dtype=x.dtype,
+                          device=x.device)
+        x = torch.cat([x, fill], dim=-1)
+    sec = x.reshape(*x.shape[:-1], -1, m)
+    op = torch.amax if mode == "max" else torch.amin
+    return op(op(sec, dim=-1), dim=-1)
 
 
 def template_match_1d(data: torch.Tensor, template: torch.Tensor):

@@ -55,6 +55,19 @@ def fill_deleted_tail(x: torch.Tensor, used_len, k: int,
     return torch.where(vacated, asarray(fill, x.dtype, x.device), x)
 
 
+def compact(x: torch.Tensor, keep: torch.Tensor, fill=0):
+    """Stable §4.2 compaction: kept items move to the front in order,
+    vacated tail slots take ``fill``.  Returns ``(compacted, new_len)``
+    (one stable argsort pack, as the JAX reference)."""
+    n = x.shape[-1]
+    new_len = keep.to(torch.int32).sum(dim=-1, dtype=torch.int32)
+    order = torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)
+    out = torch.gather(x, -1, order) if x.ndim == keep.ndim else x[order]
+    live = torch.arange(n, dtype=torch.int32, device=x.device) < (
+        new_len[..., None] if new_len.ndim else new_len)
+    return torch.where(live, out, asarray(fill, x.dtype, x.device)), new_len
+
+
 def insert(x: torch.Tensor, pos, values: torch.Tensor, used_len):
     """Insert ``values`` at ``pos``; [pos, used_len) shifts right."""
     out = shift_range(x, pos, asarray(used_len) - 1, values.shape[-1])

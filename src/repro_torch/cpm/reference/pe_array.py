@@ -27,6 +27,15 @@ def activation_mask(n: int, start, end, carry=1, *,
     return (addr >= start) & (addr <= end) & ((addr - start) % carry == 0)
 
 
+def count_matches(match: torch.Tensor) -> torch.Tensor:
+    """Parallel counter: number of asserted match lines (any shape)."""
+    return match.to(torch.int32).sum(dtype=torch.int32)
+
+
+def any_match(match: torch.Tensor) -> torch.Tensor:
+    return match.any()
+
+
 def enumerate_matches(match: torch.Tensor, max_out: int):
     """Up to ``max_out`` asserted addresses in ascending order along the
     address axis; unused slots hold ``n``.  Returns ``(indices, valid)``."""

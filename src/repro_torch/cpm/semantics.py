@@ -5,7 +5,8 @@
     end-address view is one converter away (`ends_to_starts`);
   * sliding-window ops (template match) report every start whose window
     fits: tail positions ``p > used_len - m`` are masked (`window_valid`);
-  * stencils default to zero padding at the row ends (``wrap=False``).
+  * stencils default to zero padding at the row ends (``wrap=False``);
+  * global limits pad with the reduction's identity (`limit_identity`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,15 @@ def window_valid(n: int, m: int, used_len=None,
     used = asarray(n if used_len is None else used_len, device=device)
     idx = torch.arange(n, dtype=torch.int32, device=used.device)
     return idx + m <= (used[..., None] if used.ndim else used)
+
+
+def limit_identity(dtype: torch.dtype, mode: str):
+    """Identity element of the §7.5 global-limit reduction for ``dtype``
+    (the one fill every backend pads with)."""
+    if dtype.is_floating_point:
+        return -float("inf") if mode == "max" else float("inf")
+    info = torch.iinfo(dtype)
+    return info.min if mode == "max" else info.max
 
 
 def mask_window_tail(out: torch.Tensor, m: int, used_len=None,

@@ -1,4 +1,5 @@
-"""The fused CPM instruction stream: the Hopper kernel and its plain twin.
+"""The CPM kernels of the port: the fused instruction stream and the
+paged-row moves, each a Hopper kernel beside its plain twin.
 
 Replaces ``src/repro/kernels/cpm_kernels.py:809`` (``fused_stream``,
 ``pallas_call`` at ``:882``, per-instruction body ``_fused_apply`` at
@@ -15,6 +16,11 @@ so :func:`fused_stream_plain` is bit-identical to the TPU kernel run in
 interpret mode.  :func:`fused_stream` launches ``csrc/fused_stream.cu``
 for CUDA tensors (counted in ``fused_stream.launches``) and runs the
 plain twin for CPU tensors.
+
+:func:`gather_rows` and :func:`scatter_rows` replace ``:670`` and
+``:698`` of the same JAX file: the sub-page moves of the session pool's
+token banks, one ``csrc/rows.cu`` launch each (counted the same way),
+with :func:`gather_rows_plain` / :func:`scatter_rows_plain` as twins.
 """
 
 from __future__ import annotations
@@ -408,3 +414,120 @@ def fused_stream(x, used_len, instrs, operands, *, block_r: int = 1):
 
 
 fused_stream.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# paged-row movement (repro_torch.cpm.pool banks): csrc/rows.cu
+# ---------------------------------------------------------------------------
+#
+# Replaces ``src/repro/kernels/cpm_kernels.py:670`` (``gather_rows``) and
+# ``:698`` (``scatter_rows``).  Rows move as bytes, so any dtype works.
+
+def gather_rows_plain(x, idx):
+    """``(R, N)`` rows at ``(K,)`` ids -> ``(K, N)`` copies; an id outside
+    ``[0, R)`` clamps (the pool clips its ids before the call)."""
+    r = x.shape[0]
+    return x[idx.to(torch.long).clamp(0, r - 1)]
+
+
+def scatter_rows_plain(dst, idx, src):
+    """A new ``(R, N)`` array: row ``idx[i]`` takes ``src[i]`` (ids unique),
+    every other row keeps ``dst``; ids outside ``[0, R)`` drop.  Built as
+    the TPU kernel builds it: an inverse page map, then a gather over the
+    destination rows."""
+    r, k = dst.shape[0], idx.shape[0]
+    if k == 0:
+        return dst.clone()
+    ids = idx.to(torch.long)
+    ok = (ids >= 0) & (ids < r)
+    inv = torch.full((r + 1,), -1, dtype=torch.long, device=dst.device)
+    inv[torch.where(ok, ids, r)] = torch.arange(k, device=dst.device)
+    inv = inv[:r]                                 # row r + 1 took the drops
+    return torch.where((inv >= 0)[:, None], src[inv.clamp(min=0)], dst)
+
+
+def _rows_check(name, x, idx):
+    if x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"{name} takes contiguous (R, N) rows, got shape "
+                         f"{tuple(x.shape)}")
+    if idx.ndim != 1 or idx.dtype != torch.int32 or idx.device != x.device \
+            or not idx.is_contiguous():
+        raise ValueError(f"{name}: ids must be a contiguous (K,) int32 "
+                         f"tensor on {x.device}")
+    if x.shape[0] >= 2 ** 31 or idx.shape[0] >= 2 ** 31:
+        raise ValueError(f"{name}: more than 2**31 rows")
+
+
+def _rows_lib(entry: str, nptr: int):
+    lib = _build.load("rows")
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * nptr + [I, I, ctypes.c_longlong, P]
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def gather_rows(x, idx):
+    """Rows of an ``(R, N)`` bank at ``(K,)`` int32 ids -> ``(K, N)``: one
+    ``csrc/rows.cu`` launch for CUDA tensors (counted in
+    ``gather_rows.launches``), the plain twin for CPU tensors."""
+    if x.device.type == "cpu":
+        return gather_rows_plain(x, idx)
+    if x.device.type != "cuda":
+        raise ValueError(f"gather_rows takes CPU or CUDA rows, got "
+                         f"{x.device}")
+    _rows_check("gather_rows", x, idx)
+    r, n = x.shape
+    k = idx.shape[0]
+    out = torch.empty((k, n), dtype=x.dtype, device=x.device)
+    if k == 0 or n == 0:
+        return out
+    if r == 0:
+        raise ValueError("gather_rows from an empty bank")
+    lib, fn = _rows_lib("gather_rows_launch", 3)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), r, k,
+                n * x.element_size(), stream)
+    _build.check(lib, rc, "gather_rows launch")
+    gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0
+
+
+def scatter_rows(dst, idx, src):
+    """``src`` ``(K, N)`` written into a copy of ``dst`` ``(R, N)`` at
+    ``(K,)`` unique int32 ids; ids outside ``[0, R)`` drop.  One
+    ``csrc/rows.cu`` launch for CUDA tensors (counted in
+    ``scatter_rows.launches``), the plain twin for CPU tensors.  Returns
+    the new array; ``dst`` is not written."""
+    if dst.device.type == "cpu":
+        return scatter_rows_plain(dst, idx, src)
+    if dst.device.type != "cuda":
+        raise ValueError(f"scatter_rows takes CPU or CUDA rows, got "
+                         f"{dst.device}")
+    _rows_check("scatter_rows", dst, idx)
+    r, n = dst.shape
+    k = idx.shape[0]
+    if src.shape != (k, n) or src.dtype != dst.dtype \
+            or src.device != dst.device or not src.is_contiguous():
+        raise ValueError(f"scatter_rows: src must be contiguous ({k}, {n}) "
+                         f"{dst.dtype} on {dst.device}, got "
+                         f"{tuple(src.shape)} {src.dtype} on {src.device}")
+    out = torch.empty_like(dst)
+    if r == 0 or n == 0:
+        return out
+    lib, fn = _rows_lib("scatter_rows_launch", 4)
+    with torch.cuda.device(dst.device):
+        stream = torch.cuda.current_stream(dst.device).cuda_stream
+        rc = fn(dst.data_ptr(), idx.data_ptr(), src.data_ptr(),
+                out.data_ptr(), r, k, n * dst.element_size(), stream)
+    _build.check(lib, rc, "scatter_rows launch")
+    scatter_rows.launches += 1
+    return out
+
+
+scatter_rows.launches = 0

@@ -17,7 +17,9 @@ from . import cpm_kernels, flash_attention as fa, ref
 
 #: every hand-written kernel wrapper of the port, by kernel name
 KERNELS = {"flash_attention": fa.flash_attention,
-           "fused_stream": cpm_kernels.fused_stream}
+           "fused_stream": cpm_kernels.fused_stream,
+           "gather_rows": cpm_kernels.gather_rows,
+           "scatter_rows": cpm_kernels.scatter_rows}
 
 
 def _mode(impl, t) -> str:

@@ -14,15 +14,19 @@ two differ only in summation order.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 NEG_INF = -1e30
 
 
+@functools.lru_cache(maxsize=None)
 def _in_dtype(v: float, dtype: torch.dtype) -> float:
     """``v`` rounded to ``dtype``, as a Python float: multiplying a tensor
     by it rounds like ``x * weak_python_scalar`` in JAX (the scalar takes
-    the array's dtype first) and needs no host-to-device copy."""
+    the array's dtype first) and needs no host-to-device copy.  Cached:
+    the rounding is a host computation, done once per (value, dtype)."""
     return float(torch.tensor(v, dtype=dtype))
 
 

@@ -60,13 +60,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    # the commit runs through the fused_stream kernel on a GPU
-    backend = "cuda" if dev.type == "cuda" else "reference"
     gen_ = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.init_params(cfg, gen_, dev)
     slack = 8 + 4 * args.spec
     engine = Engine(cfg, params, max_len=args.prompt_len + args.max_new
-                    + slack, cpm_backend=backend)
+                    + slack)   # commits on fused_stream on a GPU
     tokens = repeated_prompts(args.batch, args.prompt_len, cfg.vocab_size,
                               args.seed + 1, device=dev)
     gen = GenConfig(max_new_tokens=args.max_new,

@@ -1,9 +1,12 @@
-"""Serving: the batched engine with speculative decoding (a port of the
-static-batch part of ``repro.serve``; the session pool, gateway and HTTP
-wire wait for ROADMAP Queue 1 items 7-8)."""
+"""Serving: the batched engine with speculative decoding, the paged
+session pool and the gateway over it (a port of ``repro.serve``; the
+HTTP wire front waits for ROADMAP Queue 1)."""
 
-from . import engine, kv_cache, program_paths, sampling
+from . import engine, kv_cache, program_paths, sampling, session_pool
 from .engine import Engine, GenConfig
+from .gateway import Gateway, Request
+from .session_pool import PageState, SessionPool
 
-__all__ = ["engine", "kv_cache", "program_paths", "sampling", "Engine",
-           "GenConfig"]
+__all__ = ["engine", "kv_cache", "program_paths", "sampling",
+           "session_pool", "Engine", "GenConfig", "Gateway", "Request",
+           "PageState", "SessionPool"]

@@ -15,8 +15,11 @@ length truncation and commits the tokens — through the recorded
 Each round makes ONE host sync: the loop condition and the round's
 statistics come back together.
 
-The session pool (``session_pool`` / ``submit`` / ``step`` / ``drain``)
-waits for ROADMAP Queue 1 item 7.
+Beyond the static ``generate`` batch, the engine serves a *stream* of
+requests through the paged session pool (``session_pool.py``):
+``submit`` / ``step`` / ``drain`` admit sessions into free KV and token
+pages mid-flight, decode every live page, and retire finished sessions
+so their pages go straight back to the allocator.
 """
 
 from __future__ import annotations
@@ -31,6 +34,19 @@ from repro_torch.models import lm
 from . import kv_cache, program_paths, sampling
 
 CPM_BACKENDS = ("reference", "cuda")
+
+
+def resolve_cpm_backend(backend: str | None, device) -> str:
+    """The CPM backend of an engine or a pool: the caller's choice, else
+    ``cuda`` (the hand-written kernels) on a CUDA device and
+    ``reference`` (plain PyTorch) on the CPU."""
+    if backend is None:
+        backend = ("cuda" if torch.device(device).type == "cuda"
+                   else "reference")
+    if backend not in CPM_BACKENDS:
+        raise ValueError(f"cpm_backend must be one of {CPM_BACKENDS}, "
+                         f"got {backend!r}")
+    return backend
 
 
 @dataclasses.dataclass
@@ -50,18 +66,16 @@ class Engine:
     ``convert.params_from_numpy``).  ``cpm_backend`` picks the commit
     path: ``"reference"`` (one scatter) or ``"cuda"`` (the recorded
     commit program, one ``fused_stream`` launch per round; its plain twin
-    for CPU tensors)."""
+    for CPU tensors); by default ``cuda`` on a CUDA device, ``reference``
+    on the CPU.  The session pool's token banks follow it."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
-                 cpm_backend: str = "reference"):
-        if cpm_backend not in CPM_BACKENDS:
-            raise ValueError(f"cpm_backend must be one of {CPM_BACKENDS}, "
-                             f"got {cpm_backend!r}")
+                 cpm_backend: str | None = None):
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
-        self.cpm_backend = cpm_backend
         self.device = params["emb"].device
+        self.cpm_backend = resolve_cpm_backend(cpm_backend, self.device)
 
     # -- public API --------------------------------------------------------
 
@@ -207,3 +221,39 @@ class Engine:
         prop = torch.clamp(remaining, max=draft_len).sum(dtype=torch.int32)
         return (buf, n_new, caches, new_pos, acc, prop,
                 emit_n.sum(dtype=torch.int32))
+
+    # -- continuous batching (paged session pool) --------------------------
+
+    def session_pool(self, slots: int = 8, n_banks: int = 1, gen=None,
+                     **kw):
+        """A fresh continuous-batching pool over this engine's weights:
+        ``slots`` sessions split across ``n_banks`` CPM banks (see
+        ``repro_torch.serve.session_pool``)."""
+        from .session_pool import SessionPool
+        return SessionPool(self, slots=slots, n_banks=n_banks, gen=gen,
+                           **kw)
+
+    def submit(self, tokens, max_new_tokens: int | None = None, **pool_kw):
+        """Queue one request on the engine's default session pool (made at
+        the first call; ``pool_kw`` configures it).  Returns the session
+        id; ``step()`` / ``drain()`` advance it."""
+        if getattr(self, "_pool", None) is None:
+            self._pool = self.session_pool(**pool_kw)
+        elif pool_kw:
+            raise ValueError("default pool already exists; use "
+                             "session_pool() for a differently-shaped one")
+        return self._pool.submit(tokens, max_new_tokens)
+
+    def step(self):
+        """One continuous-batching step on the default pool; returns the
+        pool's stats snapshot."""
+        if getattr(self, "_pool", None) is None:
+            raise RuntimeError("no sessions submitted")
+        return self._pool.step()
+
+    def drain(self):
+        """Run the default pool to completion; returns ``{session_id:
+        (prompt + generated,) tokens}``."""
+        if getattr(self, "_pool", None) is None:
+            raise RuntimeError("no sessions submitted")
+        return self._pool.drain()

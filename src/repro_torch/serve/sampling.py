@@ -1,5 +1,5 @@
 """Sampling via content-comparable primitives (a port of
-``repro.serve.sampling``'s static-batch part).
+``repro.serve.sampling``).
 
 Greedy is the argmax (first maximal index on ties, as in ``jnp``).
 Sampling draws from an explicit ``torch.Generator``; it gives other
@@ -52,3 +52,29 @@ def sample(logits: torch.Tensor, generator: torch.Generator | None = None,
     flat = probs.reshape(-1, probs.shape[-1])
     out = torch.multinomial(flat, 1, generator=generator)
     return out.reshape(probs.shape[:-1]).to(torch.int32)
+
+
+def sample_rows(logits: torch.Tensor, generator: torch.Generator | None,
+                temperature: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling for pooled decode: each row of ``logits`` (B, V)
+    carries its own ``temperature`` / ``top_k`` / ``top_p`` ((B,) tensors
+    from per-request GenConfigs).  Rows with ``temperature <= 0`` take the
+    greedy argmax, bit-identical to :func:`greedy`; ``top_k <= 0`` /
+    ``top_p <= 0`` disable that truncation for the row.  The draw is
+    Gumbel-max over ``generator``'s uniforms (the form of
+    ``jax.random.categorical``), so it reads nothing back to the host."""
+    logits = logits.float()
+    b, v = logits.shape
+    t = torch.where(temperature > 0, temperature, 1.0).float()
+    x = logits / t[:, None]
+    k = torch.clamp(torch.where(top_k > 0, top_k, v), 1, v).long()
+    kth = torch.sort(x, dim=-1, descending=True).values.gather(
+        -1, k[:, None] - 1)
+    x = torch.where(x >= kth, x, -torch.inf)
+    p = torch.where(top_p > 0, top_p, 1.0).float()
+    x = torch.where(top_p_mask(torch.softmax(x, -1), p), x, -torch.inf)
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
+    sampled = torch.argmax(x + gumbel, dim=-1).to(torch.int32)
+    return torch.where(temperature > 0, sampled, greedy(logits))

@@ -385,7 +385,8 @@ class TestFusedStreamDescriptor:
 
 class TestBuild:
     def test_sources_and_cache_key(self):
-        assert _build.sources() == ["flash_attention", "fused_stream"]
+        assert _build.sources() == ["flash_attention", "fused_stream",
+                                    "rows"]
         p1 = _build._lib_path("fused_stream")
         assert p1 == _build._lib_path("fused_stream")
         assert p1.parent == _build.build_dir()
@@ -393,6 +394,7 @@ class TestBuild:
         assert p1 != _build._lib_path("flash_attention")
         assert "-fmad=false" in _build._flags("fused_stream")
         assert any("sm_90a" in f for f in _build._flags("flash_attention"))
+        assert any("sm_90a" in f for f in _build._flags("rows"))
 
     def test_build_dir_outside_a_checkout(self, monkeypatch, tmp_path):
         monkeypatch.setattr(_build, "_CHECKOUT", tmp_path)
