@@ -36,7 +36,24 @@ Phases, in order; any failure exits non-zero:
      pool must preempt and give every page back; over one steady
      ``pool.step()`` (counters set to 0 just before), ``gather_rows``,
      ``fused_stream`` and ``scatter_rows`` must each launch once per bank
-     and the decode chunk must not synchronize with the host.
+     and the decode chunk must not synchronize with the host;
+  7. the paper's CPM operator surface and the self-managing allocator on
+     the kernels: ``cpm_array(..., backend="cuda")`` over (64, 1,048,576)
+     seeded int32 rows in [0, 4096) and float32 normal rows, per-row
+     ``used_len = N - 4099 r``: ``compare``/``count`` (int and float
+     datum), ``compact`` (about half the lanes kept), ``section_sum``,
+     ``global_limit`` max and min, with the counters set to 0 just before
+     and read just after.  Each result against the kernel's plain twin on
+     the same inputs (bit for bit; float sums, kernel and twin, within
+     1e-5 x sum|x| of NumPy's float64 sum) and against NumPy for the
+     counts and int sums; every kernel run twice, bit for bit;
+     ``global_limit`` again on rows planted with NaN and +-inf; the same
+     ops under ``backend="auto"`` launch the same kernels, an 8-lane row
+     under ``"auto"`` none.  Then ``SlotAllocator(256, n_pages=16384,
+     backend="cuda")`` (metadata on the card) over a seeded 300-operation
+     trace, every answer equal to ``OracleAllocator`` and a reference
+     ``SlotAllocator`` on the CPU; ``compare``, ``section_limit`` and
+     ``compact`` must launch.  The four kernels are timed at these shapes.
 
 The lines before the last are the card (``nvidia-smi`` name and power
 limit) and one JSON object with every kernel's launches, error and
@@ -50,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +87,16 @@ POOL_MAX_LEN = 384
 #: (gateway tick, requests, prompt tokens, budget)
 POOL_TRAFFIC = ((0, 4, 128, 32), (2, 4, 64, 8), (3, 4, 256, 8))
 NEAR_TIE = 2e-2
+# phase 7: the CPM surface at the paper benchmark's row length, and the
+# allocator at a pool's size (16,384 pages of 32 tokens: about what the
+# card holds of granite-8b's KV at ~147 KB a token)
+CPM_R, CPM_N, CPM_LEN_STEP = 64, 1 << 20, 4099
+ALLOC_SLOTS, ALLOC_PAGES, ALLOC_BANKS, ALLOC_OPS = 256, 16384, 4, 300
+SUM_TOL = 1e-5              # x sum|x| per row, for float32 sums
+#: the kernels each path must launch, and whose launches it reports
+POOL_KERNELS = ("flash_attention", "fused_stream", "gather_rows",
+                "scatter_rows")
+CPM_KERNELS = ("compare", "section_sum", "section_limit", "compact")
 
 
 def fail(msg: str) -> None:
@@ -91,24 +119,53 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters: int = 20):
-    """Mean device-busy time of one call of ``fn``: the summed durations
-    of the CUDA kernels (and copies) it launches, from ``torch.profiler``
-    (CUPTI).  Host gaps between launches are excluded, so a wrapper
-    whose Python side is slower than its kernel is not charged for it.
-    None when the profiler records no device activity."""
+def kernel_ms(fn, iters: int = 20):
+    """Mean device time per call of ``fn`` by kernel name, from
+    ``torch.profiler`` (CUPTI): the CUDA kernels (and copies) it launches.
+    Host gaps between launches are excluded, so a wrapper whose Python
+    side is slower than its kernel is not charged for it.  The profiler
+    was seen on the H100 to lose kernel records (14 to 19 of 20 in one
+    window), so a first (warm-up) window of ``iters`` calls is discarded,
+    and a window whose record count of some kernel is not a multiple of
+    ``iters`` is measured again, up to three times.  None when the
+    profiler records no device activity or no window was whole."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if str(ev.device_type).endswith("CUDA"))
-    return total_us / 1e3 / iters if total_us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        evs = [ev for ev in prof.key_averages()
+               if str(ev.device_type).endswith("CUDA") and ev.count]
+        if not evs:
+            return None
+        if not any(ev.count % iters for ev in evs):
+            break
+    else:
+        return None
+    out = {}
+    for ev in evs:
+        m = re.search(r"::(\w+)[<(]", ev.key)
+        name = m.group(1) if m else ev.key[:40]
+        out[name] = (out.get(name, 0.0)
+                     + ev.self_device_time_total / 1e3 / iters)
+    return out
+
+
+def device_ms(fn, iters: int = 20):
+    """Mean device-busy time of one call of ``fn`` (:func:`kernel_ms`
+    summed); None — the caller falls back to CUDA events — where that
+    has no data."""
+    by_kernel = kernel_ms(fn, iters)
+    return sum(by_kernel.values()) if by_kernel else None
 
 
 def timed(fn, iters: int):
@@ -614,9 +671,11 @@ def serve_pool(torch, dev, cfg, params, record):
     if st["pages_free"] != pool.total_pages:
         fail(f"{st['pages_free']} of {pool.total_pages} pages free after "
              f"the drain")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in POOL_KERNELS:
+        if counts[name] <= 0:
             fail(f"{name} was not launched on the pool path ({counts})")
+    if any(counts[name] for name in CPM_KERNELS):
+        fail(f"the pool path launched a per-op CPM kernel: {counts}")
 
     # tokens against solo generation, near-ties allowed
     t0 = time.perf_counter()
@@ -688,8 +747,10 @@ def serve_pool(torch, dev, cfg, params, record):
         fail(f"the steady step admitted, restored, parked or retired: "
              f"{moved}, active {done_before} -> "
              f"{pool.table.active_count()}")
-    want = {"gather_rows": POOL["n_banks"], "fused_stream": POOL["n_banks"],
-            "scatter_rows": POOL["n_banks"], "flash_attention": 0}
+    want = {name: 0 for name in steady}
+    want.update({"gather_rows": POOL["n_banks"],
+                 "fused_stream": POOL["n_banks"],
+                 "scatter_rows": POOL["n_banks"]})
     if steady != want:
         fail(f"one steady pool.step() launched {steady}, want {want}")
     if syncs:
@@ -765,6 +826,311 @@ def steady_profile(torch, pool):
                    e.count] for e in dev[:8]]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the CPM operator surface and the allocator on the kernels
+# ---------------------------------------------------------------------------
+
+def _bits(torch, t):
+    return t.view({1: torch.uint8, 2: torch.int16,
+                   4: torch.int32}[t.element_size()])
+
+
+def _nan_equal(torch, a, b):
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a.float()) & torch.isnan(b.float()))).all())
+
+
+def _cpm_ops(arr_i, arr_f, keep):
+    """The phase's op sequence on one int and one float device; returns
+    the results by name."""
+    return {"compare": arr_i.compare(2048, "lt"),
+            "count": arr_i.count(2048, "lt"),
+            "compare_float_datum": arr_i.compare(2047.5, "lt"),
+            "compact": arr_i.compact(keep),
+            "sum_int": arr_i.section_sum(),
+            "sum_float": arr_f.section_sum(),
+            "max_int": arr_i.global_limit("max"),
+            "min_int": arr_i.global_limit("min"),
+            "max_float": arr_f.global_limit("max"),
+            "min_float": arr_f.global_limit("min")}
+
+
+def _float_sums_ok(np, got, x_np, ul):
+    """Per row: |got - float64 sum| <= SUM_TOL * sum|x| over the used
+    lanes; returns (ok, worst error / tolerance)."""
+    worst = 0.0
+    for r in range(x_np.shape[0]):
+        row = x_np[r, :ul[r]].astype(np.float64)
+        tol = SUM_TOL * float(np.abs(row).sum())
+        worst = max(worst, abs(float(got[r]) - float(row.sum())) / tol)
+    return worst <= 1.0, worst
+
+
+def check_cpm_surface(torch, np, dev):
+    """Phase 7, part 1 (see the module docstring).  Returns the launch
+    counts of the counted run and per-kernel check results."""
+    from repro_torch.cpm import cpm_array
+    from repro_torch.cpm.optable import optimal_section
+    from repro_torch.cpm.semantics import limit_identity
+    from repro_torch.kernels import cpm_kernels as ck
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    xi_np = rng.integers(0, 4096, (CPM_R, CPM_N)).astype(np.int32)
+    xf_np = rng.standard_normal((CPM_R, CPM_N)).astype(np.float32)
+    keep_np = rng.random((CPM_R, CPM_N)) < 0.5
+    ul_np = (CPM_N - CPM_LEN_STEP * np.arange(CPM_R)).astype(np.int32)
+    xi, xf, keep, ul = (torch.from_numpy(a).to(dev)
+                        for a in (xi_np, xf_np, keep_np, ul_np))
+    torch.cuda.synchronize()
+    print(f"cpm: (R, N) = ({CPM_R}, {CPM_N}) int32 in [0, 4096) and "
+          f"float32 normal rows, used_len {int(ul_np[-1])}..{CPM_N}, made "
+          f"in {time.perf_counter() - t0:.1f}s")
+
+    ops.reset_launch_counts()                    # the CPM path, counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arr_i = cpm_array(xi, ul, backend="cuda")
+    arr_f = cpm_array(xf, ul, backend="cuda")
+    got = _cpm_ops(arr_i, arr_f, keep)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want_launches = {"compare": 3, "compact": 1, "section_sum": 2,
+                     "section_limit": 4}
+    for name, n in want_launches.items():
+        if counts[name] != n:
+            fail(f"the CPM path launched {name} {counts[name]} times, want "
+                 f"{n} ({counts})")
+    print(f"cpm path through cpm_array(backend='cuda'): {path_s:.3f}s, "
+          f"launches {counts}")
+
+    # the kernels' inputs on that path, and their plain twins
+    live = torch.arange(CPM_N, dtype=torch.int32, device=dev)[None] \
+        < ul[:, None]
+    sec = optimal_section(CPM_N)
+    mi0 = torch.where(live, xi, 0)
+    mf0 = torch.where(live, xf, 0.0)
+    errs = {}
+
+    def hold(name, ok, err=0.0, what=""):
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"{name} {what}: max_abs_err={err} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{name} {what} disagrees with its check")
+
+    for key, datum in (("compare", 2048), ("compare_float_datum", 2047.5)):
+        want = ck.compare_plain(xi, datum, "lt") & live
+        hold("compare", torch.equal(got[key], want), 0.0,
+             f"int32 rows < {datum} ({CPM_R} x {CPM_N}), bit for bit with "
+             f"the twin")
+    n_lt = int(sum(int((xi_np[r, :ul_np[r]] < 2048).sum())
+                   for r in range(CPM_R)))
+    hold("compare", int(got["count"]) == n_lt, 0.0,
+         f"count {int(got['count'])} against NumPy {n_lt}")
+    kp = keep & live
+    want_c = ck.compact_plain(xi, kp, 0)
+    hold("compact", torch.equal(got["compact"].data, want_c[0])
+         and torch.equal(got["compact"].used_len, want_c[1]), 0.0,
+         f"int32 rows, {float(kp.float().mean()):.3f} of lanes kept, bit "
+         f"for bit with the twin")
+    s_int = ck.section_sum_plain(mi0, sec)
+    np_int = np.asarray([int(xi_np[r, :ul_np[r]].astype(np.int64).sum())
+                         for r in range(CPM_R)], np.int64)
+    np_int = ((np_int + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+    hold("section_sum", torch.equal(got["sum_int"], s_int)
+         and np.array_equal(got["sum_int"].cpu().numpy(), np_int), 0.0,
+         "int32 rows, bit for bit with the twin and NumPy (wrapped int32)")
+    ok_k, worst_k = _float_sums_ok(np, got["sum_float"].cpu(), xf_np, ul_np)
+    ok_p, worst_p = _float_sums_ok(
+        np, ck.section_sum_plain(mf0, sec).cpu(), xf_np, ul_np)
+    err = float((got["sum_float"] - ck.section_sum_plain(mf0, sec))
+                .abs().max())
+    hold("section_sum", ok_k and ok_p, err,
+         f"float32 rows, kernel and twin within {SUM_TOL} x sum|x| of "
+         f"NumPy float64 (worst {worst_k:.3f} / {worst_p:.3f} of tol)")
+    for mode in ("max", "min"):
+        for kind, x in (("int", xi), ("float", xf)):
+            m = torch.where(live, x, limit_identity(x.dtype, mode))
+            want = ck.section_limit_plain(m, sec, mode)
+            hold("section_limit", torch.equal(got[f"{mode}_{kind}"], want),
+                 0.0, f"{mode} {kind} rows, bit for bit with the twin")
+
+    # determinism: every kernel twice on the path's inputs
+    for name, fn in (("compare", lambda: ck.compare(xi, 2048, "lt")),
+                     ("compact", lambda: ck.compact(xi, kp, 0)[0]),
+                     ("section_sum", lambda: ck.section_sum(mf0, sec)),
+                     ("section_limit",
+                      lambda: ck.section_limit(mf0, sec, "max"))):
+        a, b = fn(), fn()
+        hold(name, torch.equal(_bits(torch, a), _bits(torch, b)), 0.0,
+             "run twice, bit-identical")
+
+    # NaN and +-inf rows through global_limit
+    xn = xf.clone()
+    xn[3, 1000] = float("nan")
+    xn[5, 17], xn[5, 99] = float("inf"), -float("inf")
+    xn[7, :] = -float("inf")
+    xn[9, int(ul_np[9]) + 5] = float("nan")      # past used_len: masked
+    arr_n = cpm_array(xn, ul, backend="cuda")
+    for mode in ("max", "min"):
+        lim = arr_n.global_limit(mode)
+        m = torch.where(live, xn, limit_identity(xn.dtype, mode))
+        lib = (torch.amax if mode == "max" else torch.amin)(m, -1)
+        ok = (_nan_equal(torch, lim, ck.section_limit_plain(m, sec, mode))
+              and _nan_equal(torch, lim, lib) and bool(torch.isnan(lim[3]))
+              and not bool(torch.isnan(lim[9])))
+        hold("section_limit", ok, 0.0,
+             f"{mode} over rows planted with NaN and +-inf (NaN wins, "
+             f"masked NaN ignored)")
+
+    # backend="auto": the same launches on these rows, none on 8 lanes
+    ops.reset_launch_counts()
+    _cpm_ops(cpm_array(xi, ul), cpm_array(xf, ul), keep)
+    torch.cuda.synchronize()
+    auto = ops.launch_counts()
+    if auto != counts:
+        fail(f"backend='auto' launched {auto}, backend='cuda' {counts}")
+    small_i = torch.arange(8, dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    _cpm_ops(cpm_array(small_i, 6), cpm_array(small_i.float(), 6),
+             small_i % 2 == 0)
+    torch.cuda.synchronize()
+    short = ops.launch_counts()
+    if any(short.values()):
+        fail(f"an 8-lane row under backend='auto' launched {short}")
+    print(f"backend='auto': the same launches on {CPM_N}-lane rows, none "
+          f"on an 8-lane row")
+    return counts, errs, {"xi": xi, "mf0": mf0, "kp": kp, "sec": sec,
+                          "path_s": path_s}
+
+
+def check_allocator(torch, np, dev):
+    """Phase 7, part 2: the allocator on the card against the oracle and
+    the reference allocator on the CPU.  Returns (launch counts, record)."""
+    from repro_torch.cpm.pool import OracleAllocator, SlotAllocator
+    from repro_torch.kernels import ops
+
+    span = ALLOC_PAGES // ALLOC_BANKS
+    card = SlotAllocator(ALLOC_SLOTS, n_pages=ALLOC_PAGES, backend="cuda")
+    cpu = SlotAllocator(ALLOC_SLOTS, n_pages=ALLOC_PAGES)
+    orc = OracleAllocator(ALLOC_SLOTS, n_pages=ALLOC_PAGES)
+    if not (card._state.is_cuda and card._tick.is_cuda
+            and card._pstate.is_cuda):
+        fail("SlotAllocator(backend='cuda') keeps its metadata off the card")
+    rng = np.random.default_rng(17)
+    held: list[int] = []
+    card_s, queries, kinds = 0.0, 0, {}
+
+    def ask(kind, *args):
+        nonlocal card_s, queries
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = getattr(card, kind)(*args)
+        torch.cuda.synchronize()
+        card_s += time.perf_counter() - t0
+        queries += 1
+        kinds[kind] = kinds.get(kind, 0) + 1
+        b, c = getattr(cpu, kind)(*args), getattr(orc, kind)(*args)
+        if not a == b == c:
+            fail(f"allocator {kind}{args}: card {a}, CPU reference {b}, "
+                 f"oracle {c}")
+        return a
+
+    ops.reset_launch_counts()                    # the allocator, counted
+    for i in range(ALLOC_OPS):
+        mv = int(rng.integers(0, 8))
+        if mv in (0, 1) or not held:
+            got = ask("alloc")
+            if got is not None:
+                held.append(got)
+        elif mv == 2:
+            slot, bank = held[i % len(held)], int(rng.integers(0,
+                                                               ALLOC_BANKS))
+            ask("alloc_pages", slot, int(rng.integers(1, 9)), bank * span,
+                (bank + 1) * span)
+        elif mv == 3:
+            ask("touch", held[i % len(held)])
+        elif mv == 4:
+            ask("victim")
+        elif mv == 5:
+            ask("used_slots")
+        elif mv == 6:
+            slot = held.pop(i % len(held))
+            ask("free", slot)
+        else:
+            bank = int(rng.integers(0, ALLOC_BANKS))
+            ask("free_count")
+            ask("page_free_count", bank * span, (bank + 1) * span)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name in ("compare", "section_limit", "compact"):
+        if counts[name] <= 0:
+            fail(f"the allocator on the card never launched {name}: "
+                 f"{counts}")
+    rec = {"slots": ALLOC_SLOTS, "pages": ALLOC_PAGES, "ops": ALLOC_OPS,
+           "queries": queries, "by_kind": kinds,
+           "mean_query_ms": card_s / queries * 1e3, "launches": counts,
+           "held_at_end": len(held)}
+    print(f"allocator SlotAllocator({ALLOC_SLOTS}, n_pages={ALLOC_PAGES}, "
+          f"backend='cuda'): {queries} queries {kinds} all equal to the "
+          f"oracle and the CPU reference; mean {rec['mean_query_ms']:.3f} ms "
+          f"per synchronized query (host-bound: every answer is read); "
+          f"launches {counts}")
+    return counts, rec
+
+
+def time_cpm_kernels(torch, dev, data, errs):
+    """The four kernels at phase 7's shapes: device time, twin, bound and
+    the one PyTorch call that computes the same function."""
+    from repro_torch.kernels import cpm_kernels as ck
+
+    xi, mf0, kp, sec = data["xi"], data["mf0"], data["kp"], data["sec"]
+    # operands on the card, as the CPMArray path passes them
+    d = torch.tensor([2048], dtype=torch.int32, device=dev)
+    f0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    nel = xi.numel()
+    kept = int(kp.sum())
+    cases = (
+        ("compare", "src/repro_torch/csrc/compare.cu", ":273",
+         lambda: ck.compare(xi, d, "lt"),
+         lambda: ck.compare_plain(xi, d, "lt"),
+         lambda: torch.lt(xi, d), nel * 4 + nel, 20, 5),
+        ("section_sum", "src/repro_torch/csrc/reduce.cu", ":230",
+         lambda: ck.section_sum(mf0, sec),
+         lambda: ck.section_sum_plain(mf0, sec),
+         lambda: torch.sum(mf0, -1, dtype=torch.float32), nel * 4, 20, 5),
+        ("section_limit", "src/repro_torch/csrc/reduce.cu", ":367",
+         lambda: ck.section_limit(mf0, sec, "max"),
+         lambda: ck.section_limit_plain(mf0, sec, "max"),
+         lambda: torch.amax(mf0, -1), nel * 4, 20, 5),
+        ("compact", "src/repro_torch/csrc/compact.cu", ":637",
+         lambda: ck.compact(xi, kp, f0),
+         lambda: ck.compact_plain(xi, kp, f0),
+         None, nel + kept * 4 + nel * 4, 20, 2))
+    out = []
+    for name, src, line, fn, plain, lib, nbytes, iters, plain_iters in cases:
+        ms, src_, call_ms = timed(fn, iters)
+        # the device launches of one call (two for the reductions' split
+        # pass, three for compact), each with its time
+        launches = kernel_ms(fn, iters)
+        print(f"{name}: device launches of one call (ms): {launches}")
+        plain_ms, _, plain_call = timed(plain, plain_iters)
+        lib_ms = timed(lib, iters)[0] if lib is not None else None
+        bound_ms, by = bound(nbytes)
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": f"src/repro/kernels/cpm_kernels.py{line}",
+                    "launches": None, "max_abs_err": errs[name],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": by, "library_ms": lib_ms,
+                    "ms_source": src_, "call_ms": call_ms,
+                    "plain_call_ms": plain_call, "device_launches": launches,
+                    "shape": [CPM_R, CPM_N], "kept_share": kept / nel})
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -816,11 +1182,27 @@ def main(argv=None) -> int:
     check_small_model(torch, dev)
     gen_counts, cfg, params = serve_granite(torch, dev, args.layers, record)
     pool_counts = serve_pool(torch, dev, cfg, params, record)
+    if any(gen_counts[name] for name in CPM_KERNELS):
+        fail(f"the generate path launched a per-op CPM kernel: "
+             f"{gen_counts}")
+    del params
+    torch.cuda.empty_cache()
+
+    # phase 7
+    cpm_counts, errs, data = check_cpm_surface(torch, np, dev)
+    alloc_counts, record["allocator"] = check_allocator(torch, np, dev)
+    record["cpm"] = {"shape": [CPM_R, CPM_N], "len_step": CPM_LEN_STEP,
+                     "path_s": data["path_s"], "launches": cpm_counts}
+    kernels += time_cpm_kernels(torch, dev, data, errs)
+    paths = {"generate": gen_counts, "pool": pool_counts, "cpm": cpm_counts,
+             "allocator": alloc_counts}
     for k in kernels:
-        # the newest main path (the pool); the generate path's count too
-        k["launches"] = pool_counts[k["name"]]
-        k["launches_by_path"] = {"generate": gen_counts[k["name"]],
-                                 "pool": pool_counts[k["name"]]}
+        # each kernel's count on the newest path that runs it (the pool for
+        # the serving kernels, the CPM surface for the per-op ones)
+        name = k["name"]
+        k["launches"] = (cpm_counts if name in CPM_KERNELS
+                         else pool_counts)[name]
+        k["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         print(f"{k['name']}: {k['ms']:.4f} ms on the card "
               f"({k['ms_source']}; {k['call_ms']:.4f} ms per call with "
               f"host time), plain {k['plain_ms']:.4f} ms "

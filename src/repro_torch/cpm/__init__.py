@@ -4,7 +4,8 @@
   * :class:`CPMArray` / :func:`cpm_array` — a physical buffer plus its
     §4.2 ``used_len`` register; every op dispatches to a backend.
   * ``backends`` — ``reference`` (plain PyTorch) and ``cuda`` (Hopper
-    kernels; this slice has its ``fused_stream``).
+    kernels: ``fused_stream`` and the per-op ``compare``, ``compact``,
+    ``section_sum`` and ``global_limit``).
   * ``optable`` — the op registry with each op's concurrent-step formula
     (a verbatim copy of the JAX package's pure-Python table).
   * ``semantics`` — the canonical result conventions.

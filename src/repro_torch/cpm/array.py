@@ -15,9 +15,10 @@ inside ``with record() as prog:`` the call is appended to the program
 and still returns its eager value.  The in-place move ops (shift,
 insert, delete) take a scalar ``used_len`` per call; batched devices
 with per-row lengths run them through the program executor, which
-replays row by row.  ``count``, ``global_limit`` and ``compact`` (what
-the pool's allocator needs) run on the reference backend; the other
-reductions, sort and histogram wait for ROADMAP Queue 2.
+replays row by row.  ``compare``/``count``, ``section_sum``,
+``global_limit`` and ``compact`` run on either backend (on ``cuda``
+one kernel call each, a batched ``(*batch, n)`` layout included); the
+other reductions, sort and histogram wait for ROADMAP Queue 2.
 """
 
 from __future__ import annotations
@@ -150,6 +151,12 @@ class CPMArray:
     def _masked(self, fill) -> torch.Tensor:
         return torch.where(self._live(), self.data,
                            asarray(fill, self.dtype, self.device))
+
+    @recordable("section_sum")
+    def section_sum(self, section: int | None = None) -> torch.Tensor:
+        """Two-phase per-row sum of the used region (§7.4, ~2·sqrt(N)
+        steps); batched layouts reduce in ONE backend call."""
+        return self._b("section_sum").section_sum(self._masked(0), section)
 
     @recordable("global_limit")
     def global_limit(self, mode: str = "max",

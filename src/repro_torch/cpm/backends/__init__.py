@@ -4,18 +4,25 @@
   * ``reference`` — plain PyTorch vector ops (`repro_torch.cpm.reference`):
     always available, the oracle; runs on whatever device holds the data.
   * ``cuda``      — hand-written Hopper kernels, in place of the JAX
-    package's ``pallas`` backend.  This slice ports its ``fused_stream``
-    (one launch per fused instruction group); its per-op kernels are
-    still to port (ROADMAP Queue 2), so it supports no single op yet.
+    package's ``pallas`` backend: ``fused_stream`` (one launch per fused
+    instruction group) and the per-op ``compare``, ``compact``,
+    ``global_limit`` and ``section_sum``; its other per-op kernels are
+    still to port (ROADMAP Queue 2).
 
 ``resolve`` honours the paper's pin-compatibility promise per op: a
 forced backend that cannot realize an op raises, and ``"auto"`` picks the
-reference for any op the kernel backend lacks.
+reference for any op the kernel backend lacks.  ``"auto"`` sends rows to
+the kernels only when they lie on a GPU and are at least
+:data:`CUDA_MIN_N` lanes long, the JAX package's static ``PALLAS_MIN_N``
+rule (the port has measured no crossover, so there is no tuning lookup).
 """
 
 from __future__ import annotations
 
 from typing import Protocol, runtime_checkable
+
+#: rows shorter than this are not worth a kernel launch — stay on reference
+CUDA_MIN_N = 1024
 
 
 @runtime_checkable
@@ -32,6 +39,7 @@ class Backend(Protocol):
     def compare(self, x, datum, op: str = "eq"): ...
     def template_match(self, data, template): ...
     def stencil(self, x, taps, wrap: bool = False): ...
+    def section_sum(self, x, section=None): ...
     def global_limit(self, x, mode: str = "max", section=None): ...
     def compact(self, x, keep, fill=0): ...                # (data, new_len)
 
@@ -62,16 +70,25 @@ def get_backend(name: str) -> Backend:
     return _INSTANCES[name]
 
 
-def auto_backend_name(data) -> str:
-    """The ``backend="auto"`` rule for whole programs: the kernel backend
-    when the rows live on a GPU, the reference otherwise."""
-    return "cuda" if data.is_cuda else "reference"
+def auto_name(is_cuda: bool, n: int) -> str:
+    """The ``backend="auto"`` rule: the kernel backend for rows on a GPU of
+    at least :data:`CUDA_MIN_N` lanes, the reference otherwise."""
+    return "cuda" if is_cuda and n >= CUDA_MIN_N else "reference"
+
+
+def auto_backend_name(data, op: str | None = None) -> str:
+    """:func:`auto_name` of ``data``'s rows — the one rule per-op
+    ``resolve`` and the program executor share, so eager dispatch and
+    plan execution never pick different backends for the same array
+    (``op`` is accepted for the JAX signature; no per-op crossover is
+    measured)."""
+    return auto_name(data.is_cuda, data.shape[-1])
 
 
 def resolve(requested: str, op: str, data) -> Backend:
     """The backend for one op call (see the module docstring)."""
     if requested == "auto":
-        bk = get_backend(auto_backend_name(data))
+        bk = get_backend(auto_backend_name(data, op))
         return bk if bk.supports(op) else get_backend("reference")
     bk = get_backend(requested)
     if not bk.supports(op):

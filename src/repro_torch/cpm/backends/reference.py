@@ -6,7 +6,7 @@ from .. import reference as R
 
 _OPS = frozenset({"activate", "shift", "insert", "delete", "truncate",
                   "substring_match", "compare", "template_match",
-                  "stencil", "global_limit", "compact"})
+                  "stencil", "section_sum", "global_limit", "compact"})
 
 
 class ReferenceBackend:
@@ -33,6 +33,9 @@ class ReferenceBackend:
 
     def stencil(self, x, taps, wrap=False):
         return R.computable.stencil_1d(x, taps, wrap=wrap)
+
+    def section_sum(self, x, section=None):
+        return R.computable.section_sum(x, section)
 
     def global_limit(self, x, mode="max", section=None):
         return R.computable.section_limit(x, section, mode)

@@ -12,12 +12,19 @@ live in ``CPMArray`` devices, and every query is a paper op —
   * reclamation        = §4.2 ``compact`` packing the used slot ids.
 
 Writes (alloc/free/touch) are single-address writes into the metadata
-tensors.  The host only ever sees slot and page *numbers*.  The metadata
-runs on the ``reference`` backend, as in the JAX package, and lies on
-the CPU: every answer is a host decision (admission control), so a
-metadata file on the card would cost a device round trip per query
-and stall behind the decode chunk in flight.  :class:`OracleAllocator` is
-a pure-Python allocator with identical semantics for the tests.
+tensors.  The host only ever sees slot and page *numbers*.
+
+``backend`` routes the queries like any other ``CPMArray``, and
+``device`` holds the metadata: by default the ``reference`` backend on
+the CPU — what the session pool uses, as in the JAX package, since every
+answer is a host decision (admission control) and metadata on the card
+would cost a device round trip per query and stall behind the decode
+chunk in flight — or ``backend="cuda"`` with the metadata on the card,
+where every query is a ``compare``, ``section_limit`` or ``compact``
+kernel launch (the LRU victim's compare reads the limit on the device).
+``device="cpu"`` with ``backend="cuda"`` runs the kernels' plain twins.
+:class:`OracleAllocator` is a pure-Python allocator with identical
+semantics for the tests.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ class SlotAllocator:
     """
 
     def __init__(self, n_slots: int, backend: str = "reference",
-                 n_pages: int = 0):
+                 n_pages: int = 0, device=None):
         if n_slots <= 0:
             raise ValueError(f"n_slots must be positive, got {n_slots}")
         if n_pages < 0:
@@ -53,7 +60,14 @@ class SlotAllocator:
         self.n_slots = n_slots
         self.n_pages = n_pages
         self._backend = backend
-        self.device = torch.device("cpu")      # see the module docstring
+        if device is None:                     # see the module docstring
+            device = "cuda" if backend == "cuda" else "cpu"
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"SlotAllocator(backend={backend!r}) puts "
+                               f"its metadata on {self.device}, and no "
+                               f"CUDA device is available; pass "
+                               f"device='cpu' for the plain twins")
         i32 = dict(dtype=torch.int32, device=self.device)
         self._state = torch.full((n_slots,), FREE, **i32)
         self._tick = torch.zeros((n_slots,), **i32)
@@ -61,18 +75,17 @@ class SlotAllocator:
         # sub-page metadata file + host mirror of the ordered page lists
         self._pstate = torch.full((max(n_pages, 1),), FREE, **i32)
         self._pids = torch.arange(max(n_pages, 1), **i32)
+        # the used_len registers of the two files (whole files, made once)
+        self._slots_len = torch.tensor(n_slots, **i32)
+        self._pages_len = torch.tensor(n_pages, **i32)
         self._pages: dict[int, list[int]] = {}
 
     # -- CPMArray views of the metadata file --------------------------------
     def _dev(self, data) -> CPMArray:
-        return CPMArray(data, torch.tensor(self.n_slots, dtype=torch.int32,
-                                           device=self.device),
-                        self._backend)
+        return CPMArray(data, self._slots_len, self._backend)
 
     def _pdev(self, data) -> CPMArray:
-        return CPMArray(data, torch.tensor(self.n_pages, dtype=torch.int32,
-                                           device=self.device),
-                        self._backend)
+        return CPMArray(data, self._pages_len, self._backend)
 
     # -- queries (all CPM ops) ----------------------------------------------
     def free_count(self) -> int:

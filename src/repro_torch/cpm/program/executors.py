@@ -86,9 +86,11 @@ def _per_row_operands(instr: ir.Instruction, lead) -> bool:
 def apply_instruction(arr, instr: ir.Instruction, backend: str | None = None):
     """Execute one instruction eagerly on ``backend`` (default: the
     array's).  As in the JAX executor, an op that the op table gives no
-    kernel at all replays on the reference (per-op pin compatibility).  An
-    op that has a TPU kernel not yet ported to the forced backend raises:
-    a forced kernel backend never substitutes another realization."""
+    kernel at all replays on the reference (per-op pin compatibility).
+    On a forced ``cuda`` backend an op with a ported per-op kernel runs it
+    (``compare``, and ``count`` through it: the ``csrc/compare.cu``
+    launch); an op whose TPU kernel is not yet ported raises: a forced
+    kernel backend never substitutes another realization."""
     bk = backend or arr.backend
     op = _DERIVED.get(instr.op, instr.op)
     if bk not in ("reference", "auto") and not B.get_backend(bk).supports(op):
@@ -147,7 +149,9 @@ def run_plan(plan, arr, backend: str | None = None):
 
     ``fused`` groups on the cuda backend take the single-launch kernel
     path; ``boundary`` groups replay per op (same instructions,
-    bit-identical results)."""
+    bit-identical results).  ``"auto"`` resolves once per plan by
+    ``backends.auto_backend_name``, the rule per-op dispatch uses: rows
+    shorter than ``CUDA_MIN_N`` run on the reference, as in JAX."""
     bk = backend or arr.backend
     if bk == "auto":
         bk = B.auto_backend_name(arr.data)

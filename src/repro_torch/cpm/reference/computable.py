@@ -1,14 +1,44 @@
-"""The §7 row filters the fused stream covers and the §7.5 global limit
-the pool's allocator uses (a port of ``template_match_1d``,
-``stencil_1d`` and ``section_limit`` of
-``repro.cpm.reference.computable``; the sums, sorts and §8 trees wait
-for ROADMAP Queue 2)."""
+"""The §7 row filters the fused stream covers and the §7.4/§7.5
+two-phase reductions (a port of ``template_match_1d``, ``stencil_1d``,
+``section_sum`` and ``section_limit`` of
+``repro.cpm.reference.computable``; the sorts and §8 trees wait for
+ROADMAP Queue 2)."""
 
 from __future__ import annotations
 
 import torch
 
-from ..optable import optimal_section
+from ..optable import optimal_section, two_phase_steps
+
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+
+def sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of ``jnp.sum`` over ``dtype`` with 64-bit types off: bool
+    and signed ints sum to int32, unsigned ints to uint32, floats keep
+    their type."""
+    if dtype.is_floating_point:
+        return dtype
+    return torch.uint32 if dtype in _UNSIGNED else torch.int32
+
+
+def section_sum(x: torch.Tensor, section: int | None = None) -> torch.Tensor:
+    """Paper §7.4 two-phase sum along the last axis: every M-item section
+    reduces, then the N/M section sums combine.  Integer sums accumulate
+    in 32 bits and wrap on overflow as ``jnp.sum`` does."""
+    n = x.shape[-1]
+    m = section or optimal_section(n)
+    pad = (-n) % m
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    sec = x.reshape(*x.shape[:-1], -1, m)
+    out = sum_dtype(x.dtype)
+    acc = out if out.is_floating_point else torch.int32
+    return sec.sum(-1, dtype=acc).sum(-1, dtype=acc).to(out)
+
+
+def section_sum_steps(n: int, section: int | None = None) -> int:
+    return two_phase_steps(n, section)
 
 
 def section_limit(x: torch.Tensor, section: int | None = None,

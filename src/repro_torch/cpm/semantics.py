@@ -38,8 +38,9 @@ def window_valid(n: int, m: int, used_len=None,
 
 def limit_identity(dtype: torch.dtype, mode: str):
     """Identity element of the §7.5 global-limit reduction for ``dtype``
-    (the one fill every backend pads with)."""
-    if dtype.is_floating_point:
+    (the one fill every backend pads with).  As in the JAX package,
+    only integer types get integer limits: bool takes the float ones."""
+    if dtype.is_floating_point or dtype == torch.bool:
         return -float("inf") if mode == "max" else float("inf")
     info = torch.iinfo(dtype)
     return info.min if mode == "max" else info.max

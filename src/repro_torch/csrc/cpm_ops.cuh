@@ -1,0 +1,144 @@
+// Shared device code of the per-op CPM kernels (compare.cu, reduce.cu,
+// compact.cu) and of fused_stream.cu's compare branch.
+//
+//  * cpm_cmp: the §6.1 broadcast-compare predicate, one definition for the
+//    eager compare kernel and the fused stream, so the two stay bit
+//    identical (ROADMAP, "Shared bodies").
+//  * Element traits, one per storage dtype the kernels take, by the code
+//    the Python wrappers pass (kernels/cpm_kernels.py _DTYPE_CODE):
+//      0 bool, 1 int8, 2 uint8, 3 int16, 4 int32, 5 float16, 6 bfloat16,
+//      7 float32.
+//    S is the storage type, A the accumulator of the §7.4/§7.5 reductions
+//    as the TPU kernels choose it (_acc_dtype: int32 for integer types,
+//    float32 for bool and the floats); acc() widens exactly, store()
+//    narrows a value that came from an element back to its bits.
+//  * Block-wide reduction and exclusive scan in a fixed order: a warp
+//    shuffle tree, then warp 0 over the warp totals.  No atomics, so a
+//    float result is the same on every run.
+
+#pragma once
+
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+enum CpmDtype { DT_BOOL, DT_I8, DT_U8, DT_I16, DT_I32, DT_F16, DT_BF16,
+                DT_F32 };
+
+template <typename A>
+__device__ __forceinline__ bool cpm_cmp(int c, A a, A b) {
+  switch (c) {                       // eq ne lt gt le ge (_CMPCODE)
+    case 0: return a == b; case 1: return a != b; case 2: return a < b;
+    case 3: return a > b; case 4: return a <= b; default: return a >= b;
+  }
+}
+
+template <typename S_, typename A_>
+struct IntTraits {
+  using S = S_;
+  using A = A_;
+  static __device__ __forceinline__ A acc(S v) { return (A)v; }
+  static __device__ __forceinline__ S store(A a) { return (S)a; }
+};
+
+struct BoolT {
+  using S = uint8_t;
+  using A = float;
+  static __device__ __forceinline__ A acc(S v) { return v ? 1.f : 0.f; }
+  static __device__ __forceinline__ S store(A a) { return a != 0.f; }
+};
+struct I8T : IntTraits<int8_t, int> {};
+struct U8T : IntTraits<uint8_t, int> {};
+struct I16T : IntTraits<int16_t, int> {};
+struct I32T : IntTraits<int, int> {};
+struct F16T {
+  using S = uint16_t;                // the bits of a __half
+  using A = float;
+  static __device__ __forceinline__ A acc(S v) {
+    return __half2float(__ushort_as_half(v));
+  }
+  static __device__ __forceinline__ S store(A a) {
+    return __half_as_ushort(__float2half_rn(a));
+  }
+};
+struct BF16T {
+  using S = uint16_t;                // the bits of a __nv_bfloat16
+  using A = float;
+  static __device__ __forceinline__ A acc(S v) {
+    return __uint_as_float((uint32_t)v << 16);
+  }
+  static __device__ __forceinline__ S store(A a) {
+    return (S)(__float_as_uint(a) >> 16);     // exact: a was an element
+  }
+};
+struct F32T {
+  using S = float;
+  using A = float;
+  static __device__ __forceinline__ A acc(S v) { return v; }
+  static __device__ __forceinline__ S store(A a) { return a; }
+};
+
+// Run `body` with the traits of dtype code `dt`; unknown codes return
+// cudaErrorInvalidValue from the enclosing launch function.
+#define CPM_DISPATCH_DTYPE(dt, ...)                                  \
+  switch (dt) {                                                      \
+    case DT_BOOL: { using Tr = BoolT; __VA_ARGS__; } break;          \
+    case DT_I8: { using Tr = I8T; __VA_ARGS__; } break;              \
+    case DT_U8: { using Tr = U8T; __VA_ARGS__; } break;              \
+    case DT_I16: { using Tr = I16T; __VA_ARGS__; } break;            \
+    case DT_I32: { using Tr = I32T; __VA_ARGS__; } break;            \
+    case DT_F16: { using Tr = F16T; __VA_ARGS__; } break;            \
+    case DT_BF16: { using Tr = BF16T; __VA_ARGS__; } break;          \
+    case DT_F32: { using Tr = F32T; __VA_ARGS__; } break;            \
+    default: return (int)cudaErrorInvalidValue;                      \
+  }
+
+// Block-wide reduction with `op`, in a fixed order; the result is valid
+// in thread 0.  `red` is __shared__ scratch of 32 elements.
+template <typename A, typename Op>
+__device__ __forceinline__ A block_reduce(A v, Op op, A* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  for (int off = 16; off > 0; off >>= 1)
+    v = op(v, __shfl_down_sync(0xffffffffu, v, off));
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = red[lane < nwarps ? lane : 0];
+    for (int off = 16; off > 0; off >>= 1) {
+      const A o = __shfl_down_sync(0xffffffffu, v, off);
+      if (lane + off < nwarps) v = op(v, o);
+    }
+  }
+  __syncthreads();                   // `red` may be reused
+  return v;
+}
+
+// Block-wide exclusive prefix sum of one int per thread (thread order);
+// `*total` gets the block's sum.  `red` is __shared__ scratch of 33 ints.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* red,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  int inc = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += o;
+  }
+  if (lane == 31) red[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? red[lane] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += o;
+    }
+    if (lane < nwarps) red[lane] = w;            // inclusive warp prefixes
+    if (lane == 31) red[32] = w;
+  }
+  __syncthreads();
+  const int before = warp ? red[warp - 1] : 0;
+  *total = red[32];
+  __syncthreads();                   // `red` may be reused
+  return before + inc - v;
+}

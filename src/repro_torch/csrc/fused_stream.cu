@@ -36,9 +36,13 @@
 //    opcode, static ints (k, shift, m), flags, operand pointers with a
 //    row stride (0 for a broadcast (1, k) operand) and stencil taps — no
 //    descriptor copy to the device before a launch.
+//  * The compare branch calls cpm_cmp (cpm_ops.cuh), the predicate of the
+//    eager compare kernel, so fused and eager compares are one body.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cpm_ops.cuh"     // cpm_cmp, the compare predicate of compare.cu
 
 #define FS_MAX_INSTR 16
 #define FS_MAX_TAPS 64
@@ -116,19 +120,6 @@ __device__ __forceinline__ uint32_t shift_val(const uint32_t* cur, int i,
   return out;
 }
 
-__device__ __forceinline__ bool cmp_i(int c, int a, int b) {
-  switch (c) {
-    case 0: return a == b; case 1: return a != b; case 2: return a < b;
-    case 3: return a > b; case 4: return a <= b; default: return a >= b;
-  }
-}
-__device__ __forceinline__ bool cmp_f(int c, float a, float b) {
-  switch (c) {
-    case 0: return a == b; case 1: return a != b; case 2: return a < b;
-    case 3: return a > b; case 4: return a <= b; default: return a >= b;
-  }
-}
-
 __device__ __forceinline__ bool word_eq(uint32_t a, uint32_t b, bool fl) {
   return fl ? as_f(a) == as_f(b) : a == b;
 }
@@ -203,17 +194,19 @@ fused_stream_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ xo,
             const int m = opnd_i(I, 1, row, 0);
             const int b = opnd_i(I, 0, row, 0) & m;
             for (int i = threadIdx.x; i < n; i += FS_THREADS)
-              out[i] = (cmp_i(I.cmp, (int)cur[i] & m, b) && i < ul) ? 1 : 0;
+              out[i] = (cpm_cmp<int>(I.cmp, (int)cur[i] & m, b) && i < ul)
+                           ? 1 : 0;
           } else if (I.flags & F_CTF) {
             const float b = as_f(opnd(I, 0, row)[0]);
             for (int i = threadIdx.x; i < n; i += FS_THREADS) {
               const float a = xf ? as_f(cur[i]) : __int2float_rn((int)cur[i]);
-              out[i] = (cmp_f(I.cmp, a, b) && i < ul) ? 1 : 0;
+              out[i] = (cpm_cmp<float>(I.cmp, a, b) && i < ul) ? 1 : 0;
             }
           } else {
             const int b = opnd_i(I, 0, row, 0);
             for (int i = threadIdx.x; i < n; i += FS_THREADS)
-              out[i] = (cmp_i(I.cmp, (int)cur[i], b) && i < ul) ? 1 : 0;
+              out[i] = (cpm_cmp<int>(I.cmp, (int)cur[i], b) && i < ul)
+                           ? 1 : 0;
           }
           break;
         }

@@ -2,8 +2,10 @@
 
 flash_attention.py — blocked online-softmax attention
 (``csrc/flash_attention.cu``); cpm_kernels.py — the fused CPM instruction
-stream (``csrc/fused_stream.cu``) and the paged-row moves ``gather_rows``
-/ ``scatter_rows`` (``csrc/rows.cu``); ref.py — plain attention oracles;
+stream (``csrc/fused_stream.cu``), the paged-row moves ``gather_rows``
+/ ``scatter_rows`` (``csrc/rows.cu``) and the per-op ``compare``,
+``section_sum`` / ``section_limit`` and ``compact`` (``csrc/compare.cu``,
+``reduce.cu``, ``compact.cu``); ref.py — plain attention oracles;
 ops.py — device dispatch and launch counters; _build.py — nvcc build and
 ctypes loading.  No module builds or loads a kernel at import time.
 """

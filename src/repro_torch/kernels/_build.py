@@ -136,6 +136,25 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def launch(name: str, entry: str, argtypes: list, device, *args) -> None:
+    """Call the C entry point ``entry`` of ``csrc/<name>.cu`` with ``args``
+    and ``device``'s current CUDA stream (every entry point takes the
+    stream last and returns a ``cudaError_t``).  The ``argtypes`` of the
+    other arguments are declared at first use, so ctypes never cuts a
+    pointer to 32 bits; a nonzero return raises."""
+    import torch
+
+    lib = load(name)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    check(lib, rc, f"{entry}")
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point
     (every library exports ``repro_error_string`` for the message)."""

@@ -21,6 +21,12 @@ plain twin for CPU tensors.
 ``:698`` of the same JAX file: the sub-page moves of the session pool's
 token banks, one ``csrc/rows.cu`` launch each (counted the same way),
 with :func:`gather_rows_plain` / :func:`scatter_rows_plain` as twins.
+
+:func:`compare`, :func:`section_sum`, :func:`section_limit` and
+:func:`compact` replace ``:273``, ``:230``, ``:367`` and ``:637``: the
+per-op kernels of the cuda CPM backend (``csrc/compare.cu``,
+``csrc/reduce.cu``, ``csrc/compact.cu``), each beside its ``*_plain``
+twin.
 """
 
 from __future__ import annotations
@@ -359,16 +365,6 @@ def _describe(instrs, operands, x, prods):
     return prog
 
 
-def _lib():
-    lib = _build.load("fused_stream")
-    fn = lib.fused_stream_launch
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, I, I, ctypes.POINTER(_Program), P]
-        fn.restype = ctypes.c_int
-    return lib, fn
-
-
 def fused_stream(x, used_len, instrs, operands, *, block_r: int = 1):
     """Execute a fused instruction group in one kernel launch.
 
@@ -403,12 +399,11 @@ def fused_stream(x, used_len, instrs, operands, *, block_r: int = 1):
     out_x = torch.empty_like(x)
     out_ul = torch.empty_like(used_len)
     br = max(1, min(int(block_r), r))
-    lib, fn = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), out_x.data_ptr(), used_len.data_ptr(),
-                out_ul.data_ptr(), r, n, br, ctypes.byref(prog), stream)
-    _build.check(lib, rc, "fused_stream launch")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch("fused_stream", "fused_stream_launch",
+                  [P, P, P, P, I, I, I, ctypes.POINTER(_Program)], x.device,
+                  x.data_ptr(), out_x.data_ptr(), used_len.data_ptr(),
+                  out_ul.data_ptr(), r, n, br, ctypes.byref(prog))
     fused_stream.launches += 1
     return out_x, out_ul, prods
 
@@ -458,14 +453,9 @@ def _rows_check(name, x, idx):
         raise ValueError(f"{name}: more than 2**31 rows")
 
 
-def _rows_lib(entry: str, nptr: int):
-    lib = _build.load("rows")
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * nptr + [I, I, ctypes.c_longlong, P]
-        fn.restype = ctypes.c_int
-    return lib, fn
+def _rows_argtypes(nptr: int) -> list:
+    return [ctypes.c_void_p] * nptr + [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_longlong]
 
 
 def gather_rows(x, idx):
@@ -485,12 +475,9 @@ def gather_rows(x, idx):
         return out
     if r == 0:
         raise ValueError("gather_rows from an empty bank")
-    lib, fn = _rows_lib("gather_rows_launch", 3)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), r, k,
-                n * x.element_size(), stream)
-    _build.check(lib, rc, "gather_rows launch")
+    _build.launch("rows", "gather_rows_launch", _rows_argtypes(3), x.device,
+                  x.data_ptr(), idx.data_ptr(), out.data_ptr(), r, k,
+                  n * x.element_size())
     gather_rows.launches += 1
     return out
 
@@ -520,14 +507,293 @@ def scatter_rows(dst, idx, src):
     out = torch.empty_like(dst)
     if r == 0 or n == 0:
         return out
-    lib, fn = _rows_lib("scatter_rows_launch", 4)
-    with torch.cuda.device(dst.device):
-        stream = torch.cuda.current_stream(dst.device).cuda_stream
-        rc = fn(dst.data_ptr(), idx.data_ptr(), src.data_ptr(),
-                out.data_ptr(), r, k, n * dst.element_size(), stream)
-    _build.check(lib, rc, "scatter_rows launch")
+    _build.launch("rows", "scatter_rows_launch", _rows_argtypes(4),
+                  dst.device, dst.data_ptr(), idx.data_ptr(), src.data_ptr(),
+                  out.data_ptr(), r, k, n * dst.element_size())
     scatter_rows.launches += 1
     return out
 
 
 scatter_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the per-op kernels of the cuda backend: compare, section_sum,
+# section_limit and compact (csrc/compare.cu, reduce.cu, compact.cu)
+# ---------------------------------------------------------------------------
+#
+# Replace ``src/repro/kernels/cpm_kernels.py:273`` (``compare``), ``:230``
+# (``section_sum``), ``:367`` (``section_limit``) and ``:637``
+# (``compact``).  Each plain twin repeats the TPU kernel's arithmetic;
+# each wrapper launches its kernel for CUDA tensors (counted in
+# ``<name>.launches``) and runs the twin for CPU tensors.
+
+#: the storage dtypes the kernels take, by the code of csrc/cpm_ops.cuh
+_DTYPE_CODE = {torch.bool: 0, torch.int8: 1, torch.uint8: 2, torch.int16: 3,
+               torch.int32: 4, torch.float16: 5, torch.bfloat16: 6,
+               torch.float32: 7}
+#: blocks the reductions aim for: about two per SM of the H100's 132
+REDUCE_TARGET_BLOCKS = 264
+#: no part of a row shorter than this goes to a block of its own
+REDUCE_MIN_PART = 8192
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The TPU kernels' accumulator: int32 for integer types, float32 for
+    bool and the floats (``_acc_dtype`` of the JAX module)."""
+    if dtype.is_floating_point or dtype == torch.bool:
+        return torch.float32
+    return torch.int32
+
+
+def _datum(datum, device) -> torch.Tensor:
+    """``jnp.asarray(datum)`` with 64-bit types off, on ``device``."""
+    # function-level import: the cpm package imports this module
+    from repro_torch.cpm._tensor import asarray
+
+    return asarray(datum, device=device)
+
+
+def _pad_rows(x, section: int, fill):
+    """(..., N) -> ((R, N padded to whole sections), nsec, lead shape)."""
+    lead, n = tuple(x.shape[:-1]), x.shape[-1]
+    pad = (-n) % section
+    x2 = x.reshape(-1, n)
+    if pad:
+        x2 = torch.cat([x2, torch.full((x2.shape[0], pad), fill,
+                                       dtype=x.dtype, device=x.device)], 1)
+    return x2, x2.shape[1] // section, lead
+
+
+def compare_plain(x, datum, op: str = "eq"):
+    """Rows against a broadcast datum, as the TPU kernel: both promote to
+    one dtype (never truncating the datum), int8 flags, cast to bool."""
+    d = _datum(datum, x.device)
+    ct = torch.promote_types(x.dtype, d.dtype)
+    return _CMP[op](x.to(ct), d.to(ct).reshape(())).to(torch.int8) \
+        .to(torch.bool)
+
+
+def section_sum_plain(x, section: int = 1024):
+    """Two-phase sum of every ``(..., N)`` row: pad to whole sections with
+    0, sum each section in the accumulator dtype (phase 1), add the
+    section sums in section order (phase 2, ``cumsum``).  Returns
+    ``promote(x, acc)``."""
+    acc = _acc_dtype(x.dtype)
+    xs, nsec, lead = _pad_rows(x, section, 0)
+    parts = xs.reshape(-1, nsec, section).to(acc).sum(-1, dtype=acc)
+    out = torch.cumsum(parts, dim=-1, dtype=acc)[:, -1]
+    return out.reshape(lead).to(torch.promote_types(x.dtype, acc))
+
+
+def section_limit_plain(x, section: int = 1024, mode: str = "max"):
+    """Two-phase max / min of every ``(..., N)`` row: pad to whole sections
+    with ``limit_identity(x.dtype, mode)``, reduce each section in the
+    accumulator dtype, combine the sections; NaN propagates.  Returns
+    ``x.dtype``."""
+    # function-level import: the cpm package imports this module
+    from repro_torch.cpm.semantics import limit_identity
+
+    acc = _acc_dtype(x.dtype)
+    xs, nsec, lead = _pad_rows(x, section, limit_identity(x.dtype, mode))
+    red = torch.amax if mode == "max" else torch.amin
+    parts = red(xs.reshape(-1, nsec, section).to(acc), dim=-1)
+    return red(parts, dim=-1).reshape(lead).to(x.dtype)
+
+
+def compact_plain(x, keep, fill=0):
+    """Stable §4.2 pack of every ``(R, N)`` row, as the TPU kernel: an
+    inclusive Hillis-Steele cumsum of the keep flags, then a lower-bound
+    search per output lane for its source lane.  Returns
+    ``(packed (R, N), new_len (R,) int32)``."""
+    r, n = x.shape
+    c = keep.to(torch.int32)
+    idx = torch.arange(n, dtype=torch.int32, device=x.device)[None, :]
+    for b in range(max(n - 1, 0).bit_length()):
+        stride = 1 << b
+        sh = torch.roll(c, stride, dims=-1)
+        c = c + torch.where(idx >= stride, sh, 0)
+    new_len = c[:, n - 1:]
+    t = idx + 1
+    pos = torch.zeros((r, n), dtype=torch.int32, device=x.device)
+    for b in reversed(range(n.bit_length())):
+        npos = pos + (1 << b)
+        cv = torch.gather(c, 1, torch.clamp(npos - 1, 0, n - 1).long())
+        pos = torch.where((npos <= n) & (cv < t), npos, pos)
+    gathered = torch.gather(x, 1, torch.clamp(pos, 0, n - 1).long())
+    f = _datum(fill, x.device).to(x.dtype)
+    return torch.where(t <= new_len, gathered, f), new_len[:, 0]
+
+
+def _on_card(name: str, x) -> bool:
+    """True for CUDA tensors (launch), False for CPU ones (the twin);
+    raises for anything else."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {x.device}")
+    return True
+
+
+def _kernel_dtype(name: str, x) -> int:
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
+        raise TypeError(f"the {name} kernel takes "
+                        f"{[str(d) for d in _DTYPE_CODE]}, got {x.dtype} "
+                        f"(64-bit types: ROADMAP Queue 1)")
+    if not x.is_contiguous():
+        raise ValueError(f"the {name} kernel needs contiguous rows")
+    return code
+
+
+def compare(x, datum, op: str = "eq"):
+    """Rows vs a broadcast datum -> bool flags of ``x``'s shape: one
+    ``csrc/compare.cu`` launch for CUDA tensors (counted in
+    ``compare.launches``), the plain twin for CPU tensors.  A datum of
+    another dtype promotes both sides first, as the TPU wrapper does; the
+    kernel reads the datum on the device, so the call never syncs."""
+    if not _on_card("compare", x):
+        return compare_plain(x, datum, op)
+    if op not in _CMPCODE:
+        raise ValueError(f"compare op must be one of {sorted(_CMPCODE)}, "
+                         f"got {op!r}")
+    d = _datum(datum, x.device)
+    if d.numel() != 1:
+        raise ValueError(f"compare: the datum must be one element, got "
+                         f"shape {tuple(d.shape)}")
+    ct = torch.promote_types(x.dtype, d.dtype)
+    x, d = x.to(ct), d.to(ct).reshape(1)
+    code = _kernel_dtype("compare", x)
+    out = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch("compare", "compare_launch",
+                  [P, P, P, ctypes.c_longlong, I, I], x.device,
+                  x.data_ptr(), d.data_ptr(), out.data_ptr(), x.numel(),
+                  code, _CMPCODE[op])
+    compare.launches += 1
+    return out
+
+
+compare.launches = 0
+
+
+def reduce_plan(r: int, n: int, section: int) -> tuple[int, int]:
+    """``(parts, part_len)`` of the split-pass reductions: each row splits
+    into ``parts`` runs of whole sections, enough runs over all rows for
+    about :data:`REDUCE_TARGET_BLOCKS` blocks, none shorter than
+    :data:`REDUCE_MIN_PART` lanes unless it is the whole row."""
+    nsec = -(-n // section)
+    want = max(1, min(-(-REDUCE_TARGET_BLOCKS // max(r, 1)),
+                      n // REDUCE_MIN_PART, nsec))
+    per = -(-nsec // want)                   # sections per part
+    return -(-nsec // per), per * section
+
+
+def _reduce(name: str, x, section, out_dtype, *extra):
+    """Launch ``<name>_launch`` of ``csrc/reduce.cu`` over the rows of
+    ``x`` with the split plan of :func:`reduce_plan`; ``extra`` are the
+    entry point's int arguments after the dtype code."""
+    section = int(section)
+    if section < 1:
+        raise ValueError(f"{name}: section must be positive, got {section}")
+    n = x.shape[-1]
+    if x.ndim == 0 or n == 0:
+        raise ValueError(f"{name} needs rows of at least one lane")
+    code = _kernel_dtype(name, x)
+    x2 = x.reshape(-1, n)
+    r = x2.shape[0]
+    if r >= 2 ** 31:
+        raise ValueError(f"{name}: more than 2**31 rows")
+    parts, part_len = reduce_plan(r, n, section)
+    out = torch.empty((r,), dtype=out_dtype, device=x.device)
+    partials = torch.empty((r, parts) if parts > 1 else (0,),
+                           dtype=_acc_dtype(x.dtype), device=x.device)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    _build.launch("reduce", f"{name}_launch",
+                  [P, P, P, I, L, I, L, I] + [I] * len(extra), x.device,
+                  x2.data_ptr(), out.data_ptr(), partials.data_ptr(), r, n,
+                  parts, part_len, code, *extra)
+    return out.reshape(x.shape[:-1])
+
+
+def section_sum(x, section: int = 1024):
+    """Two-phase sum of every ``(..., N)`` row -> ``(...)`` in
+    ``promote(x, acc)`` (int32 for integer rows, float32 otherwise): one
+    ``csrc/reduce.cu`` call for CUDA tensors (one or two device launches,
+    counted once in ``section_sum.launches``), the plain twin for CPU
+    tensors."""
+    if not _on_card("section_sum", x):
+        return section_sum_plain(x, section)
+    out = _reduce("section_sum", x, section, _acc_dtype(x.dtype))
+    section_sum.launches += 1
+    return out
+
+
+section_sum.launches = 0
+
+
+def section_limit(x, section: int = 1024, mode: str = "max"):
+    """Two-phase max / min of every ``(..., N)`` row -> ``(...)`` in
+    ``x.dtype``, NaN propagating: one ``csrc/reduce.cu`` call for CUDA
+    tensors (one or two device launches, counted once in
+    ``section_limit.launches``), the plain twin for CPU tensors."""
+    if not _on_card("section_limit", x):
+        return section_limit_plain(x, section, mode)
+    if mode not in ("max", "min"):
+        raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
+    out = _reduce("section_limit", x, section, x.dtype, int(section),
+                  0 if mode == "max" else 1)
+    section_limit.launches += 1
+    return out
+
+
+section_limit.launches = 0
+
+
+def compact(x, keep, fill=0):
+    """Stable §4.2 pack of every ``(R, N)`` row under ``(R, N)`` keep flags
+    -> ``(packed (R, N), new_len (R,) int32)``: one ``csrc/compact.cu``
+    call for CUDA tensors (three device launches: tile counts, their scan,
+    the scatter; counted once in ``compact.launches``), the plain twin for
+    CPU tensors.  Elements move as 1-, 2- or 4-byte words."""
+    if not _on_card("compact", x):
+        return compact_plain(x, keep, fill)
+    if x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"compact takes contiguous (R, N) rows, got shape "
+                         f"{tuple(x.shape)}")
+    if x.element_size() not in (1, 2, 4):
+        raise TypeError(f"the compact kernel moves 1-, 2- or 4-byte "
+                        f"elements, got {x.dtype} (64-bit types: ROADMAP "
+                        f"Queue 1)")
+    r, n = x.shape
+    if keep.shape != x.shape or keep.device != x.device \
+            or keep.dtype != torch.bool or not keep.is_contiguous():
+        raise ValueError(f"compact: keep must be contiguous ({r}, {n}) "
+                         f"bool on {x.device}, got {tuple(keep.shape)} "
+                         f"{keep.dtype} on {keep.device}")
+    f = _datum(fill, x.device)
+    if f.numel() != 1:
+        raise ValueError(f"compact: fill must be one element, got shape "
+                         f"{tuple(f.shape)}")
+    f = f.to(x.dtype).reshape(1)
+    out = torch.empty_like(x)
+    if r == 0 or n == 0:
+        return out, torch.zeros((r,), dtype=torch.int32, device=x.device)
+    if n >= 2 ** 31:
+        raise ValueError("compact: rows of 2**31 lanes or more")
+    tile = _build.load("compact").compact_tile    # lanes per tile
+    tile.argtypes, tile.restype = [], ctypes.c_int
+    new_len = torch.empty((r,), dtype=torch.int32, device=x.device)
+    scratch = torch.empty((2 * r * -(-n // tile()),), dtype=torch.int32,
+                          device=x.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch("compact", "compact_launch",
+                  [P, P, P, P, P, P, I, ctypes.c_longlong, I], x.device,
+                  x.data_ptr(), keep.data_ptr(), f.data_ptr(),
+                  out.data_ptr(), new_len.data_ptr(), scratch.data_ptr(), r,
+                  n, x.element_size())
+    compact.launches += 1
+    return out, new_len
+
+
+compact.launches = 0

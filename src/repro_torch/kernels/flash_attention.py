@@ -86,18 +86,12 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None,
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
-def _lib():
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        L = ctypes.c_longlong
-        fn.argtypes = [P, P, P, P,                 # q, k, v, out
-                       I, I, I, I, I, I,           # B, H, KVH, Sq, Skv, D
-                       L, L, L, L, L, L, L, L, L,  # q/k/v strides (b, h, s)
-                       I, I, I, F, I, I, P]        # causal, has_window,
-        fn.restype = ctypes.c_int                  # window, scale, block_q,
-    return lib, fn                                 # dtype, stream
+#: flash_attention_fwd's argument types before its stream: q, k, v, out;
+#: B, H, KVH, Sq, Skv, D; the (b, h, s) strides of q, k and v; causal,
+#: has_window, window, scale, block_q, dtype
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
+             + [ctypes.c_float] + [ctypes.c_int] * 2)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None,
@@ -131,19 +125,16 @@ def flash_attention(q, k, v, *, causal=True, window=None,
         raise ValueError("the bf16 kernel loads bf16 pairs: q, k, v need "
                          "4-byte aligned rows (even strides)")
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    lib, fn = _lib()
     has_window = window is not None
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, h, kvh, sq, skv, d,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                int(causal), int(has_window),
-                int(window) if has_window else 0, d ** -0.5,
-                block_q, _DTYPES[q.dtype], stream)
-    _build.check(lib, rc, "flash_attention launch")
+    _build.launch("flash_attention", "flash_attention_fwd", _ARGTYPES,
+                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), b, h, kvh, sq, skv, d,
+                  q.stride(0), q.stride(1), q.stride(2),
+                  k.stride(0), k.stride(1), k.stride(2),
+                  v.stride(0), v.stride(1), v.stride(2),
+                  int(causal), int(has_window),
+                  int(window) if has_window else 0, d ** -0.5,
+                  block_q, _DTYPES[q.dtype])
     flash_attention.launches += 1
     return out
 

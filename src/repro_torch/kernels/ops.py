@@ -19,7 +19,11 @@ from . import cpm_kernels, flash_attention as fa, ref
 KERNELS = {"flash_attention": fa.flash_attention,
            "fused_stream": cpm_kernels.fused_stream,
            "gather_rows": cpm_kernels.gather_rows,
-           "scatter_rows": cpm_kernels.scatter_rows}
+           "scatter_rows": cpm_kernels.scatter_rows,
+           "compare": cpm_kernels.compare,
+           "section_sum": cpm_kernels.section_sum,
+           "section_limit": cpm_kernels.section_limit,
+           "compact": cpm_kernels.compact}
 
 
 def _mode(impl, t) -> str:

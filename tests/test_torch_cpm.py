@@ -297,24 +297,45 @@ class TestProgramsAgainstJax:
 
 class TestBackends:
     def test_forced_cuda_backend_raises_per_op(self):
+        """Ops whose per-op kernel is still to port raise on a forced cuda
+        backend (``stencil`` through ``CPMArray``, ``shift_range`` on the
+        backend itself)."""
         dev = cpm_array(_DATA, _USED, backend="cuda", device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-            dev.compare(3)
+            dev.stencil((1.0, 2.0, 1.0))
         with pytest.raises(NotImplementedError):
             get_backend("cuda").shift_range(T(_DATA), 0, 3, 1)
+
+    def test_forced_cuda_backend_runs_the_ported_ops(self):
+        """``compare``, ``section_sum``, ``global_limit`` and ``compact``
+        run on a forced cuda backend (the kernels' plain twins on CPU
+        rows) and equal the JAX reference."""
+        dev = cpm_array(_DATA, _USED, backend="cuda", device="cpu")
+        ref = jcpm(_DATA, _USED)
+        _eq(ref.compare(3, "ge"), dev.compare(3, "ge"))
+        _eq(ref.count(3), dev.count(3))
+        _eq(ref.section_sum(), dev.section_sum())
+        _eq(ref.global_limit("min"), dev.global_limit("min"))
+        keep = _DATA % 3 == 0
+        jc, tc = ref.compact(keep, fill=-1), dev.compact(T(keep), fill=-1)
+        _eq(jc.data, tc.data)
+        _eq(jc.used_len, tc.used_len)
 
     def test_auto_on_cpu_is_reference(self):
         assert resolve("auto", "compare", T(_DATA)).name == "reference"
 
     def test_eager_replay_inside_a_program_uses_reference(self):
         """An eager replay on ``auto`` runs the reference on CPU rows; a
-        forced cuda replay of an op whose per-op kernel is still to port
-        raises (pin compatibility: never a substituted realization)."""
+        forced cuda replay of ``compare`` runs its per-op kernel (the twin
+        here), and of an op whose per-op kernel is still to port raises
+        (pin compatibility: never a substituted realization)."""
         dev = cpm_array(_DATA, _USED, device="cpu")
         prog = CPMProgram().append("compare", datum=4, op="ge")
         got = apply_instruction(dev, prog.instructions[0], backend="auto")
         _eq(jcpm(_DATA, _USED).compare(4, "ge"), got)
-        for instr in CPMProgram().append("compare", datum=4, op="ge") \
+        got = apply_instruction(dev, prog.instructions[0], backend="cuda")
+        _eq(jcpm(_DATA, _USED).compare(4, "ge"), got)
+        for instr in CPMProgram().append("stencil", taps=(1.0, 2.0, 1.0)) \
                 .append("truncate", new_len=3).instructions:
             with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
                 apply_instruction(dev, instr, backend="cuda")

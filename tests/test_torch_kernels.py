@@ -385,16 +385,18 @@ class TestFusedStreamDescriptor:
 
 class TestBuild:
     def test_sources_and_cache_key(self):
-        assert _build.sources() == ["flash_attention", "fused_stream",
-                                    "rows"]
+        assert _build.sources() == ["compact", "compare", "flash_attention",
+                                    "fused_stream", "reduce", "rows"]
         p1 = _build._lib_path("fused_stream")
         assert p1 == _build._lib_path("fused_stream")
         assert p1.parent == _build.build_dir()
         assert p1.parent.parent.parent == _build._CHECKOUT
         assert p1 != _build._lib_path("flash_attention")
         assert "-fmad=false" in _build._flags("fused_stream")
-        assert any("sm_90a" in f for f in _build._flags("flash_attention"))
-        assert any("sm_90a" in f for f in _build._flags("rows"))
+        for name in _build.sources():
+            assert any("sm_90a" in f for f in _build._flags(name))
+        # a shared header is part of every library's key
+        assert (_build.CSRC / "cpm_ops.cuh").is_file()
 
     def test_build_dir_outside_a_checkout(self, monkeypatch, tmp_path):
         monkeypatch.setattr(_build, "_CHECKOUT", tmp_path)

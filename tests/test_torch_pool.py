@@ -8,11 +8,13 @@ Held here on the CPU, on the same seeded NumPy inputs:
     kernels run in interpret mode, sentinel (out-of-range) scatter ids
     included — bit for bit;
   * ``CPMArray.count`` / ``global_limit`` / ``compact`` equal the JAX
-    reference backend; the ``cuda`` backend raises for them (ROADMAP
-    Queue 2);
-  * the port's ``SlotAllocator``, its ``OracleAllocator`` and the JAX
-    ``SlotAllocator`` make identical decisions over seeded
-    alloc / free / touch / victim / alloc_pages traces;
+    reference backend, on the port's reference and cuda backends (the
+    latter runs the kernels' plain twins on CPU rows); ops whose per-op
+    kernel is still to port raise on cuda (ROADMAP Queue 2);
+  * the port's ``SlotAllocator`` (reference, and cuda on CPU metadata),
+    its ``OracleAllocator`` and the JAX ``SlotAllocator`` make identical
+    decisions over seeded alloc / free / touch / victim / alloc_pages
+    traces;
   * ``CPMBank`` gather / scatter and ``MultiBankScheduler`` flushes equal
     the JAX reference banks, and ``packed_commit`` equals JAX bit for bit
     on both port backends.
@@ -178,14 +180,39 @@ class TestAllocatorOps:
                                   .global_limit(mode))
                 np.testing.assert_array_equal(got, want)
 
-    @pytest.mark.parametrize("op", ["global_limit", "compact"])
+    @pytest.mark.parametrize("op", ["stencil", "template_match"])
     def test_cuda_backend_raises_naming_queue_2(self, op):
+        """Ops whose per-op kernel is still to port raise on cuda."""
         arr = cpm_array(_t(np.arange(8, dtype=np.int32)), 5, backend="cuda")
         with pytest.raises(NotImplementedError, match="Queue 2"):
-            if op == "compact":
-                arr.compact(_t(np.ones(8, bool)))
+            if op == "stencil":
+                arr.stencil((1.0, 2.0, 1.0))
             else:
-                arr.global_limit("min")
+                arr.template_match(_t(np.ones(3, np.float32)))
+
+    @pytest.mark.parametrize("op", ["compare", "section_sum",
+                                    "global_limit", "compact"])
+    def test_cuda_backend_runs_the_allocator_ops(self, op):
+        """The four ported ops on cuda (their twins on CPU rows) equal the
+        JAX reference backend."""
+        x = np.arange(8, dtype=np.int32) * 3 % 7
+        tarr = cpm_array(_t(x), 5, backend="cuda")
+        jarr = jcpm_array(x, 5, backend="reference")
+        if op == "compact":
+            keep = x % 2 == 0
+            tc, jc = tarr.compact(_t(keep), fill=-1), jarr.compact(keep,
+                                                                  fill=-1)
+            got, want = (tc.data, tc.used_len), (jc.data, jc.used_len)
+        elif op == "compare":
+            got, want = (tarr.compare(3, "le"),), (jarr.compare(3, "le"),)
+        elif op == "section_sum":
+            got, want = (tarr.section_sum(),), (jarr.section_sum(),)
+        else:
+            got, want = (tarr.global_limit("min"),), \
+                (jarr.global_limit("min"),)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            assert g.numpy().dtype == np.asarray(w).dtype
 
 
 # ---------------------------------------------------------------------------
@@ -214,29 +241,33 @@ class TestSlotAllocator:
         a.free(3)
         assert a.used_slots() == [0, 2] and a.victim() == 2
 
+    @pytest.mark.parametrize("backend", ["reference", "cuda"])
     @pytest.mark.parametrize("used", [(1, 1, 1, 1), (0, 1, 1, 0),
                                       (1, 0, 0, 1), (0, 0, 0, 0)])
-    def test_victim_tie_break_matches_jax(self, used):
+    def test_victim_tie_break_matches_jax(self, used, backend):
         """Forced equal ticks break to the lowest used slot in both
         packages (the Rule-6 drain orders by address)."""
         ticks = [3, 1, 1, 2]
-        a, j = SlotAllocator(4), JAlloc(4)
+        a, j = SlotAllocator(4, backend=backend, device="cpu"), JAlloc(4)
         a._state = torch.tensor(used, dtype=torch.int32)
         a._tick = torch.tensor(ticks, dtype=torch.int32)
         j._state = jnp.asarray(used, jnp.int32)
         j._tick = jnp.asarray(ticks, jnp.int32)
         assert a.victim() == j.victim()
 
+    @pytest.mark.parametrize("backend", ["reference", "cuda"])
     @pytest.mark.parametrize("seed", range(6))
-    def test_slot_and_page_traces_match_jax_and_oracle(self, seed):
+    def test_slot_and_page_traces_match_jax_and_oracle(self, seed, backend):
         """Seeded alloc / alloc_pages / free / touch traces (the moves of
         ``tests/test_pool.py``): every decision, page list, free count,
         page file and LRU victim agrees across the three allocators, and
-        no sub-page is ever owned twice."""
+        no sub-page is ever owned twice.  ``cuda`` on CPU metadata runs
+        the compare / section_limit / compact kernels' plain twins."""
         rng = np.random.default_rng(seed)
         n, npg = 3, 8
-        allocs = (SlotAllocator(n, n_pages=npg), JAlloc(n, n_pages=npg),
-                  OracleAllocator(n, n_pages=npg))
+        allocs = (SlotAllocator(n, n_pages=npg, backend=backend,
+                                device="cpu"),
+                  JAlloc(n, n_pages=npg), OracleAllocator(n, n_pages=npg))
         port, jax_a, orc = allocs
         held: set[int] = set()
         for i in range(60):
