@@ -53,7 +53,26 @@ Phases, in order; any failure exits non-zero:
      backend="cuda")`` (metadata on the card) over a seeded 300-operation
      trace, every answer equal to ``OracleAllocator`` and a reference
      ``SlotAllocator`` on the CPU; ``compare``, ``section_limit`` and
-     ``compact`` must launch.  The four kernels are timed at these shapes.
+     ``compact`` must launch.  The four kernels are timed at these shapes;
+  8. the paper's §5 search, §6.3 histogram, §8 super ops and §7.7 sort
+     through ``cpm_array(..., backend="cuda")``, with the counters set to
+     0 just before and read just after: ``find_all`` of needles of 2, 8
+     and 32 items (the paper benchmark's T2 lengths) in phase 7's int
+     rows cut to four symbols, and the match-end flags of a float needle
+     in the float rows; ``histogram`` of phase 7's rows with 8
+     and 64 integer edges, 64 fractional float32 edges, and float rows
+     with NaN; ``super_sum`` and ``super_limit`` (max, min) of the int and
+     float rows and of rows with NaN; a full ``sort`` of (64, 16,384) int32
+     and float32 rows (subnormals planted, one row with NaN), a bounded
+     one of ``optimal_section(16,384) = 128`` cycles, and the bounded local
+     phase of 1024 cycles on phase 7's (64, 1,048,576) int rows (halo
+     tiles).  Each result against the kernel's twin (bit for bit; float
+     sums within 1e-5 x sum|x| of NumPy), match addresses against the
+     reference backend and NumPy, integer super sums against
+     ``section_sum``, limits against ``global_limit``, full sorts against
+     ``np.sort`` on rows without NaN; every kernel twice, bit for bit;
+     ``backend="auto"`` the same launches, none on an 8-lane row.  The
+     five kernels are timed at these shapes.
 
 The lines before the last are the card (``nvidia-smi`` name and power
 limit) and one JSON object with every kernel's launches, error and
@@ -97,6 +116,18 @@ SUM_TOL = 1e-5              # x sum|x| per row, for float32 sums
 POOL_KERNELS = ("flash_attention", "fused_stream", "gather_rows",
                 "scatter_rows")
 CPM_KERNELS = ("compare", "section_sum", "section_limit", "compact")
+CPM2_KERNELS = ("substring_match", "histogram", "super_sum", "super_limit",
+                "oddeven_sort")
+# phase 8: the paper benchmark's T2 needle lengths on four-symbol rows
+# (benchmarks/run.py:98), its T3 bin counts (:110),
+# the allocator's longest row for the sort, its ~sqrt(N) bounded phase,
+# and the bounded local phase on phase 7's rows
+NEEDLES, FIND_MAX = (2, 8, 32), 64
+HIST_BINS = (8, 64)
+SORT_R, SORT_N, SORT_LEN_STEP, LONG_SORT_STEPS = 64, 16384, 129, 1024
+#: the float32 rate outside the tensor cores (H100 SXM data sheet), for
+#: the bounds of kernels that compare rather than multiply
+F32_OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -177,9 +208,10 @@ def timed(fn, iters: int):
         (call, "events", call)
 
 
-def bound(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, flops: float = 0.0,
+          rate: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -674,7 +706,7 @@ def serve_pool(torch, dev, cfg, params, record):
     for name in POOL_KERNELS:
         if counts[name] <= 0:
             fail(f"{name} was not launched on the pool path ({counts})")
-    if any(counts[name] for name in CPM_KERNELS):
+    if any(counts[name] for name in CPM_KERNELS + CPM2_KERNELS):
         fail(f"the pool path launched a per-op CPM kernel: {counts}")
 
     # tokens against solo generation, near-ties allowed
@@ -1004,7 +1036,9 @@ def check_cpm_surface(torch, np, dev):
     print(f"backend='auto': the same launches on {CPM_N}-lane rows, none "
           f"on an 8-lane row")
     return counts, errs, {"xi": xi, "mf0": mf0, "kp": kp, "sec": sec,
-                          "path_s": path_s}
+                          "path_s": path_s, "xf": xf, "ul": ul,
+                          "live": live, "xi_np": xi_np, "xf_np": xf_np,
+                          "ul_np": ul_np}
 
 
 def check_allocator(torch, np, dev):
@@ -1131,6 +1165,421 @@ def time_cpm_kernels(torch, dev, data, errs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the §6.3 histogram, §8 super ops and §7.7 sort on the kernels
+# ---------------------------------------------------------------------------
+
+def _sort_rows(np):
+    """(64, 16,384) int32 rows over the whole int32 range, and float32
+    normal rows with 16 subnormals planted in every row and a NaN in row
+    5; per-row ``used_len = N - 129 r``."""
+    rng = np.random.default_rng(8)
+    si = rng.integers(-2 ** 31, 2 ** 31, (SORT_R, SORT_N)).astype(np.int32)
+    sf = rng.standard_normal((SORT_R, SORT_N)).astype(np.float32)
+    cols = rng.choice(SORT_N - SORT_LEN_STEP * SORT_R, (SORT_R, 16))
+    np.put_along_axis(sf, cols, (rng.standard_normal((SORT_R, 16))
+                                 * 1e-39).astype(np.float32), axis=1)
+    sf[5, 100] = np.nan
+    sul = (SORT_N - SORT_LEN_STEP * np.arange(SORT_R)).astype(np.int32)
+    return si, sf, sul
+
+
+def _cpm2_ops(arrs, needles, edges, steps):
+    """Phase 8's op sequence (``steps``: the bounded sort's cycles);
+    returns the results by name."""
+    a_i, a_f, a_n, a_si, a_sf, a_q = arrs
+    out = {f"find{m}": a_q.find_all(needles[m], FIND_MAX) for m in NEEDLES}
+    out["ends_float"] = a_f.substring_match(needles["float"], where="end")
+    out.update({f"hist{m}": a_i.histogram(edges[m]) for m in HIST_BINS})
+    out["hist_frac"] = a_i.histogram(edges["frac"])
+    out["hist_nan"] = a_n.histogram(edges["float"])
+    out["ssum_int"], out["ssum_float"] = a_i.super_sum(), a_f.super_sum()
+    for mode in ("max", "min"):
+        for kind, a in (("int", a_i), ("float", a_f), ("nan", a_n)):
+            out[f"s{mode}_{kind}"] = a.super_limit(mode)
+    out["sort_int"], out["sort_float"] = a_si.sort(), a_sf.sort()
+    out["sort_bounded_int"] = a_si.sort(steps)
+    out["sort_bounded_float"] = a_sf.sort(steps)
+    out["sort_long"] = a_i.sort(LONG_SORT_STEPS)
+    return out
+
+
+def check_cpm_ops2(torch, np, dev, data):
+    """Phase 8 (see the module docstring).  Returns the launch counts of
+    the counted run, per-kernel errors, and the inputs for timing."""
+    from repro_torch.cpm import cpm_array
+    from repro_torch.cpm.optable import optimal_section
+    from repro_torch.cpm.semantics import limit_identity
+    from repro_torch.kernels import cpm_kernels as ck
+    from repro_torch.kernels import ops
+
+    steps = optimal_section(SORT_N)              # the bounded sort's cycles
+    xi, xf, ul, live = data["xi"], data["xf"], data["ul"], data["live"]
+    xi_np, xf_np, ul_np = data["xi_np"], data["xf_np"], data["ul_np"]
+    sec = data["sec"]
+    t0 = time.perf_counter()
+    xn = xf.clone()                          # NaN and +-inf rows
+    xn[3, 1000] = float("nan")
+    xn[5, 17], xn[5, 99] = float("inf"), -float("inf")
+    xn[7, :] = -float("inf")
+    xn[9, int(ul_np[9]) + 5] = float("nan")  # past used_len: masked
+    si_np, sf_np, sul_np = _sort_rows(np)
+    si, sf, sul = (torch.from_numpy(a).to(dev) for a in (si_np, sf_np,
+                                                         sul_np))
+    # four-symbol rows (phase 7's ints mod 4) with the 32-item needle
+    # planted once a row; the 2- and 8-item needles occur by chance
+    rng = np.random.default_rng(5)
+    needles = {m: torch.from_numpy(rng.integers(0, 4, m).astype(np.int32))
+               .to(dev) for m in NEEDLES}
+    xq = xi & 3
+    plant = 5000 + 7 * torch.arange(CPM_R, device=dev)
+    xq[torch.arange(CPM_R, device=dev)[:, None],
+       plant[:, None] + torch.arange(32, device=dev)] = needles[32]
+    needles["float"] = xf[0, 1000:1008].clone()
+    edges = {m: torch.from_numpy(np.linspace(0, 4096, m + 1).round()
+                                 .astype(np.int32)).to(dev)
+             for m in HIST_BINS}
+    edges["frac"] = torch.from_numpy(np.linspace(-0.5, 4096.5, 65)
+                                     .astype(np.float32)).to(dev)
+    edges["float"] = torch.from_numpy(np.linspace(-4, 4, 65)
+                                      .astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    print(f"cpm2: sort rows ({SORT_R}, {SORT_N}) int32 and float32 "
+          f"(subnormals, a NaN row), used_len {int(sul_np[-1])}..{SORT_N}; "
+          f"made in {time.perf_counter() - t0:.1f}s")
+
+    def arrays(backend):
+        return tuple(cpm_array(x, u, backend=backend) for x, u in
+                     ((xi, ul), (xf, ul), (xn, ul), (si, sul), (sf, sul),
+                      (xq, ul)))
+
+    ops.reset_launch_counts()                    # the phase-8 path, counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrs = arrays("cuda")
+    got = _cpm2_ops(arrs, needles, edges, steps)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want_launches = {"substring_match": 4, "histogram": 4, "super_sum": 2,
+                     "super_limit": 6, "oddeven_sort": 5}
+    for name, n in want_launches.items():
+        if counts[name] != n:
+            fail(f"the phase-8 path launched {name} {counts[name]} times, "
+                 f"want {n} ({counts})")
+    if any(counts[k] for k in ("compare", "compact", "section_sum",
+                               "section_limit")):
+        fail(f"the phase-8 path launched a phase-7 kernel: {counts}")
+    print(f"cpm2 path through cpm_array(backend='cuda'): {path_s:.3f}s, "
+          f"launches {counts}")
+
+    errs = {}
+
+    def hold(name, ok, err=0.0, what=""):
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"{name} {what}: max_abs_err={err} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{name} {what} disagrees with its check")
+
+    # search: the kernel against its twin on the path's rows, find_all
+    # against the reference backend on the card and two rows against
+    # NumPy's windows
+    ref_q = cpm_array(xq, ul, backend="reference")
+    for m in NEEDLES:
+        nee = needles[m]
+        hold("substring_match", torch.equal(
+            ck.substring_match(xq, nee), ck.substring_match_plain(xq, nee)),
+            0.0, f"{m}-item needle on four-symbol int32 rows, bit for bit "
+            f"with the twin")
+        idx, valid = got[f"find{m}"]
+        w_idx, w_valid = ref_q.find_all(nee, FIND_MAX)
+        hold("substring_match", torch.equal(idx, w_idx)
+             and torch.equal(valid, w_valid), 0.0,
+             f"find_all of a {m}-item needle, equal to the reference backend")
+        for r in (0, CPM_R - 1):
+            row = xq[r, :ul_np[r]].cpu().numpy()
+            hits = np.flatnonzero(
+                (np.lib.stride_tricks.sliding_window_view(row, m)
+                 == nee.cpu().numpy()).all(1))[:FIND_MAX]
+            k = len(hits)
+            if not (np.array_equal(idx[r, :k].cpu().numpy(), hits)
+                    and int(valid[r].sum()) == k):
+                fail(f"find_all of a {m}-item needle, row {r}, against "
+                     f"NumPy ({k} matches)")
+            if m == 32 and (k == 0 or hits[0] != 5000 + 7 * r):
+                fail(f"the planted 32-item needle was not found in row {r}")
+    ends = got["ends_float"]
+    hold("substring_match", torch.equal(
+        ends, ck.substring_match_plain(xf, needles["float"]).bool() & live)
+        and bool(ends[0, 1007]), 0.0,
+        "match-end flags of a float32 needle, equal to the twin's")
+    n_found = {m: int(got[f"find{m}"][1].sum()) for m in NEEDLES}
+    print(f"find_all: {n_found} matches reported over the {CPM_R} rows "
+          f"(at most {FIND_MAX} a row)")
+
+    # histogram: the kernel's inputs on the path (promoted, tail = top
+    # edge) through the twin; two rows against NumPy's counts
+    hist_in = {}
+    for key, x, e in ((8, xi, edges[8]), (64, xi, edges[64]),
+                      ("frac", xi, edges["frac"]),
+                      ("nan", xn, edges["float"])):
+        ct = torch.promote_types(x.dtype, e.dtype)
+        xh = torch.where(live, x.to(ct), e.to(ct)[-1])
+        hist_in[key] = (xh, e.to(ct))
+        want = ck.histogram_plain(xh, e.to(ct), 1024)
+        name = f"hist_{key}" if isinstance(key, str) else f"hist{key}"
+        hold("histogram", torch.equal(got[name], want), 0.0,
+             f"{key} edges on {x.dtype} rows, bit for bit with the twin")
+        src = (xf_np if key == "nan" else xi_np)
+        e_np = e.cpu().numpy().astype(np.float64)
+        for r in (0, CPM_R - 1):
+            row = src[r, :ul_np[r]].astype(np.float64)
+            if key == "nan":
+                row = xn[r, :ul_np[r]].cpu().numpy().astype(np.float64)
+            cnt = np.diff([(row < e).sum() for e in e_np])
+            if not np.array_equal(got[name][r].cpu().numpy(), cnt):
+                fail(f"histogram {key} row {r} against NumPy")
+    nan_row = xn[3, :ul_np[3]].cpu().numpy()
+    if int(got["hist_nan"][3].sum()) != int(((nan_row >= -4) &
+                                             (nan_row < 4)).sum()):
+        fail("histogram counted a NaN lane")
+
+    # super ops: int sums = section_sum, limits = global_limit, bit for
+    # bit; float sums within SUM_TOL x sum|x| of NumPy
+    a_i, a_f, a_n = arrs[:3]
+    mi0 = torch.where(live, xi, 0)
+    mf0 = torch.where(live, xf, 0.0)
+    ss_sec = a_i.section_sum()
+    hold("super_sum", torch.equal(got["ssum_int"], ss_sec)
+         and torch.equal(got["ssum_int"], ck.super_sum_plain(mi0, sec)),
+         0.0, "int32 rows, bit for bit with section_sum and the twin")
+    ok_k, worst_k = _float_sums_ok(np, got["ssum_float"].cpu(), xf_np, ul_np)
+    ok_p, worst_p = _float_sums_ok(
+        np, ck.super_sum_plain(mf0, sec).cpu(), xf_np, ul_np)
+    err = float((got["ssum_float"] - ck.super_sum_plain(mf0, sec))
+                .abs().max())
+    hold("super_sum", ok_k and ok_p, err,
+         f"float32 rows, kernel and twin within {SUM_TOL} x sum|x| of "
+         f"NumPy float64 (worst {worst_k:.3f} / {worst_p:.3f} of tol)")
+    for mode in ("max", "min"):
+        for kind, a, x in (("int", a_i, xi), ("float", a_f, xf),
+                           ("nan", a_n, xn)):
+            m = torch.where(live, x, limit_identity(x.dtype, mode))
+            twin = ck.super_limit_plain(m, sec, mode)
+            k = got[f"s{mode}_{kind}"]
+            ok = (_nan_equal(torch, k, twin)
+                  and _nan_equal(torch, k, a.global_limit(mode)))
+            if kind == "nan":
+                ok = ok and bool(torch.isnan(k[3])) \
+                    and not bool(torch.isnan(k[9]))
+            else:
+                ok = ok and torch.equal(_bits(torch, k), _bits(torch, twin))
+            hold("super_limit", ok, 0.0,
+                 f"{mode} {kind} rows, bit for bit with the twin and "
+                 f"global_limit")
+
+    # sorts: the kernel's inputs on the path (dead lanes = the dtype's
+    # max) through the twin; full sorts against np.sort
+    s_live = torch.arange(SORT_N, device=dev)[None] < sul[:, None]
+    sort_in = {"int": torch.where(s_live, si, torch.iinfo(torch.int32).max),
+               "float": torch.where(s_live, sf, float("inf")),
+               "long": torch.where(live, xi, torch.iinfo(torch.int32).max)}
+    t0 = time.perf_counter()
+    for kind in ("int", "float"):
+        x = sort_in[kind]
+        full = ck.oddeven_sort(x)
+        hold("oddeven_sort", torch.equal(_bits(torch, full), _bits(
+            torch, ck.oddeven_sort_plain(x))), 0.0,
+            f"full sort of ({SORT_R}, {SORT_N}) {kind} rows, bit for bit "
+            f"with the twin")
+        data_np = got[f"sort_{kind}"].data.cpu().numpy()
+        src = si_np if kind == "int" else sf_np
+        for r in range(SORT_R):
+            u = int(sul_np[r])
+            if np.isnan(src[r, :u]).any():
+                continue
+            want = np.sort(src[r, :u])
+            if not (np.array_equal(data_np[r, :u].view(np.int32),
+                                   want.view(np.int32))
+                    and not data_np[r, u:].any()):
+                fail(f"sorted {kind} row {r} differs from np.sort")
+        hold("oddeven_sort", torch.equal(
+            _bits(torch, got[f"sort_bounded_{kind}"].data),
+            _bits(torch, torch.where(s_live, ck.oddeven_sort_plain(
+                x, steps), 0).to(x.dtype))), 0.0,
+            f"{steps} cycles on {kind} rows, cycle for cycle with the twin")
+    tiny = sf_np[np.abs(sf_np) < 1.2e-38]
+    print(f"np.sort held on every row without NaN, {tiny.size} subnormals "
+          f"kept; the sort twins took {time.perf_counter() - t0:.1f}s")
+    x = sort_in["long"]
+    want = ck.oddeven_sort_plain(x, LONG_SORT_STEPS)
+    hold("oddeven_sort", torch.equal(
+        got["sort_long"].data, torch.where(live, want, 0)), 0.0,
+        f"{LONG_SORT_STEPS} cycles on ({CPM_R}, {CPM_N}) int32 rows "
+        f"(halo tiles), cycle for cycle with the twin")
+
+    # determinism: every kernel twice on the path's inputs
+    for name, fn in (("substring_match",
+                      lambda: ck.substring_match(xq, needles[8])),
+                     ("histogram", lambda: ck.histogram(*hist_in[64], 1024)),
+                     ("super_sum", lambda: ck.super_sum(mf0, sec)),
+                     ("super_limit",
+                      lambda: ck.super_limit(mf0, sec, "min")),
+                     ("oddeven_sort", lambda: ck.oddeven_sort(
+                         sort_in["float"])),
+                     ("oddeven_sort", lambda: ck.oddeven_sort(
+                         sort_in["long"], LONG_SORT_STEPS))):
+        a, b = fn(), fn()
+        hold(name, torch.equal(_bits(torch, a), _bits(torch, b)), 0.0,
+             "run twice, bit-identical")
+
+    # backend="auto": the same launches on these rows, none on 8 lanes
+    ops.reset_launch_counts()
+    _cpm2_ops(arrays("auto"), needles, edges, steps)
+    torch.cuda.synchronize()
+    auto = ops.launch_counts()
+    if auto != counts:
+        fail(f"backend='auto' launched {auto}, backend='cuda' {counts}")
+    small = torch.arange(8, dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    a8 = cpm_array(small, 6)
+    a8.find_all(needles[2], 4), a8.histogram(edges[8])
+    a8.super_sum(), a8.super_limit(), a8.sort()
+    torch.cuda.synchronize()
+    if any(ops.launch_counts().values()):
+        fail(f"an 8-lane row under backend='auto' launched "
+             f"{ops.launch_counts()}")
+    print(f"backend='auto': the same launches on these rows, none on an "
+          f"8-lane row")
+    return counts, errs, {"xq": xq, "needles": needles,
+                          "hist_in": hist_in, "mf0": mf0, "sec": sec,
+                          "mfl": torch.where(live, xf, -float("inf")),
+                          "sort_in": sort_in, "path_s": path_s,
+                          "steps": steps}
+
+
+def time_cpm2_kernels(torch, dev, data, errs, card):
+    """The five phase-8 kernels at their shapes: device time, twin, bound
+    and the PyTorch call that computes the same function (``card``: the
+    ``nvidia-smi`` name and power limit printed beside the times).  Each
+    bound is the work the function needs: bytes for the search, the
+    histogram (sorted edges would place a lane in log2(M+1) compares, so
+    the difference-of-counts form's M+1 compares a lane are its own, and
+    are kept beside it as ``counts_form_bound_ms``) and the super ops;
+    for the full sort the larger of its bytes and R * N * log2(N)
+    comparisons, with the odd-even network's own R * N * N/2
+    compare-exchanges beside it as ``network_bound_ms``."""
+    import math
+
+    from repro_torch.kernels import cpm_kernels as ck
+
+    xh, e64 = data["hist_in"][64]
+    xh8, e8 = data["hist_in"][8]
+    mf0, mfl, sec = data["mf0"], data["mfl"], data["sec"]
+    xs = data["sort_in"]["int"]
+    xq, needles = data["xq"], data["needles"]
+    nel = xh.numel()
+    m = e64.numel() - 1
+    offs = (torch.arange(CPM_R, device=dev) * (m + 2))[:, None]
+
+    def hist_lib():     # searchsorted + bincount (two calls, and the add
+        idx = torch.searchsorted(e64, xh, right=True)  # of row offsets)
+        return torch.bincount((idx + offs).reshape(-1),
+                              minlength=CPM_R * (m + 2))
+
+    out = []
+    cases = (
+        ("substring_match", "src/repro_torch/csrc/substring_match.cu",
+         ":540", lambda: ck.substring_match(xq, needles[8]),
+         lambda: ck.substring_match_plain(xq, needles[8]), None,
+         bound(xq.numel() * 4 + 8 * 4 + xq.numel()), 20, 2),
+        ("histogram", "src/repro_torch/csrc/histogram.cu", ":315",
+         lambda: ck.histogram(xh, e64, 1024),
+         lambda: ck.histogram_plain(xh, e64, 1024), hist_lib,
+         bound(nel * 4 + (m + 1) * 4 + CPM_R * m * 4), 20, 2),
+        ("super_sum", "src/repro_torch/csrc/super_reduce.cu", ":456",
+         lambda: ck.super_sum(mf0, sec),
+         lambda: ck.super_sum_plain(mf0, sec),
+         lambda: torch.sum(mf0, -1, dtype=torch.float32),
+         bound(nel * 4 + CPM_R * 4), 20, 5),
+        ("super_limit", "src/repro_torch/csrc/super_reduce.cu", ":466",
+         lambda: ck.super_limit(mfl, sec, "max"),
+         lambda: ck.super_limit_plain(mfl, sec, "max"),
+         lambda: torch.amax(mfl, -1), bound(nel * 4 + CPM_R * 4), 20, 5),
+        ("oddeven_sort", "src/repro_torch/csrc/oddeven_sort.cu", ":177",
+         lambda: ck.oddeven_sort(xs), None,
+         lambda: torch.sort(xs, -1).values,
+         bound(2 * xs.numel() * 4,
+               SORT_R * SORT_N * math.log2(SORT_N), F32_OPS_PER_S),
+         5, 0))
+    for name, src, line, fn, plain, lib, (bound_ms, by), iters, p_it in cases:
+        ms, src_, call_ms = timed(fn, iters)
+        launches = kernel_ms(fn, iters)
+        print(f"{name}: device launches of one call (ms): {launches}; "
+              f"{card}")
+        if plain is not None:
+            plain_ms, _, plain_call = timed(plain, p_it)
+            plain_src = "profiler"
+        else:          # the full sort's twin is N cycles of launches deep:
+            plain_ms = plain_call = cuda_ms(       # one call, events
+                lambda: ck.oddeven_sort_plain(xs), iters=1, warmup=0)
+            plain_src = "events, one call"
+        lib_ms = None if lib is None else timed(lib, iters)[0]
+        rec = {"name": name, "route": "cuda", "source": src,
+               "replaces": f"src/repro/kernels/cpm_kernels.py{line}",
+               "launches": None, "max_abs_err": errs[name],
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": by, "library_ms": lib_ms, "ms_source": src_,
+               "call_ms": call_ms, "plain_call_ms": plain_call,
+               "plain_source": plain_src, "device_launches": launches}
+        if name == "substring_match":
+            rec["shape"], rec["needle"] = [CPM_R, CPM_N], 8
+            rec["library_call"] = None
+            for k in (2, 32):
+                rec[f"m{k}_ms"] = timed(lambda: ck.substring_match(
+                    xq, needles[k]), iters)[0]
+        elif name == "histogram":
+            rec["shape"], rec["bins"] = [CPM_R, CPM_N], m
+            rec["counts_form_bound_ms"] = bound(
+                0, 2.0 * nel * (m + 1), F32_OPS_PER_S)[0]
+            rec["m8_ms"] = timed(lambda: ck.histogram(xh8, e8, 1024),
+                                 iters)[0]
+            rec["m8_bound_ms"] = bound(nel * 4 + 9 * 4 + CPM_R * 8 * 4)[0]
+        elif name == "oddeven_sort":
+            steps = data["steps"]
+            rec["shape"] = [SORT_R, SORT_N]
+            rec["library_call"] = "torch.sort(...).values"
+            rec["network_bound_ms"] = bound(
+                0, 2.0 * SORT_R * SORT_N * -(-SORT_N // 2),
+                F32_OPS_PER_S)[0]
+            rec["bounded"] = {
+                "steps": steps,
+                "ms": timed(lambda: ck.oddeven_sort(xs, steps), 20)[0],
+                "plain_ms": cuda_ms(lambda: ck.oddeven_sort_plain(
+                    xs, steps), iters=1, warmup=0),
+                "bound_ms": bound(2 * xs.numel() * 4, 2.0 * SORT_R * steps
+                                  * -(-SORT_N // 2), F32_OPS_PER_S)[0],
+                "library_ms": None}
+            xl = data["sort_in"]["long"]
+            rec["long"] = {
+                "shape": [CPM_R, CPM_N], "steps": LONG_SORT_STEPS,
+                "ms": timed(lambda: ck.oddeven_sort(xl, LONG_SORT_STEPS),
+                            5)[0],
+                "bound_ms": bound(2 * xl.numel() * 4,
+                                  2.0 * CPM_R * LONG_SORT_STEPS
+                                  * -(-CPM_N // 2), F32_OPS_PER_S)[0]}
+            print(f"oddeven_sort bounded {rec['bounded']}, long "
+                  f"{rec['long']}; {card}")
+        else:
+            rec["shape"] = [CPM_R, CPM_N]
+        if name == "histogram":
+            rec["library_call"] = ("torch.searchsorted + torch.bincount "
+                                   "(two calls and a row-offset add)")
+        out.append(rec)
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1182,7 +1631,7 @@ def main(argv=None) -> int:
     check_small_model(torch, dev)
     gen_counts, cfg, params = serve_granite(torch, dev, args.layers, record)
     pool_counts = serve_pool(torch, dev, cfg, params, record)
-    if any(gen_counts[name] for name in CPM_KERNELS):
+    if any(gen_counts[name] for name in CPM_KERNELS + CPM2_KERNELS):
         fail(f"the generate path launched a per-op CPM kernel: "
              f"{gen_counts}")
     del params
@@ -1194,13 +1643,23 @@ def main(argv=None) -> int:
     record["cpm"] = {"shape": [CPM_R, CPM_N], "len_step": CPM_LEN_STEP,
                      "path_s": data["path_s"], "launches": cpm_counts}
     kernels += time_cpm_kernels(torch, dev, data, errs)
+    if any(cpm_counts[name] for name in CPM2_KERNELS):
+        fail(f"the phase-7 path launched a phase-8 kernel: {cpm_counts}")
+
+    # phase 8
+    cpm2_counts, errs2, data2 = check_cpm_ops2(torch, np, dev, data)
+    del data
+    record["cpm2"] = {"sort_shape": [SORT_R, SORT_N],
+                      "path_s": data2["path_s"], "launches": cpm2_counts}
+    kernels += time_cpm2_kernels(torch, dev, data2, errs2, card)
     paths = {"generate": gen_counts, "pool": pool_counts, "cpm": cpm_counts,
-             "allocator": alloc_counts}
+             "allocator": alloc_counts, "cpm2": cpm2_counts}
     for k in kernels:
         # each kernel's count on the newest path that runs it (the pool for
-        # the serving kernels, the CPM surface for the per-op ones)
+        # the serving kernels, phase 7 or 8 for the per-op ones)
         name = k["name"]
         k["launches"] = (cpm_counts if name in CPM_KERNELS
+                         else cpm2_counts if name in CPM2_KERNELS
                          else pool_counts)[name]
         k["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         print(f"{k['name']}: {k['ms']:.4f} ms on the card "

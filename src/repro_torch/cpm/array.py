@@ -1,5 +1,5 @@
-"""`CPMArray` — one memory device over a physical buffer (a port of the
-parts of ``repro.cpm.array`` that the fused instruction stream covers).
+"""`CPMArray` — one memory device over a physical buffer (a port of
+``repro.cpm.array``).
 
 A frozen value holding
 
@@ -15,10 +15,13 @@ inside ``with record() as prog:`` the call is appended to the program
 and still returns its eager value.  The in-place move ops (shift,
 insert, delete) take a scalar ``used_len`` per call; batched devices
 with per-row lengths run them through the program executor, which
-replays row by row.  ``compare``/``count``, ``section_sum``,
-``global_limit`` and ``compact`` run on either backend (on ``cuda``
-one kernel call each, a batched ``(*batch, n)`` layout included); the
-other reductions, sort and histogram wait for ROADMAP Queue 2.
+replays row by row.  ``compare``/``count``, ``substring_match`` /
+``find_all``, ``histogram``, ``section_sum``, ``global_limit``,
+``super_sum``, ``super_limit``, ``sort`` and ``compact`` run on either
+backend (on ``cuda`` one kernel call each, a batched ``(*batch, n)``
+layout included); the other row filters and the moves run on ``cuda``
+only inside fused groups until their per-op kernels are ported (ROADMAP
+Queue 2).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 
 from . import backends, semantics
 from ._tensor import asarray
+from .optable import OP_TABLE, op_steps
 from .program.ir import recordable
 from .reference import movable, pe_array
 
@@ -128,6 +132,14 @@ class CPMArray:
             raise ValueError(f"where must be 'start' or 'end', got {where!r}")
         return semantics.ends_to_starts(ends, needle.shape[-1])
 
+    @recordable("find_all")
+    def find_all(self, needle, max_out: int):
+        """Start addresses of every occurrence in the used region
+        (ascending), via Rule 6: ``(indices, valid)`` of shape
+        ``(*batch, max_out)``; unused slots hold ``n``."""
+        starts = self.substring_match(needle, where="start")
+        return pe_array.enumerate_matches(starts, max_out)
+
     # -- compare (§6) ---------------------------------------------------
     @recordable("compare")
     def compare(self, datum, op: str = "eq", mask=None) -> torch.Tensor:
@@ -146,6 +158,18 @@ class CPMArray:
     def count(self, datum, op: str = "eq", mask=None) -> torch.Tensor:
         """Rule-6 parallel count of matching PEs."""
         return pe_array.count_matches(self.compare(datum, op, mask))
+
+    @recordable("histogram")
+    def histogram(self, edges) -> torch.Tensor:
+        """Per-row M-bin histogram of the used region (~M+1 compare+count
+        steps) -> ``(*batch, M)`` int32; rows and edges promote to one
+        dtype, tail lanes take the top edge (counted in no bin).  Batched
+        layouts are one backend call."""
+        edges = asarray(edges, device=self.device)
+        ct = torch.promote_types(self.dtype, edges.dtype)
+        x, e = self.data.to(ct), edges.to(ct)
+        x = torch.where(self._live(), x, e[-1])
+        return self._b("histogram").histogram(x, e)
 
     # -- compute (§7) ---------------------------------------------------
     def _masked(self, fill) -> torch.Tensor:
@@ -166,6 +190,36 @@ class CPMArray:
         fill = semantics.limit_identity(self.dtype, mode)
         return self._b("global_limit").global_limit(self._masked(fill),
                                                     mode, section)
+
+    @recordable("super_sum")
+    def super_sum(self, section: int | None = None) -> torch.Tensor:
+        """§8 super-connected per-row sum: log-depth trees in both phases
+        (~2·log2(n)+1 steps); the value of :meth:`section_sum`, bit for
+        bit for integer rows."""
+        return self._b("super_sum").super_sum(self._masked(0), section)
+
+    @recordable("super_limit")
+    def super_limit(self, mode: str = "max",
+                    section: int | None = None) -> torch.Tensor:
+        """§8 super-connected per-row max / min (log-depth phases)."""
+        fill = semantics.limit_identity(self.dtype, mode)
+        return self._b("super_limit").super_limit(self._masked(fill),
+                                                  mode, section)
+
+    @recordable("sort")
+    def sort(self, steps: int | None = None, fill=0) -> "CPMArray":
+        """Ascending sort of the used prefix of every row; tail slots take
+        ``fill``.  ``steps`` bounds the odd-even exchange cycles (``None``
+        sorts fully); dead lanes enter the sort as the dtype's max (``inf``
+        for floats and bool)."""
+        big = (float("inf") if self.dtype.is_floating_point
+               or self.dtype == torch.bool else torch.iinfo(self.dtype).max)
+        live = self._live()
+        x = torch.where(live, self.data, asarray(big, self.dtype,
+                                                 self.device))
+        out = self._b("sort").sort(x, steps)
+        return self._with(data=torch.where(
+            live, out, asarray(fill, self.dtype, self.device)))
 
     @recordable("template_match")
     def template_match(self, template, mask_tail: bool = True):
@@ -198,6 +252,18 @@ class CPMArray:
         data, new_len = self._b("compact").compact(
             self.data, keep, asarray(fill, self.dtype, self.device))
         return self._with(data=data, used_len=new_len)
+
+    # -- introspection --------------------------------------------------
+    def steps_report(self, *, needle_len: int = 8, bins: int = 8,
+                     template_len: int = 8, taps_len: int = 3,
+                     section: int | None = None) -> dict[str, int]:
+        """Concurrent-step count of every registered op at this array's
+        size, from the op table (each checked against its paper bound)."""
+        m_of = {"substring_match": needle_len, "histogram": bins,
+                "template_match": template_len, "stencil": taps_len}
+        return {name: op_steps(name, n=self.n, m=m_of.get(name, 0),
+                               section=section)
+                for name in OP_TABLE}
 
 
 def cpm_array(data, used_len=None, backend: str = "auto",

@@ -5,9 +5,10 @@
     always available, the oracle; runs on whatever device holds the data.
   * ``cuda``      — hand-written Hopper kernels, in place of the JAX
     package's ``pallas`` backend: ``fused_stream`` (one launch per fused
-    instruction group) and the per-op ``compare``, ``compact``,
-    ``global_limit`` and ``section_sum``; its other per-op kernels are
-    still to port (ROADMAP Queue 2).
+    instruction group) and the per-op ``compare``, ``substring_match``,
+    ``compact``, ``global_limit``, ``section_sum``, ``histogram``,
+    ``super_sum``, ``super_limit`` and ``sort``; its other per-op kernels
+    are still to port (ROADMAP Queue 2).
 
 ``resolve`` honours the paper's pin-compatibility promise per op: a
 forced backend that cannot realize an op raises, and ``"auto"`` picks the
@@ -37,10 +38,14 @@ class Backend(Protocol):
     def shift_range(self, x, start, end, shift: int, fill=None): ...
     def substring_match(self, hay, needle): ...          # match-END flags
     def compare(self, x, datum, op: str = "eq"): ...
+    def histogram(self, x, edges): ...                   # (..., M) int32
     def template_match(self, data, template): ...
     def stencil(self, x, taps, wrap: bool = False): ...
     def section_sum(self, x, section=None): ...
     def global_limit(self, x, mode: str = "max", section=None): ...
+    def super_sum(self, x, section=None): ...
+    def super_limit(self, x, mode: str = "max", section=None): ...
+    def sort(self, x, steps=None): ...
     def compact(self, x, keep, fill=0): ...                # (data, new_len)
 
     def fused_stream(self, x, used_len, instrs, operands,

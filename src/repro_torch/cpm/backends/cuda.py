@@ -3,19 +3,27 @@
   * ``fused_stream``: a fused instruction group runs as ONE
     ``csrc/fused_stream.cu`` launch with the row block and its length
     register resident;
-  * ``compare``, ``compact``, ``global_limit`` (the §7.5 ``section_limit``
-    kernel) and ``section_sum``: per-op kernels (``csrc/compare.cu``,
-    ``compact.cu``, ``reduce.cu``).  Batched ``(..., N)`` layouts flatten
-    to ``(R, N)`` rows and run as one call.
+  * ``compare``, ``substring_match`` (the §5 match-end flags that
+    ``CPMArray.substring_match`` and ``find_all`` read), ``compact``,
+    ``global_limit`` (the §7.5 ``section_limit`` kernel),
+    ``section_sum``, ``histogram``, ``super_sum``, ``super_limit`` and
+    ``sort`` (the §7.7 ``oddeven_sort`` kernel, a full sort being N
+    exchange cycles): per-op kernels (``csrc/compare.cu``,
+    ``substring_match.cu``, ``compact.cu``, ``reduce.cu``,
+    ``histogram.cu``, ``super_reduce.cu``, ``oddeven_sort.cu``).  Batched
+    ``(..., N)`` layouts flatten to ``(R, N)`` rows and run as one call.
 
-A reduction called with ``section=None`` takes ``optimal_section(n)``:
+A reduction called with ``section=None`` takes ``optimal_section(n)``,
+and ``histogram`` ``min(1024, n)`` lanes, the JAX adapter's defaults:
 the port has no ``tuning`` module yet (ROADMAP Queue 1 item 3), so there
-is no autotuned section.  The other per-op kernels (activate,
-shift_range, substring/template match, stencil, ...) are still to port
-(ROADMAP Queue 2): ``supports`` is False for them and a call raises —
-the pin-compatibility contract, a forced backend that lacks an op never
-substitutes another realization.  On CPU tensors every kernel wrapper
-runs its plain twin.
+is no autotuned section.  Where a row holds NaN the full sort differs
+from the reference backend's, as in JAX: the exchange network spreads
+NaN through its pairs, ``torch.sort`` puts it last.  The other per-op
+kernels (activate, shift_range, template_match, stencil)
+are still to port (ROADMAP Queue 2): ``supports`` is False for them and
+a call raises — the pin-compatibility contract, a forced backend that
+lacks an op never substitutes another realization.  On CPU tensors every
+kernel wrapper runs its plain twin.
 """
 
 from __future__ import annotations
@@ -25,7 +33,9 @@ from repro_torch.kernels import cpm_kernels as K
 from ..optable import optimal_section
 from ..reference.computable import sum_dtype
 
-_OPS = frozenset({"compare", "compact", "global_limit", "section_sum"})
+_OPS = frozenset({"compare", "substring_match", "compact", "global_limit",
+                  "section_sum", "histogram", "super_sum", "super_limit",
+                  "sort"})
 
 
 def _missing(op: str):
@@ -54,11 +64,15 @@ class CudaBackend:
         _missing("shift_range")
 
     def substring_match(self, hay, needle):
-        _missing("substring_match")
+        x2, un = _rows(hay)
+        return un(K.substring_match(x2, needle).bool())
 
     def compare(self, x, datum, op="eq"):
         x2, un = _rows(x)
         return un(K.compare(x2, datum, op))
+
+    def histogram(self, x, edges, section=None):
+        return K.histogram(x, edges, min(section or 1024, x.shape[-1]))
 
     def template_match(self, data, template):
         _missing("template_match")
@@ -76,6 +90,18 @@ class CudaBackend:
         x = x.contiguous()
         return K.section_limit(x, section or optimal_section(x.shape[-1]),
                                mode)
+
+    def super_sum(self, x, section=None):
+        out = K.super_sum(x, section or optimal_section(x.shape[-1]))
+        return out.to(sum_dtype(x.dtype))
+
+    def super_limit(self, x, mode="max", section=None):
+        return K.super_limit(x, section or optimal_section(x.shape[-1]),
+                             mode)
+
+    def sort(self, x, steps=None):
+        x2, un = _rows(x)
+        return un(K.oddeven_sort(x2, steps))
 
     def compact(self, x, keep, fill=0):
         lead = x.shape[:-1]

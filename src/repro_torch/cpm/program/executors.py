@@ -29,7 +29,7 @@ import torch
 from repro_torch.kernels.cpm_kernels import FUSED_PRODUCERS
 
 from .. import backends as B
-from .._tensor import asarray
+from .._tensor import asarray, result_type
 from ..optable import OP_TABLE
 from . import ir
 from .ir import DERIVED_METHODS as _DERIVED
@@ -46,7 +46,10 @@ _RANKS: dict[str, dict[str, int]] = {
     "delete": {"pos": 0, "fill": 0},
     "truncate": {"new_len": 0},
     "compare": {"datum": 0, "mask": 0},
+    "count": {"datum": 0, "mask": 0},
+    "histogram": {"edges": 1},
     "substring_match": {"needle": 1},
+    "find_all": {"needle": 1},
     "template_match": {"template": 1},
     "stencil": {},
 }
@@ -176,15 +179,6 @@ def run_plan(plan, arr, backend: str | None = None):
 # the fused-group lowering
 # ---------------------------------------------------------------------------
 
-def _result_type(dtype: torch.dtype, v) -> torch.dtype:
-    """``jnp.result_type(dtype, v)``: a Python scalar is weakly typed."""
-    if isinstance(v, int):                  # bool included
-        return dtype
-    if isinstance(v, float):
-        return dtype if dtype.is_floating_point else torch.float32
-    return torch.promote_types(dtype, asarray(v).dtype)
-
-
 def _norm_operand(v, rank: int, lead, r: int, device, dtype=None):
     """One dynamic operand as a contiguous ``(rows, k)`` kernel input
     (``rows`` is ``r`` per-row or 1 broadcast).  Returns (tensor, shared)."""
@@ -251,7 +245,7 @@ def _lower(instr: ir.Instruction, dtype, lead, r: int, device):
         if ops.get("mask") is not None:
             d, ds = _norm_operand(asarray(ops["datum"], dtype, device), 0,
                                   lead, r, device)
-            mct = _result_type(dtype, ops["mask"])
+            mct = result_type(dtype, ops["mask"])
             m, ms = _norm_operand(ops["mask"], 0, lead, r, device, mct)
             statics = (("op", ops["op"]), ("has_mask", True),
                        ("ct", _dtname(mct)))

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .._tensor import asarray
+from .._tensor import asarray, result_type
 from .pe_array import activation_mask
 
 
@@ -18,7 +18,10 @@ def shift_range(x: torch.Tensor, start, end, shift: int = 1,
                 fill=None) -> torch.Tensor:
     """Shift elements whose address lies in [start, end] by ``shift``
     places; vacated slots keep their content unless ``fill`` is given,
-    content crossing the physical ends is dropped."""
+    content crossing the physical ends is dropped.  A ``fill`` promotes
+    the row as ``jnp.where(vacated, fill, out)`` does (an int32 row with
+    ``fill=2.5`` becomes float32, a bool row with ``fill=1`` int32); the
+    cuda backend casts it to the row's dtype, as the JAX kernel does."""
     n = x.shape[-1]
     idx = torch.arange(n, dtype=torch.int32, device=x.device)
     src_mask = activation_mask(n, start, end, device=x.device)
@@ -31,7 +34,9 @@ def shift_range(x: torch.Tensor, start, end, shift: int = 1,
     out = torch.where(dst_mask, moved, x)
     if fill is not None:
         vacated = src_mask & ~dst_mask
-        out = torch.where(vacated, asarray(fill, x.dtype, x.device), out)
+        rt = result_type(x.dtype, fill)
+        f = asarray(fill, device=x.device).to(rt)   # wraps, as jnp.where
+        out = torch.where(vacated, f, out.to(rt))
     return out
 
 
@@ -66,6 +71,21 @@ def compact(x: torch.Tensor, keep: torch.Tensor, fill=0):
     live = torch.arange(n, dtype=torch.int32, device=x.device) < (
         new_len[..., None] if new_len.ndim else new_len)
     return torch.where(live, out, asarray(fill, x.dtype, x.device)), new_len
+
+
+def move_object(x: torch.Tensor, src_start, length,
+                dst_start) -> torch.Tensor:
+    """Relocate ``length`` items from ``src_start`` to ``dst_start`` with
+    one gather per element; slots the move does not cover keep their
+    content, and overlapping moves read before they write (memmove)."""
+    n = x.shape[-1]
+    idx = torch.arange(n, device=x.device)
+    dst = asarray(dst_start, device=x.device)
+    length = asarray(length, device=x.device)
+    in_dst = (idx >= dst) & (idx < dst + length)
+    src_idx = torch.clamp(idx - dst + asarray(src_start, device=x.device),
+                          0, n - 1).long()
+    return torch.where(in_dst, x[..., src_idx], x)
 
 
 def insert(x: torch.Tensor, pos, values: torch.Tensor, used_len):

@@ -40,6 +40,16 @@ def substring_match(hay: torch.Tensor, needle: torch.Tensor,
     return state
 
 
+def find_all(hay: torch.Tensor, needle: torch.Tensor, max_out: int):
+    """Start addresses of every occurrence (ascending), via Rule 6.
+    Returns ``(indices, valid)``; unused slots hold ``n``."""
+    from ..semantics import ends_to_starts
+
+    ends = substring_match(hay, needle)
+    return enumerate_matches(ends_to_starts(ends, needle.shape[-1]),
+                             max_out)
+
+
 def verify_draft(draft: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Speculative-decode acceptance: longest matching prefix length."""
     ok = torch.cumprod((draft == target).to(torch.int32), dim=-1,

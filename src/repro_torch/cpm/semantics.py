@@ -6,7 +6,11 @@
   * sliding-window ops (template match) report every start whose window
     fits: tail positions ``p > used_len - m`` are masked (`window_valid`);
   * stencils default to zero padding at the row ends (``wrap=False``);
-  * global limits pad with the reduction's identity (`limit_identity`).
+  * global limits pad with the reduction's identity (`limit_identity`);
+  * ``maximum`` / ``minimum`` are ``jnp.maximum`` / ``jnp.minimum``: NaN
+    wins (the first NaN operand is returned) and -0.0 < +0.0, so every
+    backend and kernel combines signed zeros the same way whatever the
+    order (``torch.maximum`` returns its first operand on a tie).
 """
 
 from __future__ import annotations
@@ -52,3 +56,38 @@ def mask_window_tail(out: torch.Tensor, m: int, used_len=None,
     valid = window_valid(out.shape[-1], m, used_len, device=out.device)
     return torch.where(valid, out, torch.tensor(fill, dtype=out.dtype,
                                                 device=out.device))
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum``: NaN wins, and ``max(-0.0, +0.0)`` is +0.0."""
+    if not a.dtype.is_floating_point:
+        return torch.maximum(a, b)
+    take_a = torch.isnan(a) | (((a > b) | ((a == b) & ~torch.signbit(a)))
+                               & ~torch.isnan(b))
+    return torch.where(take_a, a, b)
+
+
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum``: NaN wins, and ``min(-0.0, +0.0)`` is -0.0."""
+    if not a.dtype.is_floating_point:
+        return torch.minimum(a, b)
+    take_a = torch.isnan(a) | (((a < b) | ((a == b) & torch.signbit(a)))
+                               & ~torch.isnan(b))
+    return torch.where(take_a, a, b)
+
+
+def limit_reduce(x: torch.Tensor, mode: str, dim: int = -1) -> torch.Tensor:
+    """``jnp.max`` / ``jnp.min`` along ``dim`` with the combine rule of
+    :func:`maximum` / :func:`minimum` (NaN wins; a zero result is +0.0
+    under max if any +0.0 is there, -0.0 under min if any -0.0 is), which
+    no order of combining changes."""
+    red = torch.amax if mode == "max" else torch.amin
+    out = red(x, dim=dim)
+    if not x.dtype.is_floating_point:
+        return out
+    zero = x == 0
+    want_pos = mode == "max"
+    found = (zero & (torch.signbit(x) != want_pos)).any(dim=dim)
+    signed = torch.zeros((), dtype=x.dtype, device=x.device)
+    signed = signed if want_pos else -signed
+    return torch.where((out == 0) & found, signed, out)

@@ -1,9 +1,17 @@
 // Shared device code of the per-op CPM kernels (compare.cu, reduce.cu,
-// compact.cu) and of fused_stream.cu's compare branch.
+// compact.cu, histogram.cu, super_reduce.cu, oddeven_sort.cu) and of
+// fused_stream.cu's compare branch.
 //
 //  * cpm_cmp: the §6.1 broadcast-compare predicate, one definition for the
 //    eager compare kernel and the fused stream, so the two stay bit
 //    identical (ROADMAP, "Shared bodies").
+//  * cpm_min_takes_a / cpm_max_takes_a and SumOp / MaxOp / MinOp: the
+//    combines of the reductions and of the odd-even exchange, with
+//    jnp.minimum / jnp.maximum semantics (the port's
+//    cpm.semantics.minimum / maximum): NaN wins, the first NaN operand
+//    being returned, and -0.0 < +0.0, so a max or min of any multiset is
+//    the same whatever the order of combining (CUDA's fmaxf / fminf
+//    return the other operand for a NaN).
 //  * Element traits, one per storage dtype the kernels take, by the code
 //    the Python wrappers pass (kernels/cpm_kernels.py _DTYPE_CODE):
 //      0 bool, 1 int8, 2 uint8, 3 int16, 4 int32, 5 float16, 6 bfloat16,
@@ -12,6 +20,9 @@
 //    as the TPU kernels choose it (_acc_dtype: int32 for integer types,
 //    float32 for bool and the floats); acc() widens exactly, store()
 //    narrows a value that came from an element back to its bits.
+//  * The reductions' run reducer (reduce_strided: threads striding a run
+//    of lanes, 16-byte loads in flight) and output conversion (Out), one
+//    definition for reduce.cu and super_reduce.cu.
 //  * Block-wide reduction and exclusive scan in a fixed order: a warp
 //    shuffle tree, then warp 0 over the warp totals.  No atomics, so a
 //    float result is the same on every run.
@@ -32,6 +43,44 @@ __device__ __forceinline__ bool cpm_cmp(int c, A a, A b) {
     case 3: return a > b; case 4: return a <= b; default: return a >= b;
   }
 }
+
+// Whether min(a, b) is a (else b); a tie of equal integers takes a.
+__device__ __forceinline__ bool cpm_min_takes_a(int a, int b) {
+  return a <= b;
+}
+__device__ __forceinline__ bool cpm_min_takes_a(float a, float b) {
+  const bool neg = __float_as_uint(a) >> 31;
+  return a != a || (b == b && (a < b || (a == b && neg)));
+}
+// Whether max(a, b) is a (else b).
+__device__ __forceinline__ bool cpm_max_takes_a(int a, int b) {
+  return a >= b;
+}
+__device__ __forceinline__ bool cpm_max_takes_a(float a, float b) {
+  const bool neg = __float_as_uint(a) >> 31;
+  return a != a || (b == b && (a > b || (a == b && !neg)));
+}
+
+struct SumOp {
+  __device__ __forceinline__ int operator()(int a, int b) const {
+    return (int)((unsigned)a + (unsigned)b);        // two's complement wrap
+  }
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    return a + b;
+  }
+};
+struct MaxOp {
+  template <typename A>
+  __device__ __forceinline__ A operator()(A a, A b) const {
+    return cpm_max_takes_a(a, b) ? a : b;
+  }
+};
+struct MinOp {
+  template <typename A>
+  __device__ __forceinline__ A operator()(A a, A b) const {
+    return cpm_min_takes_a(a, b) ? a : b;
+  }
+};
 
 template <typename S_, typename A_>
 struct IntTraits {
@@ -92,6 +141,54 @@ struct F32T {
     case DT_F32: { using Tr = F32T; __VA_ARGS__; } break;            \
     default: return (int)cudaErrorInvalidValue;                      \
   }
+
+// Output conversion of the reductions: sums keep the accumulator (the TPU
+// kernels' output dtype promote(x, acc) is acc for every dtype taken),
+// limits store back in x.dtype.
+template <class Tr, bool STORE>
+struct Out {
+  using T = typename Tr::A;
+  static __device__ __forceinline__ T put(typename Tr::A a) { return a; }
+};
+template <class Tr>
+struct Out<Tr, true> {
+  using T = typename Tr::S;
+  static __device__ __forceinline__ T put(typename Tr::A a) {
+    return Tr::store(a);
+  }
+};
+
+// Combine lanes [0, len) of p into `acc` with `op`: thread t of T strides
+// the run, in 16-byte loads when `vec` (p 16-byte aligned), UNROLL of
+// them in flight, then the tail lane by lane.  A thread combines its
+// lanes in increasing order whatever UNROLL is.
+template <class Tr, int T, int UNROLL, class Op>
+__device__ __forceinline__ typename Tr::A reduce_strided(
+    const typename Tr::S* __restrict__ p, long long len, Op op,
+    typename Tr::A acc, bool vec, int t) {
+  using S = typename Tr::S;
+  long long done = 0;
+  if (vec) {
+    constexpr int V = 16 / sizeof(S);
+    struct alignas(16) Chunk { S e[V]; };
+    const Chunk* pv = reinterpret_cast<const Chunk*>(p);
+    const long long nv = len / V;
+    for (long long i = t; i < nv; i += (long long)T * UNROLL) {
+      Chunk c[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (i + (long long)u * T < nv) c[u] = pv[i + (long long)u * T];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (i + (long long)u * T < nv)
+#pragma unroll
+          for (int k = 0; k < V; ++k) acc = op(acc, Tr::acc(c[u].e[k]));
+    }
+    done = nv * V;
+  }
+  for (long long i = done + t; i < len; i += T) acc = op(acc, Tr::acc(p[i]));
+  return acc;
+}
 
 // Block-wide reduction with `op`, in a fixed order; the result is valid
 // in thread 0.  `red` is __shared__ scratch of 32 elements.

@@ -8,9 +8,10 @@
 // What it computes: per row, the sum (int32 accumulator for integer
 // types, wrapping as int32 jnp.sum does; float32 for bool and the
 // floats) or the max / min (in the same accumulators, stored back in
-// x.dtype) of its N lanes.  Limits propagate NaN, as jnp.max / jnp.min
-// and torch.amax do: CUDA's fmaxf / fminf return the other operand, so
-// the combine is written out with NaN winning.  The TPU kernels pad the
+// x.dtype) of its N lanes.  Limits propagate NaN and order -0.0 below
+// +0.0, as jnp.max / jnp.min do: CUDA's fmaxf / fminf return the other
+// operand for a NaN, so the combine (MaxOp / MinOp of cpm_ops.cuh) is
+// written out.  The TPU kernels pad the
 // ragged last section with the reduction's identity (0, or
 // limit_identity); out-of-range lanes are skipped here, which is the
 // same, except for bool rows under "max", whose limit_identity (-inf)
@@ -49,76 +50,6 @@
 
 namespace {
 
-struct SumOp {
-  __device__ __forceinline__ int operator()(int a, int b) const {
-    return (int)((unsigned)a + (unsigned)b);        // two's complement wrap
-  }
-  __device__ __forceinline__ float operator()(float a, float b) const {
-    return a + b;
-  }
-};
-struct MaxOp {
-  __device__ __forceinline__ int operator()(int a, int b) const {
-    return a > b ? a : b;
-  }
-  __device__ __forceinline__ float operator()(float a, float b) const {
-    return (a > b || a != a) ? a : b;               // NaN wins
-  }
-};
-struct MinOp {
-  __device__ __forceinline__ int operator()(int a, int b) const {
-    return a < b ? a : b;
-  }
-  __device__ __forceinline__ float operator()(float a, float b) const {
-    return (a < b || a != a) ? a : b;               // NaN wins
-  }
-};
-
-// Output conversion: sums keep the accumulator (the TPU kernel's output
-// dtype promote(x, acc) is acc for every dtype taken), limits store back.
-template <class Tr, bool STORE>
-struct Out {
-  using T = typename Tr::A;
-  static __device__ __forceinline__ T put(typename Tr::A a) { return a; }
-};
-template <class Tr>
-struct Out<Tr, true> {
-  using T = typename Tr::S;
-  static __device__ __forceinline__ T put(typename Tr::A a) {
-    return Tr::store(a);
-  }
-};
-
-template <class Tr, class Op, bool VEC>
-__device__ __forceinline__ typename Tr::A reduce_run(
-    const typename Tr::S* __restrict__ p, long long len, Op op,
-    typename Tr::A acc) {
-  using S = typename Tr::S;
-  long long done = 0;
-  if (VEC) {                         // p is 16-byte aligned
-    constexpr int V = 16 / sizeof(S);
-    struct alignas(16) Chunk { S e[V]; };
-    const Chunk* pv = reinterpret_cast<const Chunk*>(p);
-    const long long nv = len / V;
-    const long long step = (long long)RED_THREADS * RED_UNROLL;
-    for (long long i = threadIdx.x; i < nv; i += step) {
-      Chunk c[RED_UNROLL];
-#pragma unroll
-      for (int u = 0; u < RED_UNROLL; ++u)
-        if (i + u * RED_THREADS < nv) c[u] = pv[i + u * RED_THREADS];
-#pragma unroll
-      for (int u = 0; u < RED_UNROLL; ++u)
-        if (i + u * RED_THREADS < nv)
-#pragma unroll
-          for (int k = 0; k < V; ++k) acc = op(acc, Tr::acc(c[u].e[k]));
-    }
-    done = nv * V;
-  }
-  for (long long i = done + threadIdx.x; i < len; i += RED_THREADS)
-    acc = op(acc, Tr::acc(p[i]));
-  return acc;
-}
-
 // Pass 1: block b reduces lanes [p * part_len, min(n, (p+1) * part_len))
 // of row r = b / parts, p = b % parts.  FINAL (parts == 1): write the
 // row's result, else its partial.
@@ -135,8 +66,8 @@ reduce_parts(const typename Tr::S* __restrict__ x, void* __restrict__ dst,
   const long long len = (lo + part_len < n ? lo + part_len : n) - lo;
   const typename Tr::S* run = x + r * n + lo;
   Op op;
-  A acc = vec ? reduce_run<Tr, Op, true>(run, len, op, ident)
-              : reduce_run<Tr, Op, false>(run, len, op, ident);
+  A acc = reduce_strided<Tr, RED_THREADS, RED_UNROLL>(run, len, op, ident,
+                                                     vec, threadIdx.x);
   acc = block_reduce(acc, op, red);
   if (threadIdx.x != 0) return;
   if (FINAL) {

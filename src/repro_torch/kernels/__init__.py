@@ -4,8 +4,11 @@ flash_attention.py — blocked online-softmax attention
 (``csrc/flash_attention.cu``); cpm_kernels.py — the fused CPM instruction
 stream (``csrc/fused_stream.cu``), the paged-row moves ``gather_rows``
 / ``scatter_rows`` (``csrc/rows.cu``) and the per-op ``compare``,
-``section_sum`` / ``section_limit`` and ``compact`` (``csrc/compare.cu``,
-``reduce.cu``, ``compact.cu``); ref.py — plain attention oracles;
+``substring_match``, ``section_sum`` / ``section_limit``, ``compact``,
+``histogram``, ``super_sum`` / ``super_limit`` and ``oddeven_sort``
+(``csrc/compare.cu``, ``substring_match.cu``, ``reduce.cu``,
+``compact.cu``, ``histogram.cu``, ``super_reduce.cu``,
+``oddeven_sort.cu``); ref.py — plain oracles;
 ops.py — device dispatch and launch counters; _build.py — nvcc build and
 ctypes loading.  No module builds or loads a kernel at import time.
 """

@@ -26,7 +26,11 @@ with :func:`gather_rows_plain` / :func:`scatter_rows_plain` as twins.
 :func:`compact` replace ``:273``, ``:230``, ``:367`` and ``:637``: the
 per-op kernels of the cuda CPM backend (``csrc/compare.cu``,
 ``csrc/reduce.cu``, ``csrc/compact.cu``), each beside its ``*_plain``
-twin.
+twin.  :func:`histogram`, :func:`super_sum` / :func:`super_limit` and
+:func:`oddeven_sort` replace ``:315``, ``:456`` / ``:466`` and ``:177``
+(``csrc/histogram.cu``, ``csrc/super_reduce.cu``,
+``csrc/oddeven_sort.cu``), and :func:`substring_match` replaces ``:540``
+(``csrc/substring_match.cu``), the same way.
 """
 
 from __future__ import annotations
@@ -518,13 +522,14 @@ scatter_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the per-op kernels of the cuda backend: compare, section_sum,
-# section_limit and compact (csrc/compare.cu, reduce.cu, compact.cu)
+# the per-op kernels of the cuda backend: compare, substring_match,
+# section_sum, section_limit and compact (csrc/compare.cu,
+# substring_match.cu, reduce.cu, compact.cu)
 # ---------------------------------------------------------------------------
 #
-# Replace ``src/repro/kernels/cpm_kernels.py:273`` (``compare``), ``:230``
-# (``section_sum``), ``:367`` (``section_limit``) and ``:637``
-# (``compact``).  Each plain twin repeats the TPU kernel's arithmetic;
+# Replace ``src/repro/kernels/cpm_kernels.py:273`` (``compare``), ``:540``
+# (``substring_match``), ``:230`` (``section_sum``), ``:367``
+# (``section_limit``) and ``:637`` (``compact``).  Each plain twin repeats the TPU kernel's arithmetic;
 # each wrapper launches its kernel for CUDA tensors (counted in
 # ``<name>.launches``) and runs the twin for CPU tensors.
 
@@ -555,13 +560,18 @@ def _datum(datum, device) -> torch.Tensor:
 
 
 def _pad_rows(x, section: int, fill):
-    """(..., N) -> ((R, N padded to whole sections), nsec, lead shape)."""
+    """(..., N) -> ((R, N padded to whole sections), nsec, lead shape);
+    ``fill`` is a Python scalar or a one-element tensor."""
     lead, n = tuple(x.shape[:-1]), x.shape[-1]
     pad = (-n) % section
     x2 = x.reshape(-1, n)
     if pad:
-        x2 = torch.cat([x2, torch.full((x2.shape[0], pad), fill,
-                                       dtype=x.dtype, device=x.device)], 1)
+        if isinstance(fill, torch.Tensor):
+            block = fill.to(x.dtype).reshape(1, 1).expand(x2.shape[0], pad)
+        else:
+            block = torch.full((x2.shape[0], pad), fill, dtype=x.dtype,
+                               device=x.device)
+        x2 = torch.cat([x2, block], 1)
     return x2, x2.shape[1] // section, lead
 
 
@@ -572,6 +582,16 @@ def compare_plain(x, datum, op: str = "eq"):
     ct = torch.promote_types(x.dtype, d.dtype)
     return _CMP[op](x.to(ct), d.to(ct).reshape(())).to(torch.int8) \
         .to(torch.bool)
+
+
+def substring_match_plain(hay, needle):
+    """Match-END flags of an ``(M,)`` needle in every ``(R, N)`` row ->
+    ``(R, N)`` int8, as the TPU kernel: the M-step carry chain (step ``i``
+    compares ``needle[i]`` with every lane and ANDs the state shifted one
+    lane right, lane 0 reading 0)."""
+    idx = torch.arange(hay.shape[-1], device=hay.device)[None, :]
+    return _substring_ends_vals(hay, needle.reshape(1, -1),
+                                needle.shape[-1], idx).to(torch.int8)
 
 
 def section_sum_plain(x, section: int = 1024):
@@ -589,16 +609,75 @@ def section_sum_plain(x, section: int = 1024):
 def section_limit_plain(x, section: int = 1024, mode: str = "max"):
     """Two-phase max / min of every ``(..., N)`` row: pad to whole sections
     with ``limit_identity(x.dtype, mode)``, reduce each section in the
-    accumulator dtype, combine the sections; NaN propagates.  Returns
-    ``x.dtype``."""
+    accumulator dtype, combine the sections, with ``jnp.max`` /
+    ``jnp.min``'s rule (NaN wins, -0.0 < +0.0).  Returns ``x.dtype``."""
     # function-level import: the cpm package imports this module
-    from repro_torch.cpm.semantics import limit_identity
+    from repro_torch.cpm.semantics import limit_identity, limit_reduce
 
     acc = _acc_dtype(x.dtype)
     xs, nsec, lead = _pad_rows(x, section, limit_identity(x.dtype, mode))
-    red = torch.amax if mode == "max" else torch.amin
-    parts = red(xs.reshape(-1, nsec, section).to(acc), dim=-1)
-    return red(parts, dim=-1).reshape(lead).to(x.dtype)
+    parts = limit_reduce(xs.reshape(-1, nsec, section).to(acc), mode)
+    return limit_reduce(parts, mode).reshape(lead).to(x.dtype)
+
+
+def histogram_plain(x, edges, section: int = 1024):
+    """§6.3 counts of every ``(..., N)`` row in the ``M`` bins of ``(M+1,)``
+    edges -> ``(..., M)`` int32, as the TPU kernel: rows and edges promote
+    to one dtype, rows pad to whole sections with the top edge, each
+    section counts ``x < e`` for every edge and adds its count differences
+    (``cum[1:] - cum[:-1]``) to the row's bins."""
+    ct = torch.promote_types(x.dtype, edges.dtype)
+    x, edges = x.to(ct), edges.to(ct)
+    m = edges.shape[-1] - 1
+    xs, nsec, lead = _pad_rows(x, section, edges[-1])
+    sec = xs.reshape(-1, nsec, section)
+    cum = torch.stack([(sec < e).sum(-1, dtype=torch.int32) for e in edges],
+                      -1)                             # (R, nsec, M+1)
+    bins = (cum[..., 1:] - cum[..., :-1]).sum(1, dtype=torch.int32)
+    return bins.reshape(*lead, m)
+
+
+def super_sum_plain(x, section: int = 1024):
+    """§8 sum of every ``(..., N)`` row, as the TPU kernel: pad to whole
+    sections with 0, sum each section in the accumulator dtype (phase 1),
+    then the log-depth tree over the section partials (phase 2,
+    ``tree_combine``'s bracketing).  Returns ``promote(x, acc)``."""
+    from repro_torch.cpm.reference.computable import tree_combine
+
+    acc = _acc_dtype(x.dtype)
+    xs, nsec, lead = _pad_rows(x, section, 0)
+    parts = xs.reshape(-1, nsec, section).to(acc).sum(-1, dtype=acc)
+    out = tree_combine(parts, torch.add, 0)
+    return out.reshape(lead).to(torch.promote_types(x.dtype, acc))
+
+
+def super_limit_plain(x, section: int = 1024, mode: str = "max"):
+    """§8 max / min of every ``(..., N)`` row, as the TPU kernel: pad with
+    ``limit_identity(x.dtype)``, reduce each section in the accumulator
+    dtype (phase 1), then the log-depth tree whose missing partners read
+    ``limit_identity(acc)``; ``jnp.maximum`` / ``jnp.minimum``'s rule
+    throughout.  Returns ``x.dtype``."""
+    from repro_torch.cpm.reference.computable import tree_combine
+    from repro_torch.cpm.semantics import (limit_identity, limit_reduce,
+                                           maximum, minimum)
+
+    acc = _acc_dtype(x.dtype)
+    xs, nsec, lead = _pad_rows(x, section, limit_identity(x.dtype, mode))
+    parts = limit_reduce(xs.reshape(-1, nsec, section).to(acc), mode)
+    out = tree_combine(parts, maximum if mode == "max" else minimum,
+                       limit_identity(acc, mode))
+    return out.reshape(lead).to(x.dtype)
+
+
+def oddeven_sort_plain(x, steps: int | None = None):
+    """``steps`` (default N) odd-even exchange cycles over every ``(R, N)``
+    row, as the TPU kernel's loop: cycle ``i`` has parity ``i % 2``, the
+    left lane of a pair takes ``jnp.minimum``, the right ``jnp.maximum``
+    (NaN spreads through its pair), lanes without a partner keep their
+    value."""
+    from repro_torch.cpm.reference.computable import odd_even_sort
+
+    return odd_even_sort(x, steps)
 
 
 def compact_plain(x, keep, fill=0):
@@ -675,6 +754,44 @@ def compare(x, datum, op: str = "eq"):
 
 
 compare.launches = 0
+
+
+def substring_match(hay, needle):
+    """Match-END flags of an ``(M,)`` needle in every ``(R, N)`` row ->
+    ``(R, N)`` int8: one ``csrc/substring_match.cu`` launch for CUDA
+    tensors (counted in ``substring_match.launches``), the plain twin for
+    CPU tensors.  A needle of another dtype promotes both sides first, as
+    the twin's ``==`` does; the kernel reads the needle on the device, so
+    the call never syncs."""
+    if not _on_card("substring_match", hay):
+        return substring_match_plain(hay, needle)
+    if hay.ndim != 2:
+        raise ValueError(f"substring_match takes (R, N) rows, got shape "
+                         f"{tuple(hay.shape)}")
+    if needle.ndim != 1 or needle.device != hay.device:
+        raise ValueError(f"substring_match: the needle must be (M,) on "
+                         f"{hay.device}, got {tuple(needle.shape)} on "
+                         f"{needle.device}")
+    ct = torch.promote_types(hay.dtype, needle.dtype)
+    hay, needle = hay.to(ct).contiguous(), needle.to(ct).contiguous()
+    code = _kernel_dtype("substring_match", hay)
+    r, n = hay.shape
+    out = torch.empty((r, n), dtype=torch.int8, device=hay.device)
+    if r == 0 or n == 0:
+        return out
+    if r >= 2 ** 31 or needle.shape[0] >= 2 ** 31:
+        raise ValueError("substring_match: more than 2**31 rows or needle "
+                         "items")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch("substring_match", "substring_match_launch",
+                  [P, P, P, I, ctypes.c_longlong, I, I], hay.device,
+                  hay.data_ptr(), needle.data_ptr(), out.data_ptr(), r, n,
+                  needle.shape[0], code)
+    substring_match.launches += 1
+    return out
+
+
+substring_match.launches = 0
 
 
 def reduce_plan(r: int, n: int, section: int) -> tuple[int, int]:
@@ -797,3 +914,183 @@ def compact(x, keep, fill=0):
 
 
 compact.launches = 0
+
+
+#: lanes of the per-edge counts a thread keeps: must equal HIST_THREADS *
+#: HIST_MAX_EPT in csrc/histogram.cu
+HISTOGRAM_MAX_EDGES = 4096
+
+
+def histogram(x, edges, section: int = 1024):
+    """§6.3 counts of every ``(..., N)`` row in the ``M`` bins of ``(M+1,)``
+    edges -> ``(..., M)`` int32: one ``csrc/histogram.cu`` call for CUDA
+    tensors (two device launches, the counts and their differences;
+    counted once in ``histogram.launches``), the plain twin for CPU
+    tensors.  Rows and edges promote to one dtype first, as the TPU
+    wrapper does."""
+    if not _on_card("histogram", x):
+        return histogram_plain(x, edges, section)
+    section = int(section)
+    if section < 1:
+        raise ValueError(f"histogram: section must be positive, got "
+                         f"{section}")
+    if edges.ndim != 1 or edges.device != x.device:
+        raise ValueError(f"histogram: edges must be (M+1,) on {x.device}, "
+                         f"got {tuple(edges.shape)} on {edges.device}")
+    e = edges.shape[0]
+    if not 2 <= e <= HISTOGRAM_MAX_EDGES:
+        raise ValueError(f"the histogram kernel takes 2 to "
+                         f"{HISTOGRAM_MAX_EDGES} edges, got {e}")
+    n = x.shape[-1]
+    if x.ndim == 0 or n == 0:
+        raise ValueError("histogram needs rows of at least one lane")
+    ct = torch.promote_types(x.dtype, edges.dtype)
+    x, edges = x.to(ct).contiguous(), edges.to(ct).contiguous()
+    code = _kernel_dtype("histogram", x)
+    x2 = x.reshape(-1, n)
+    r = x2.shape[0]
+    if r >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError("histogram: more than 2**31 rows or lanes")
+    parts, part_len = reduce_plan(r, n, section)
+    counts = torch.empty((r, parts, e), dtype=torch.int32, device=x.device)
+    out = torch.empty((r, e - 1), dtype=torch.int32, device=x.device)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    _build.launch("histogram", "histogram_launch",
+                  [P, P, P, P, I, L, I, L, I, L, I], x.device,
+                  x2.data_ptr(), edges.data_ptr(), counts.data_ptr(),
+                  out.data_ptr(), r, n, parts, part_len, e,
+                  (-n) % section, code)
+    histogram.launches += 1
+    return out.reshape(*x.shape[:-1], e - 1)
+
+
+histogram.launches = 0
+
+#: partials a row's §8 tree holds in shared memory: SUPER_MAX_NSEC of
+#: csrc/super_reduce.cu
+SUPER_MAX_NSEC = 58112
+_SUPER_OP = {"sum": 0, "max": 1, "min": 2}
+
+
+def _super(name, x, section, mode):
+    """One ``csrc/super_reduce.cu`` call (phase 1 partials, phase 2 tree)
+    over the rows of ``x``."""
+    section = int(section)
+    if section < 1:
+        raise ValueError(f"{name}: section must be positive, got {section}")
+    n = x.shape[-1]
+    if x.ndim == 0 or n == 0:
+        raise ValueError(f"{name} needs rows of at least one lane")
+    x = x.contiguous()
+    code = _kernel_dtype(name, x)
+    x2 = x.reshape(-1, n)
+    r = x2.shape[0]
+    nsec = -(-n // section)
+    if r >= 2 ** 31 or nsec > SUPER_MAX_NSEC:
+        raise ValueError(
+            f"{name}: {nsec} sections of {section} lanes, more than the "
+            f"{SUPER_MAX_NSEC} partials a row's tree holds in shared memory "
+            f"(or more than 2**31 rows); take a section of at least "
+            f"{-(-n // SUPER_MAX_NSEC)} lanes")
+    acc = _acc_dtype(x.dtype)
+    out = torch.empty((r,), dtype=acc if mode == "sum" else x.dtype,
+                      device=x.device)
+    partials = torch.empty((r, nsec), dtype=acc, device=x.device)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    _build.launch("super_reduce", "super_reduce_launch",
+                  [P, P, P, I, L, L, I, I, I], x.device, x2.data_ptr(),
+                  out.data_ptr(), partials.data_ptr(), r, n, section, nsec,
+                  code, _SUPER_OP[mode])
+    return out.reshape(x.shape[:-1])
+
+
+def super_sum(x, section: int = 1024):
+    """§8 sum of every ``(..., N)`` row -> ``(...)`` in ``promote(x, acc)``
+    (int32 for integer rows, float32 otherwise; integer sums equal
+    :func:`section_sum` bit for bit): one ``csrc/super_reduce.cu`` call
+    for CUDA tensors (two device launches, the section partials and the
+    log-depth tree; counted once in ``super_sum.launches``), the plain
+    twin for CPU tensors."""
+    if not _on_card("super_sum", x):
+        return super_sum_plain(x, section)
+    out = _super("super_sum", x, section, "sum")
+    super_sum.launches += 1
+    return out
+
+
+super_sum.launches = 0
+
+
+def super_limit(x, section: int = 1024, mode: str = "max"):
+    """§8 max / min of every ``(..., N)`` row -> ``(...)`` in ``x.dtype``
+    (NaN wins, -0.0 < +0.0): one ``csrc/super_reduce.cu`` call for CUDA
+    tensors (two device launches; counted once in
+    ``super_limit.launches``), the plain twin for CPU tensors."""
+    if not _on_card("super_limit", x):
+        return super_limit_plain(x, section, mode)
+    if mode not in ("max", "min"):
+        raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
+    out = _super("super_limit", x, section, mode)
+    super_limit.launches += 1
+    return out
+
+
+super_limit.launches = 0
+
+
+#: lanes of a row one block of the sort holds (16 a thread in registers,
+#: 1024 threads): SORT_TILE of csrc/oddeven_sort.cu
+SORT_TILE = 16384
+
+
+def oddeven_plan(n: int, steps: int,
+                 tile: int = SORT_TILE) -> tuple[int, int, int]:
+    """``(interior, halo, passes)`` of :func:`oddeven_sort`'s tiles: a row
+    of at most ``tile`` lanes is one tile for all ``steps``; a longer row
+    takes tiles of ``interior`` lanes with ``halo`` lanes more on each
+    side (at most a quarter of the tile), in ``passes`` passes of at most
+    ``halo`` cycles."""
+    if n <= tile:
+        return n, 0, 1
+    if steps == 0:
+        return tile, 0, 1
+    halo = min(steps, tile // 4)
+    return tile - 2 * halo, halo, -(-steps // halo)
+
+
+def oddeven_sort(x, steps: int | None = None):
+    """``steps`` (default N) odd-even exchange cycles over every ``(R, N)``
+    row -> ``(R, N)`` of ``x.dtype``, bit for bit the twin's: one
+    ``csrc/oddeven_sort.cu`` call for CUDA tensors (one device launch a
+    pass; rows longer than :data:`SORT_TILE` lanes take
+    ``oddeven_plan``'s halo passes; counted once in
+    ``oddeven_sort.launches``), the plain twin for CPU tensors."""
+    if not _on_card("oddeven_sort", x):
+        return oddeven_sort_plain(x, steps)
+    if x.ndim != 2:
+        raise ValueError(f"oddeven_sort takes (R, N) rows, got shape "
+                         f"{tuple(x.shape)}")
+    code = _kernel_dtype("oddeven_sort", x)
+    r, n = x.shape
+    steps = n if steps is None else int(steps)
+    if steps < 0 or steps >= 2 ** 31:
+        raise ValueError(f"oddeven_sort: steps must be in [0, 2**31), got "
+                         f"{steps}")
+    out = torch.empty_like(x)
+    if r == 0 or n == 0:
+        return out
+    if r >= 2 ** 31:
+        raise ValueError("oddeven_sort: more than 2**31 rows")
+    interior, halo, passes = oddeven_plan(n, steps)
+    scratch = torch.empty_like(x) if passes > 1 else None
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    _build.launch("oddeven_sort", "oddeven_sort_launch",
+                  [P, P, P, I, L, L, L, L, I, I], x.device, x.data_ptr(),
+                  out.data_ptr(), None if scratch is None
+                  else scratch.data_ptr(), r, n, steps, interior, halo,
+                  passes, code)
+    oddeven_sort.launches += 1
+    return out
+
+
+oddeven_sort.launches = 0

@@ -21,9 +21,14 @@ KERNELS = {"flash_attention": fa.flash_attention,
            "gather_rows": cpm_kernels.gather_rows,
            "scatter_rows": cpm_kernels.scatter_rows,
            "compare": cpm_kernels.compare,
+           "substring_match": cpm_kernels.substring_match,
            "section_sum": cpm_kernels.section_sum,
            "section_limit": cpm_kernels.section_limit,
-           "compact": cpm_kernels.compact}
+           "compact": cpm_kernels.compact,
+           "histogram": cpm_kernels.histogram,
+           "super_sum": cpm_kernels.super_sum,
+           "super_limit": cpm_kernels.super_limit,
+           "oddeven_sort": cpm_kernels.oddeven_sort}
 
 
 def _mode(impl, t) -> str:
@@ -48,6 +53,32 @@ def decode_attention(q, k, v, cache_len=None, *, window=None):
     """Single-token decode attention: plain PyTorch on every device, as in
     the JAX package (not a Pallas kernel there)."""
     return ref.decode_attention_ref(q, k, v, cache_len, window=window)
+
+
+def sort(x, *, impl=None):
+    """Row-wise ascending sort of ``(R, N)`` rows: the odd-even kernel
+    (N exchange cycles) or the reference's full sort."""
+    if _mode(impl, x) == "ref":
+        return ref.oddeven_sort_ref(x)
+    return cpm_kernels.oddeven_sort(x)
+
+
+def section_sum(x, *, section=1024, impl=None):
+    """Two-phase sum of every ``(..., N)`` row: the kernel with ``section``
+    lanes a section, or the reference with its own ~sqrt(N) sections (as
+    ``repro.kernels.ops.section_sum``, whose reference takes none)."""
+    if _mode(impl, x) == "ref":
+        return ref.section_sum_ref(x)
+    return cpm_kernels.section_sum(x, section)
+
+
+def substring_match(hay, needle, *, impl=None):
+    """Match-END flags of an ``(M,)`` needle in every ``(R, N)`` row: the
+    kernel's int8 flags, or the reference's bool flags (as
+    ``repro.kernels.ops.substring_match``)."""
+    if _mode(impl, hay) == "ref":
+        return ref.substring_match_ref(hay, needle)
+    return cpm_kernels.substring_match(hay, needle)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,4 +1,5 @@
-"""Plain-PyTorch attention oracles (a port of ``repro.kernels.ref``).
+"""Plain-PyTorch oracles (a port of ``repro.kernels.ref``): attention,
+and the row sort and sectioned sum the CPM kernels are held to.
 
 ``flash_attention_ref`` is the chunked online-softmax dataflow the JAX
 package runs off the TPU: streams stay in the input dtype, the softmax
@@ -126,3 +127,25 @@ def decode_attention_ref(q, k, v, cache_len=None, *, window=None):
     p = torch.softmax(s, dim=-1)
     out = p.to(ct).float() @ v.to(ct).float()
     return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+def oddeven_sort_ref(x: torch.Tensor) -> torch.Tensor:
+    """Row-wise ascending sort: the reference backend's full sort (the
+    oracle: stable ``torch.sort``, NaN last)."""
+    from repro_torch.cpm.backends import get_backend
+
+    return get_backend("reference").sort(x)
+
+
+def section_sum_ref(x: torch.Tensor, section: int | None = None):
+    """The §7.4 two-phase sum of the CPM reference."""
+    from repro_torch.cpm.reference.computable import section_sum
+
+    return section_sum(x, section)
+
+
+def substring_match_ref(hay: torch.Tensor, needle: torch.Tensor):
+    """Match-END flags of the CPM reference's §5 carry chain."""
+    from repro_torch.cpm.reference.searchable import substring_match
+
+    return substring_match(hay, needle)

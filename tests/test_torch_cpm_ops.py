@@ -13,7 +13,10 @@ Held here on the CPU, on the same seeded NumPy inputs:
     ``(2, 3, N)`` layouts with per-row ``used_len`` against the JAX
     ``CPMArray`` on its reference backend;
   * the ``backend="auto"`` rule (kernels only for GPU rows of at least
-    ``CUDA_MIN_N`` lanes) and the reductions' split plan.
+    ``CUDA_MIN_N`` lanes) and the reductions' split plan;
+  * the faults ROADMAP Queue 3 found in the port (out-of-range Python
+    integers, half-precision stencils, the shift fill, signed zeros in
+    the limits), each on the ROADMAP's own inputs against JAX.
 
 The ``cuda``-marked tests hold each CUDA kernel against its twin on the
 card (small and ``chip_smoke.py`` phase-7 shapes, repeat runs bit for
@@ -221,6 +224,95 @@ class TestCudaBackendOnCpu:
 
 
 # ---------------------------------------------------------------------------
+# faults found in the port against the reference (ROADMAP Queue 3)
+# ---------------------------------------------------------------------------
+
+class TestQueue3Repairs:
+    _OVERFLOW = {
+        "insert": (np.int8, lambda a, keep: a.insert(1, [300])),
+        "delete": (np.int8, lambda a, keep: a.delete(1, 2, fill=200)),
+        "compact": (np.uint8, lambda a, keep: a.compact(keep, -1)),
+    }
+
+    @pytest.mark.parametrize("case,backend", [
+        ("insert", "reference"), ("delete", "reference"),
+        ("compact", "reference"), ("compact", "cuda")])
+    def test_out_of_range_python_ints_raise(self, case, backend):
+        """A Python integer outside the row dtype raises OverflowError, as
+        ``jnp.asarray`` does (the port wrapped it: 44, -56, 255)."""
+        dtype, call = self._OVERFLOW[case]
+        x = np.arange(8, dtype=dtype)
+        keep = x % 2 == 0
+        j = jcpm_array(x, 5, backend="reference")
+        t = cpm_array(_t(x), 5, backend=backend, device="cpu")
+        with pytest.raises(OverflowError):
+            call(j, keep)
+        with pytest.raises(OverflowError, match="out of bounds"):
+            call(t, _t(keep))
+
+    def test_in_range_values_and_arrays_still_convert(self):
+        from repro_torch.cpm._tensor import asarray
+
+        x = np.arange(8, dtype=np.int8)
+        t = cpm_array(_t(x), 5, backend="reference", device="cpu")
+        j = jcpm_array(x, 5, backend="reference")
+        _same(t.insert(1, [127, -128]).data, j.insert(1, [127, -128]).data)
+        _same(t.delete(1, 2, fill=-1).data, j.delete(1, 2, fill=-1).data)
+        # arrays cast (and wrap) as jnp.asarray casts them
+        wide = np.array([300, -1])
+        _same(asarray(wide, torch.int8), jnp.asarray(wide, jnp.int8))
+        with pytest.raises(OverflowError):
+            asarray(2 ** 31)
+        assert asarray(2 ** 40, torch.float32).item() == 2.0 ** 40
+
+    @pytest.mark.parametrize("wrap", [False, True])
+    @pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+    def test_half_precision_stencil_returns_float32(self, dtype, wrap):
+        """Half-precision rows accumulate and return float32, as the JAX
+        reference (its weights are float64 NumPy scalars)."""
+        x = np.linspace(-2, 2, 16, dtype=np.float32)
+        taps = (0.1, 0.3, 0.7)
+        t = cpm_array(_t(x).to(getattr(torch, dtype)), 12,
+                      backend="reference", device="cpu")
+        j = jcpm_array(jnp.asarray(x, getattr(jnp, dtype)), 12,
+                       backend="reference")
+        got, want = t.stencil(taps, wrap=wrap), j.stencil(taps, wrap=wrap)
+        assert got.dtype == torch.float32
+        _same(got, want)
+
+    @pytest.mark.parametrize("dtype,fill,want", [
+        (np.int32, 2.5, np.float32), (np.bool_, 1, np.int32),
+        (np.int8, 3, np.int8), (np.int8, 300, np.int8),
+        (np.float16, 2.5, np.float16), (np.uint8, -1, np.uint8)])
+    def test_shift_fill_promotes_as_jnp_where(self, dtype, fill, want):
+        """The reference ``shift(fill=...)`` promotes the row with the
+        fill (a weakly typed Python scalar), as ``jnp.where`` does."""
+        x = np.arange(8).astype(dtype)
+        t = cpm_array(_t(x), 8, backend="reference", device="cpu")
+        j = jcpm_array(x, 8, backend="reference")
+        got = t.shift(1, 5, 2, fill=fill).data
+        _same(got, j.shift(1, 5, 2, fill=fill).data)
+        assert got.numpy().dtype == want
+
+    @pytest.mark.parametrize("backend", ["reference", "cuda"])
+    @pytest.mark.parametrize("row", [[-0.0, 0.0], [0.0, -0.0],
+                                     [-0.0, 0.0, -0.0], [-0.0, -0.0]])
+    def test_limits_order_signed_zeros_as_jnp(self, row, backend):
+        """max(-0.0, +0.0) is +0.0 and min is -0.0 in any order, as
+        ``jnp.max`` / ``jnp.min`` (``torch.amax`` kept the first)."""
+        x = np.asarray([row], np.float32)
+        t = cpm_array(_t(x), len(row), backend=backend, device="cpu")
+        j = jcpm_array(x, len(row), backend="reference")
+        for mode in ("max", "min"):
+            for section in (None, 1, 2):
+                got = t.global_limit(mode, section)
+                want = j.global_limit(mode, section)
+                _same(got, want)
+                assert got.numpy().view(np.uint32).tolist() == \
+                    np.asarray(want).view(np.uint32).tolist()
+
+
+# ---------------------------------------------------------------------------
 # dispatch rules and launch plans (no card needed)
 # ---------------------------------------------------------------------------
 
@@ -237,9 +329,11 @@ class TestDispatch:
 
     def test_cuda_supports_exactly_the_ported_ops(self):
         bk = B.get_backend("cuda")
-        ported = {"compare", "compact", "global_limit", "section_sum"}
+        ported = {"compare", "substring_match", "compact", "global_limit",
+                  "section_sum", "histogram", "super_sum", "super_limit",
+                  "sort"}
         for op in ported | {"stencil", "activate", "template_match",
-                            "substring_match", "shift", "histogram"}:
+                            "shift"}:
             assert bk.supports(op) == (op in ported), op
         assert B.resolve("auto", "compare", torch.zeros(4096)).name \
             == "reference"                      # CPU rows

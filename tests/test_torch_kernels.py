@@ -386,7 +386,9 @@ class TestFusedStreamDescriptor:
 class TestBuild:
     def test_sources_and_cache_key(self):
         assert _build.sources() == ["compact", "compare", "flash_attention",
-                                    "fused_stream", "reduce", "rows"]
+                                    "fused_stream", "histogram",
+                                    "oddeven_sort", "reduce", "rows",
+                                    "substring_match", "super_reduce"]
         p1 = _build._lib_path("fused_stream")
         assert p1 == _build._lib_path("fused_stream")
         assert p1.parent == _build.build_dir()
