@@ -24,7 +24,11 @@ Phases, in order; any failure exits non-zero:
      ``ngram_spec=4`` and ``cpm_backend="cuda"``, with the launch counters
      set to 0 just before and read just after; the speculative tokens must
      equal the scan tokens, flash attention must launch at least once per
-     layer per prefill and ``fused_stream`` once per speculative round;
+     layer per prefill, and the commit, scheduled by the cost model
+     (phases 1-8 price with its priors: no calibration, no tuning), must
+     launch what its verdict implies — one ``fused_stream`` a round, or
+     one ``shift_range`` a row a round (the executor's row replay of the
+     eager ``insert``) — and no other per-op CPM kernel;
   6. serve 12 greedy requests through ``Gateway.tick`` over the paged
      session pool on the same weights (8 slots in 2 banks, chunk 4,
      32-token pages, 24 pages per bank, no backend named so that the
@@ -72,7 +76,29 @@ Phases, in order; any failure exits non-zero:
      ``section_sum``, limits against ``global_limit``, full sorts against
      ``np.sort`` on rows without NaN; every kernel twice, bit for bit;
      ``backend="auto"`` the same launches, none on an 8-lane row.  The
-     five kernels are timed at these shapes.
+     five kernels are timed at these shapes;
+  9. instruction streams priced by cost, on phase 7's rows: with a scalar
+     ``used_len = N - 7`` (each op one launch, counted), ``activate``,
+     ``shift`` (with and without a fill, negative), ``insert`` and
+     ``delete`` on int32 and float32 rows, ``shift`` on bool and int8
+     rows (the byte path), ``template_match`` with templates of 4, 16
+     and 64 items cut from the rows (the paper benchmark's T6 lengths),
+     ``stencil((1, 2, 1))`` zero-padded and ringed on float32 and int32
+     rows and a five-tap stencil with zero taps, each result bit for bit
+     with the kernels' plain twins run in their place and with the
+     reference backend (the stencil within 1e-5 relative); ``insert`` on
+     the per-row lengths through ``CPMProgram.run`` (64 ``shift_range``
+     launches: the executor replays moves row by row).  Then the cost
+     model calibrates on the card into ``build/chip_smoke/`` (its four
+     coefficients printed with the card), its probe stream runs forced
+     fused and forced eager on (64, 16,384) int32 rows, bit for bit, with
+     the calibrated verdict; phase 5's speculative path runs again with
+     the commit priced by the calibrated model (the launches its verdict
+     implies, tokens equal to the scan path's, no host sync in a commit
+     and one a round); a small pool's steady step still launches
+     ``gather_rows``, ``fused_stream`` and ``scatter_rows`` once, with no
+     cost decision.  The four kernels are timed at these shapes
+     (``conv1d`` beside the stencil).
 
 The lines before the last are the card (``nvidia-smi`` name and power
 limit) and one JSON object with every kernel's launches, error and
@@ -85,11 +111,14 @@ prints no result and exits non-zero.  The full record is also written to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -128,6 +157,14 @@ SORT_R, SORT_N, SORT_LEN_STEP, LONG_SORT_STEPS = 64, 16384, 129, 1024
 #: the float32 rate outside the tensor cores (H100 SXM data sheet), for
 #: the bounds of kernels that compare rather than multiply
 F32_OPS_PER_S = 67e12
+# phase 9: the paper benchmark's T6 template lengths (benchmarks/run.py:151)
+# on phase 7's rows, a five-tap stencil with zero taps, and the cost
+# model's probe stream on rows of the allocator's longest length (two
+# resident rows fit fused_stream)
+STREAM_TEMPLATES = (4, 16, 64)
+STENCIL5 = (0.5, 0.0, 1.0, 0.0, -0.25)
+PROBE_N = 16384
+STREAM_KERNELS = ("activate", "shift_range", "template_match", "stencil")
 
 
 def fail(msg: str) -> None:
@@ -588,10 +625,11 @@ def serve_granite(torch, dev, layers, record):
         fail(f"flash_attention launched {after_scan['flash_attention']} / "
              f"{counts['flash_attention']} times for 2 prefills of "
              f"{cfg.n_layers} layers")
-    if after_scan["fused_stream"] != 0 or \
-            counts["fused_stream"] != stats["rounds"]:
-        fail(f"fused_stream launched {counts['fused_stream']} times for "
-             f"{stats['rounds']} speculative rounds")
+    kind, decision = _commit_verdict(torch, dev, BATCH,
+                                     PROMPT_LEN + MAX_NEW, SPEC)
+    if after_scan["fused_stream"] != 0 or after_scan["shift_range"] != 0:
+        fail(f"the scan path launched a commit kernel: {after_scan}")
+    commit_launch_check(counts, kind, stats["rounds"], BATCH, "generate")
 
     # timings outside the counted run
     t0 = time.perf_counter()
@@ -611,15 +649,21 @@ def serve_granite(torch, dev, layers, record):
              "proposed": stats["proposed"],
              "acceptance_rate": stats["acceptance_rate"],
              "launches": counts, "launches_after_scan": after_scan,
+             "commit_verdict": kind, "commit_decision": decision,
              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     print(f"serve: prefill {prefill_ms:.1f} ms (B={BATCH} x {PROMPT_LEN}); "
           f"scan {t_scan:.2f}s = {new / t_scan:.1f} tok/s; spec "
           f"{t_spec:.2f}s = {new / t_spec:.1f} tok/s, {stats['rounds']} "
           f"rounds, acceptance {stats['acceptance_rate']:.3f} "
           f"({stats['accepted']}/{stats['proposed']}); spec == scan")
-    print(f"launches on the main path: {counts} (after scan: {after_scan})")
+    print(f"launches on the main path: {counts} (after scan: {after_scan}); "
+          f"commit {kind} by the cost model's {decision['params']} "
+          f"coefficients (fused {decision['fused_us']:.1f} us vs eager "
+          f"{decision['eager_us']:.1f} us)")
     record["serve"] = serve
-    return counts, cfg, params
+    gen = {"engine": engine, "prompt": prompt, "scan": scan,
+           "spec": spec_cfg}
+    return counts, cfg, params, gen
 
 
 # ---------------------------------------------------------------------------
@@ -1580,6 +1624,439 @@ def time_cpm2_kernels(torch, dev, data, errs, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: instruction streams priced by cost — the moves, activate,
+# template match and stencil on their kernels, the calibrated cost model,
+# the commit scheduled by cost on the generate path
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _twins(ck, names):
+    """Run the named kernel wrappers' plain twins in their place (the
+    backends call them through the module), so one op sequence gives the
+    kernels' results and the twins' on the same inputs; twins count no
+    launch."""
+    saved = {n: getattr(ck, n) for n in names}
+    try:
+        for n in names:
+            setattr(ck, n, getattr(ck, f"{n}_plain"))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ck, n, fn)
+
+
+def _stream_ops(arrs, templates):
+    """Phase 9's op sequence on one int32, float32, bool and int8 device
+    with a scalar ``used_len`` (so each op is one call); returns the
+    results by name."""
+    ai, af, ab, a8 = arrs
+    q, h = ai.n // 4, ai.n // 2
+    out = {"activate": (ai.activate(q, h, 4),)}
+    for name, d in (("shift", ai.shift(q, h, 1)),
+                    ("shift_fill", ai.shift(q, h, 1, fill=-1)),
+                    ("shift_neg", ai.shift(q, h, -3)),
+                    ("insert_int", ai.insert(q, [7, 8])),
+                    ("insert_float", af.insert(q, [7.5, -8.0])),
+                    ("delete_int", ai.delete(q, 2, fill=-1)),
+                    ("delete_float", af.delete(q, 2, fill=-1)),
+                    ("shift_bool", ab.shift(q, h, 5)),
+                    ("shift_int8", a8.shift(q, h, -2, fill=-1))):
+        out[name] = (d.data, d.used_len)
+    for m, t in templates.items():
+        out[f"template{m}"] = (ai.template_match(t),)
+    taps = (1.0, 2.0, 1.0)
+    out["stencil_float"] = (af.stencil(taps),)
+    out["stencil_float_wrap"] = (af.stencil(taps, wrap=True),)
+    out["stencil_int"] = (ai.stencil(taps),)
+    out["stencil_int_wrap"] = (ai.stencil(taps, wrap=True),)
+    out["stencil5"] = (af.stencil(STENCIL5),)
+    return out
+
+
+def check_streams(torch, np, dev, data):
+    """Phase 9, part 1 (see the module docstring).  Returns the launch
+    counts of the counted runs, per-kernel errors and timing inputs."""
+    from repro_torch.cpm import CPMProgram, cpm_array
+    from repro_torch.kernels import cpm_kernels as ck
+    from repro_torch.kernels import ops
+
+    xi, xf, ul = data["xi"], data["xf"], data["ul"]
+    used = CPM_N - 7
+    xb = (xi & 1) == 0
+    x8 = ((xi % 251) - 125).to(torch.int8)
+    templates = {m: xi[5, 1000:1000 + m].clone() for m in STREAM_TEMPLATES}
+
+    def arrays(backend):
+        return tuple(cpm_array(x, used, backend=backend)
+                     for x in (xi, xf, xb, x8))
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                    # the phase-9 path, counted
+    t0 = time.perf_counter()
+    got = _stream_ops(arrays("cuda"), templates)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {name: 0 for name in counts}
+    want.update({"activate": 1, "shift_range": 9,
+                 "template_match": len(STREAM_TEMPLATES), "stencil": 5})
+    if counts != want:
+        fail(f"the phase-9 path launched {counts}, want {want}")
+    print(f"streams path through cpm_array(backend='cuda'): {path_s:.3f}s, "
+          f"launches {counts}")
+    with _twins(ck, STREAM_KERNELS):
+        twin = _stream_ops(arrays("cuda"), templates)
+    ref = _stream_ops(arrays("reference"), templates)
+
+    errs = {}
+
+    def hold(name, ok, err=0.0, what=""):
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"{name} {what}: max_abs_err={err} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{name} {what} disagrees with its check")
+
+    kernel_of = {"activate": "activate", "template": "template_match",
+                 "stencil": "stencil"}
+    for key, vals in got.items():
+        name = next((k for p, k in kernel_of.items() if key.startswith(p)),
+                    "shift_range")
+        same_twin = all(torch.equal(_bits(torch, a), _bits(torch, b))
+                        for a, b in zip(vals, twin[key]))
+        if name == "stencil":
+            # the reference stencil adds the same products in the same
+            # order; held to 1e-5 relative where a fused lowering could
+            # round otherwise (PERF.md §2)
+            a, b = vals[0], ref[key][0]
+            err = float((a - b).abs().max())
+            ok_ref = err <= 1e-5 * max(1.0, float(b.abs().max()))
+        else:
+            err = 0.0
+            ok_ref = all(torch.equal(_bits(torch, a), _bits(torch, b))
+                         for a, b in zip(vals, ref[key]))
+        hold(name, same_twin and ok_ref, err,
+             f"{key}: bit for bit with the twin, "
+             f"{'1e-5 relative' if name == 'stencil' else 'bit for bit'} "
+             f"with the reference backend")
+    for m in STREAM_TEMPLATES:                  # the template was cut here
+        if float(got[f"template{m}"][0][5, 1000]) != 0.0:
+            fail(f"template_match M={m}: no exact zero where the template "
+                 f"was cut from the row")
+
+    # per-row lengths through the executor: the move replays row by row
+    prog = CPMProgram().append("insert", pos=CPM_N // 4, values=[7, 8])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = prog.run(cpm_array(xi, ul, backend="cuda"))[0]
+    torch.cuda.synchronize()
+    rows_s = time.perf_counter() - t0
+    rows_counts = ops.launch_counts()
+    want = {name: 0 for name in rows_counts}
+    want["shift_range"] = CPM_R
+    if rows_counts != want:
+        fail(f"the per-row-length insert launched {rows_counts}, want "
+             f"{want} (one shift_range a row: the executor replays moves "
+             f"row by row)")
+    ref_out = prog.run(cpm_array(xi, ul, backend="reference"))[0]
+    hold("shift_range", torch.equal(out.data, ref_out.data)
+         and torch.equal(out.used_len, ref_out.used_len), 0.0,
+         f"insert on per-row lengths through CPMProgram.run: {CPM_R} "
+         f"row launches, equal to the reference backend")
+    print(f"per-row-length insert through CPMProgram.run: {rows_s:.3f}s, "
+          f"{rows_counts['shift_range']} shift_range launches (a row "
+          f"each; JAX's vmap makes one)")
+    return ({"streams": counts, "rows": rows_counts}, errs,
+            {"templates": templates, "used": used, "path_s": path_s,
+             "rows_s": rows_s})
+
+
+def check_cost_model(torch, np, dev, data, card):
+    """Phase 9, part 2: calibrate the cost model on the card into the
+    build spill, and run its probe stream forced fused and forced eager on
+    (64, 16,384) int32 rows, bit for bit, with the calibrated verdict."""
+    from repro_torch.cpm import cpm_array, tuning
+    from repro_torch.cpm.program import CostParams, costmodel, run_plan
+    from repro_torch.cpm.program import schedule
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    params = costmodel.params_for(dev)
+    calib_s = time.perf_counter() - t0
+    if params.source != "calibrated":
+        fail(f"the cost model did not calibrate on the card: {params}")
+    if f"calib:{tuning.backend_key(dev)}" not in json.loads(
+            Path(tuning.cache_path()).read_text()):
+        fail("the calibration was not spilled")
+    print(f"cost model calibrated in {calib_s:.2f}s: launch_s "
+          f"{params.launch_s:.4e}, eager_byte_s {params.eager_byte_s:.4e}, "
+          f"fused_launch_s {params.fused_launch_s:.4e}, fused_byte_s "
+          f"{params.fused_byte_s:.4e}; {card}")
+    rows = data["xi"][:, :PROBE_N].contiguous()
+    dev64 = cpm_array(rows, PROBE_N, backend="cuda")
+    prog = costmodel._probe_program(PROBE_N)
+    plans = {
+        "fused": schedule(prog, device=dev64, cost=CostParams(
+            1e-5, 1e-12, 1e-6, 1e-12, source="override")),
+        "eager": schedule(prog, device=dev64, cost=CostParams(
+            1e-9, 1e-12, 1e-9, 2e-12, source="override"))}
+    res, launches, times = {}, {}, {}
+    for kind, plan in plans.items():
+        if [g.kind for g in plan.groups] != [kind]:
+            fail(f"forced {kind} plan: {plan.describe()}")
+        ops.reset_launch_counts()
+        res[kind] = run_plan(plan, dev64)
+        torch.cuda.synchronize()
+        launches[kind] = {k: v for k, v in ops.launch_counts().items() if v}
+        times[kind] = tuning.time_call(lambda plan=plan: run_plan(plan,
+                                                                  dev64))
+    (fx, fo), (ex, eo) = res["fused"], res["eager"]
+    same = torch.equal(fx.data, ex.data) and all(
+        torch.equal(a, b) for a, b in zip(fo, eo) if a is not None)
+    if not same:
+        fail("the probe stream's eager plan differs from its fused plan")
+    verdict = schedule(prog, device=dev64)
+    d = verdict.groups[0].decision
+    block_r = tuning.entries("blockr:")
+    print(f"probe stream on ({CPM_R}, {PROBE_N}) int32 rows: fused "
+          f"{times['fused'] * 1e6:.1f} us ({launches['fused']}), eager "
+          f"{times['eager'] * 1e6:.1f} us ({launches['eager']}), bit for "
+          f"bit; calibrated verdict {verdict.groups[0].kind} (fused "
+          f"{d['fused_us']:.1f} us vs eager {d['eager_us']:.1f} us, "
+          f"{d['params']}); tuned block_r {block_r}; {card}")
+    return {"params": params.as_dict(), "calibrate_s": calib_s,
+            "probe_shape": [CPM_R, PROBE_N],
+            "probe_fused_us": times["fused"] * 1e6,
+            "probe_eager_us": times["eager"] * 1e6,
+            "probe_launches": launches, "probe_verdict": d,
+            "block_r": block_r}
+
+
+def _commit_verdict(torch, dev, batch, cap, spec):
+    """The kind the cost model gives the engine's commit at its shape."""
+    from repro_torch.serve import program_paths
+
+    z = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    _, plan = program_paths.record_commit_program(
+        torch.zeros((batch, cap), dtype=torch.int32, device=dev), z + cap // 2,
+        torch.zeros((batch, spec), dtype=torch.int32, device=dev), z,
+        backend="cuda")
+    return plan.groups[0].kind, plan.groups[0].decision
+
+
+def commit_launch_check(counts, kind, rounds, batch, path):
+    """The launches a commit verdict implies: one fused_stream a round
+    and no shift_range (fused), or one shift_range a row a round (the
+    executor's row replay of insert) and no fused_stream (eager); no
+    other per-op CPM kernel."""
+    want = ({"fused_stream": rounds, "shift_range": 0} if kind == "fused"
+            else {"fused_stream": 0, "shift_range": batch * rounds})
+    got = {k: counts[k] for k in want}
+    if got != want:
+        fail(f"the {path} path's {kind} commit launched {got} over "
+             f"{rounds} rounds, want {want}")
+    others = [k for k in CPM_KERNELS + CPM2_KERNELS + STREAM_KERNELS
+              if k != "shift_range" and counts[k]]
+    if others:
+        fail(f"the {path} path launched per-op CPM kernels {others}: "
+             f"{counts}")
+
+
+def _syncs_of(caught) -> list[str]:
+    return [str(w.message) for w in caught
+            if "synchronizing CUDA operation" in str(w.message)]
+
+
+@contextlib.contextmanager
+def _syncs_inside(module, name, into):
+    """Collect the host syncs made inside ``module.name`` calls into
+    ``into`` (an enclosing collector then does not see them)."""
+    inner = getattr(module, name)
+
+    def watched(*a, **k):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                return inner(*a, **k)
+            finally:
+                into.extend(_syncs_of(caught))
+
+    setattr(module, name, watched)
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def check_generate_by_cost(torch, dev, gen, card):
+    """Phase 9, part 3: phase 5's speculative path again, its commit now
+    priced by the calibrated coefficients; the launches the verdict
+    implies, tokens equal to the scan path's, no host sync in a commit
+    and one a round outside the prefill."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve import program_paths
+
+    engine, prompt, scan, spec_cfg = (gen[k] for k in
+                                      ("engine", "prompt", "scan", "spec"))
+    kind, decision = _commit_verdict(torch, dev, BATCH,
+                                     PROMPT_LEN + MAX_NEW, SPEC)
+    in_commit, in_prefill, rounds_syncs = [], [], []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _syncs_inside(program_paths, "commit_tokens", in_commit), \
+            _syncs_inside(lm, "prefill", in_prefill), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            spec, stats = engine.generate({"tokens": prompt}, spec_cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            rounds_syncs.extend(_syncs_of(caught))
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if not torch.equal(spec, scan):
+        fail("speculative tokens under the calibrated commit differ from "
+             "the scan tokens")
+    commit_launch_check(counts, kind, stats["rounds"], BATCH,
+                        "costed generate")
+    if in_commit:
+        fail(f"a commit synchronized with the host: {in_commit[:3]}")
+    if len(rounds_syncs) != stats["rounds"]:
+        fail(f"{len(rounds_syncs)} host syncs over {stats['rounds']} rounds "
+             f"outside the prefill, want one a round: {rounds_syncs[:3]}")
+    print(f"generate, commit priced by the calibrated model: {kind} "
+          f"(fused {decision['fused_us']:.1f} us vs eager "
+          f"{decision['eager_us']:.1f} us, {decision['params']}); "
+          f"{stats['rounds']} rounds in {spec_s:.2f}s, launches "
+          f"fused_stream {counts['fused_stream']}, shift_range "
+          f"{counts['shift_range']}; host syncs: {len(rounds_syncs)} in the "
+          f"rounds (0 in commits), {len(in_prefill)} in the prefill; "
+          f"tokens == scan; {card}")
+    return counts, {"verdict": kind, "decision": decision,
+                    "rounds": stats["rounds"], "spec_s": spec_s,
+                    "host_syncs_rounds": len(rounds_syncs),
+                    "host_syncs_prefill": len(in_prefill)}
+
+
+def check_pool_by_cost(torch, dev, gen):
+    """Phase 9, part 4: the pool's packed commit takes no decision after
+    calibration: one gather_rows, fused_stream and scatter_rows per bank
+    for a steady step."""
+    from repro_torch.cpm.pool import scheduler as psched
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import repeated_prompts
+
+    from repro_torch.serve import Engine
+
+    base = gen["engine"]
+    engine = Engine(base.cfg, base.params, max_len=POOL_MAX_LEN,
+                    cpm_backend=base.cpm_backend)
+    pool = engine.session_pool(slots=4, n_banks=1, chunk=2,
+                               page_size=POOL["page_size"],
+                               pages_per_bank=POOL["pages_per_bank"])
+    for i in range(4):
+        pool.submit(repeated_prompts(1, 64, engine.cfg.vocab_size, 60 + i,
+                                     device=dev)[0], 12)
+    pool.step()                                    # admission + a chunk
+    plans = []
+    inner = psched.schedule
+
+    def watched(prog, *a, **k):
+        plan = inner(prog, *a, **k)
+        plans.append(plan)
+        return plan
+
+    psched.schedule = watched
+    try:
+        ops.reset_launch_counts()
+        pool.step()
+        torch.cuda.synchronize()
+    finally:
+        psched.schedule = inner
+    counts = ops.launch_counts()
+    want = {"gather_rows": 1, "fused_stream": 1, "scatter_rows": 1}
+    if {k: counts[k] for k in want} != want or \
+            [g.kind for p in plans for g in p.groups] != ["fused"] or \
+            any(g.decision is not None for p in plans for g in p.groups):
+        fail(f"the pool after calibration: launches {counts}, plans "
+             f"{[p.describe() for p in plans]}")
+    pool.drain()
+    print("pool after calibration: one gather_rows, fused_stream and "
+          "scatter_rows per bank for a steady step, no cost decision")
+    return counts
+
+
+def time_stream_kernels(torch, dev, data, sdata, errs):
+    """The four phase-9 kernels at its shapes: device time, twin, bound
+    and the PyTorch call that computes the same function (``conv1d`` for
+    the zero-padded stencil, timed only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cpm_kernels as ck
+
+    xi, xf = data["xi"], data["xf"]
+    nel = xi.numel()
+    q, h = CPM_N // 4, CPM_N // 2
+    p = torch.tensor([q, h, 4], dtype=torch.int32, device=dev)
+    t64 = sdata["templates"][64]
+    taps = torch.tensor((1.0, 2.0, 1.0), device=dev)
+    conv_w = taps.flip(0)[None, None, :]
+
+    def conv():          # zero-padded, taps reversed (a correlation)
+        return F.conv1d(xf[:, None, :], conv_w, padding=1)[:, 0]
+
+    cases = (
+        ("activate", ":89", lambda: ck.activate(CPM_N, p[0], p[1], p[2],
+                                               device=dev),
+         lambda: ck.activate_plain(CPM_N, p[0], p[1], p[2], device=dev),
+         None, bound(CPM_N + 12)),
+        ("shift_range", ":133", lambda: ck.shift_range(xi, p[0], p[1], 1),
+         lambda: ck.shift_range_plain(xi, p[0], p[1], 1), None,
+         bound(2 * nel * 4 + 8)),
+        ("template_match", ":496", lambda: ck.template_match(xi, t64),
+         lambda: ck.template_match_plain(xi, t64), None,
+         bound(nel * 4 + nel * 4 + 64 * 4, 3.0 * nel * 64, F32_OPS_PER_S)),
+        ("stencil", ":585", lambda: ck.stencil(xf, (1.0, 2.0, 1.0), False),
+         lambda: ck.stencil_plain(xf, (1.0, 2.0, 1.0), False), conv,
+         bound(2 * nel * 4, 2.0 * nel * 3, F32_OPS_PER_S)))
+    out = []
+    for name, line, fn, plain, lib, (bound_ms, by) in cases:
+        ms, src_, call_ms = timed(fn, 20)
+        launches = kernel_ms(fn, 20)
+        plain_ms, _, plain_call = timed(plain, 3)
+        lib_ms = None if lib is None else timed(lib, 20)[0]
+        rec = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/csrc/{name}.cu",
+               "replaces": f"src/repro/kernels/cpm_kernels.py{line}",
+               "launches": None, "max_abs_err": errs[name],
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": by, "library_ms": lib_ms, "ms_source": src_,
+               "call_ms": call_ms, "plain_call_ms": plain_call,
+               "device_launches": launches,
+               "shape": [CPM_N] if name == "activate" else [CPM_R, CPM_N]}
+        if name == "template_match":
+            rec["m"] = 64
+            for m in (4, 16):
+                tm = sdata["templates"][m]
+                rec[f"m{m}_ms"] = timed(lambda tm=tm: ck.template_match(
+                    xi, tm), 20)[0]
+                rec[f"m{m}_bound_ms"] = bound(2 * nel * 4 + m * 4,
+                                              3.0 * nel * m,
+                                              F32_OPS_PER_S)[0]
+        if name == "stencil":
+            rec["library_call"] = ("torch.nn.functional.conv1d, taps "
+                                   "reversed, padding 1 (TF32 off)")
+            rec["library_max_abs_err"] = float(
+                (conv() - fn()).abs().max())
+        out.append(rec)
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1615,6 +2092,15 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)} ({card})")
 
+    # the port's tuning spill under build/, fresh each run; phases 1-8 run
+    # on the static defaults (the cost model's priors, untuned sections and
+    # row blocks), phase 9 calibrates and tunes
+    spill = ROOT / "build" / "chip_smoke" / "cpm_tuning.json"
+    spill.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_CPM_TUNING_CACHE"] = str(spill)
+    os.environ["REPRO_TORCH_CPM_AUTOTUNE"] = "0"
+    os.environ["REPRO_TORCH_CPM_CALIBRATE"] = "0"
+
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"built {built} with nvcc for sm_90a in "
@@ -1629,13 +2115,9 @@ def main(argv=None) -> int:
                check_fused_stream(torch, np, dev),
                *check_rows(torch, np, dev)]
     check_small_model(torch, dev)
-    gen_counts, cfg, params = serve_granite(torch, dev, args.layers, record)
+    gen_counts, cfg, params, gen = serve_granite(torch, dev, args.layers,
+                                                record)
     pool_counts = serve_pool(torch, dev, cfg, params, record)
-    if any(gen_counts[name] for name in CPM_KERNELS + CPM2_KERNELS):
-        fail(f"the generate path launched a per-op CPM kernel: "
-             f"{gen_counts}")
-    del params
-    torch.cuda.empty_cache()
 
     # phase 7
     cpm_counts, errs, data = check_cpm_surface(torch, np, dev)
@@ -1648,18 +2130,39 @@ def main(argv=None) -> int:
 
     # phase 8
     cpm2_counts, errs2, data2 = check_cpm_ops2(torch, np, dev, data)
-    del data
     record["cpm2"] = {"sort_shape": [SORT_R, SORT_N],
                       "path_s": data2["path_s"], "launches": cpm2_counts}
     kernels += time_cpm2_kernels(torch, dev, data2, errs2, card)
+    del data2
+
+    # phase 9
+    s_counts, errs3, data3 = check_streams(torch, np, dev, data)
+    os.environ["REPRO_TORCH_CPM_AUTOTUNE"] = "1"
+    os.environ["REPRO_TORCH_CPM_CALIBRATE"] = "1"
+    from repro_torch.cpm import tuning
+    tuning.clear(in_process_only=False)
+    record["cost_model"] = check_cost_model(torch, np, dev, data, card)
+    costed_counts, record["generate_by_cost"] = check_generate_by_cost(
+        torch, dev, gen, card)
+    pool2_counts = check_pool_by_cost(torch, dev, gen)
+    del gen, params
+    torch.cuda.empty_cache()
+    kernels += time_stream_kernels(torch, dev, data, data3, errs3)
+    del data
+    record["streams"] = {"shape": [CPM_R, CPM_N], "used_len": data3["used"],
+                         "path_s": data3["path_s"],
+                         "rows_s": data3["rows_s"], "launches": s_counts}
     paths = {"generate": gen_counts, "pool": pool_counts, "cpm": cpm_counts,
-             "allocator": alloc_counts, "cpm2": cpm2_counts}
+             "allocator": alloc_counts, "cpm2": cpm2_counts,
+             "streams": s_counts["streams"], "rows": s_counts["rows"],
+             "generate_by_cost": costed_counts, "pool_by_cost": pool2_counts}
     for k in kernels:
         # each kernel's count on the newest path that runs it (the pool for
-        # the serving kernels, phase 7 or 8 for the per-op ones)
+        # the serving kernels, phase 7, 8 or 9 for the per-op ones)
         name = k["name"]
         k["launches"] = (cpm_counts if name in CPM_KERNELS
                          else cpm2_counts if name in CPM2_KERNELS
+                         else s_counts["streams"] if name in STREAM_KERNELS
                          else pool_counts)[name]
         k["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         print(f"{k['name']}: {k['ms']:.4f} ms on the card "

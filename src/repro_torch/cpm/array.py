@@ -15,13 +15,12 @@ inside ``with record() as prog:`` the call is appended to the program
 and still returns its eager value.  The in-place move ops (shift,
 insert, delete) take a scalar ``used_len`` per call; batched devices
 with per-row lengths run them through the program executor, which
-replays row by row.  ``compare``/``count``, ``substring_match`` /
-``find_all``, ``histogram``, ``section_sum``, ``global_limit``,
-``super_sum``, ``super_limit``, ``sort`` and ``compact`` run on either
-backend (on ``cuda`` one kernel call each, a batched ``(*batch, n)``
-layout included); the other row filters and the moves run on ``cuda``
-only inside fused groups until their per-op kernels are ported (ROADMAP
-Queue 2).
+replays row by row.  Every op runs on either backend: on ``cuda`` one
+kernel call each, a batched ``(*batch, n)`` layout included
+(``activate``; ``shift`` / ``insert`` / ``delete`` on ``shift_range``;
+``compare`` / ``count``; ``substring_match`` / ``find_all``;
+``histogram``; ``template_match``; ``stencil``; the §7-§8 reductions;
+``sort``; ``compact``), and ``truncate`` moves only the length register.
 """
 
 from __future__ import annotations

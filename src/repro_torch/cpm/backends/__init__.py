@@ -5,22 +5,26 @@
     always available, the oracle; runs on whatever device holds the data.
   * ``cuda``      — hand-written Hopper kernels, in place of the JAX
     package's ``pallas`` backend: ``fused_stream`` (one launch per fused
-    instruction group) and the per-op ``compare``, ``substring_match``,
-    ``compact``, ``global_limit``, ``section_sum``, ``histogram``,
-    ``super_sum``, ``super_limit`` and ``sort``; its other per-op kernels
-    are still to port (ROADMAP Queue 2).
+    instruction group) and a per-op kernel for every op the JAX op table
+    gives a ``pallas`` column (``activate``, the moves through
+    ``shift_range``, ``compare``, ``substring_match``, ``histogram``,
+    ``template_match``, ``stencil``, ``compact``, ``section_sum``,
+    ``global_limit``, ``super_sum``, ``super_limit`` and ``sort``).
 
 ``resolve`` honours the paper's pin-compatibility promise per op: a
 forced backend that cannot realize an op raises, and ``"auto"`` picks the
 reference for any op the kernel backend lacks.  ``"auto"`` sends rows to
 the kernels only when they lie on a GPU and are at least
-:data:`CUDA_MIN_N` lanes long, the JAX package's static ``PALLAS_MIN_N``
-rule (the port has measured no crossover, so there is no tuning lookup).
+:func:`cuda_min_n` lanes long: a crossover measured on the card and kept
+in the tuning cache, else the JAX package's static ``PALLAS_MIN_N``
+(:data:`CUDA_MIN_N`).
 """
 
 from __future__ import annotations
 
 from typing import Protocol, runtime_checkable
+
+import torch
 
 #: rows shorter than this are not worth a kernel launch — stay on reference
 CUDA_MIN_N = 1024
@@ -75,19 +79,37 @@ def get_backend(name: str) -> Backend:
     return _INSTANCES[name]
 
 
-def auto_name(is_cuda: bool, n: int) -> str:
+def cuda_min_n(op: str | None = None, device=None) -> int:
+    """Minimum last-axis length for ``auto`` routing to the kernels.
+
+    Consults the tuning cache for a *measured* reference/cuda crossover
+    on ``device``'s card (default ``cuda``) — ``xover:<op>:<backend key>``
+    per op first, then the pooled ``xover:*:<backend key>`` — and falls
+    back to the static :data:`CUDA_MIN_N` (JAX ``pallas_min_n``)."""
+    from .. import tuning
+    bk = tuning.backend_key(torch.device("cuda") if device is None
+                            else device)
+    for key in ([f"xover:{op}:{bk}"] if op else []) + [f"xover:*:{bk}"]:
+        n = tuning.lookup(key)
+        if n is not None:
+            return int(n)
+    return CUDA_MIN_N
+
+
+def auto_name(is_cuda: bool, n: int, min_n: int = CUDA_MIN_N) -> str:
     """The ``backend="auto"`` rule: the kernel backend for rows on a GPU of
-    at least :data:`CUDA_MIN_N` lanes, the reference otherwise."""
-    return "cuda" if is_cuda and n >= CUDA_MIN_N else "reference"
+    at least ``min_n`` lanes, the reference otherwise."""
+    return "cuda" if is_cuda and n >= min_n else "reference"
 
 
 def auto_backend_name(data, op: str | None = None) -> str:
-    """:func:`auto_name` of ``data``'s rows — the one rule per-op
-    ``resolve`` and the program executor share, so eager dispatch and
-    plan execution never pick different backends for the same array
-    (``op`` is accepted for the JAX signature; no per-op crossover is
-    measured)."""
-    return auto_name(data.is_cuda, data.shape[-1])
+    """:func:`auto_name` of ``data``'s rows with :func:`cuda_min_n` — the
+    one rule per-op ``resolve`` and the program executor share, so eager
+    dispatch and plan execution never pick different backends for the
+    same array."""
+    if not data.is_cuda:
+        return "reference"
+    return auto_name(True, data.shape[-1], cuda_min_n(op, data.device))
 
 
 def resolve(requested: str, op: str, data) -> Backend:
@@ -98,7 +120,6 @@ def resolve(requested: str, op: str, data) -> Backend:
     bk = get_backend(requested)
     if not bk.supports(op):
         raise NotImplementedError(
-            f"op {op!r} is not realizable on the {requested!r} backend "
-            f"(its per-op kernel is still to port, ROADMAP Queue 2); use "
-            f"backend='auto' for the reference")
+            f"op {op!r} is not realizable on the {requested!r} backend; "
+            f"use backend='auto' for the reference")
     return bk

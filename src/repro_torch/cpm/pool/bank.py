@@ -14,13 +14,17 @@ concatenated.  The bank owns the buffers; callers take transient
 Sub-pages move through the paged-row kernels
 (:func:`repro_torch.kernels.cpm_kernels.gather_rows` / ``scatter_rows``,
 ``csrc/rows.cu``) on a ``cuda`` bank — the place of the JAX package's
-``pallas`` bank — and through their plain twins on ``reference``.
+``pallas`` bank — and through their plain twins on ``reference``.  The
+buffers live on the card unless the caller passes ``device="cpu"``
+(``repro_torch.resolve_device``: asking for the card without one
+raises); a ``cuda`` bank on the CPU runs the kernels' plain twins.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import cpm_kernels as K
 
 from ..array import CPMArray
@@ -30,13 +34,14 @@ class CPMBank:
     """A ``(slots, width)`` bank of pages with per-page length registers."""
 
     def __init__(self, slots: int, width: int, dtype=torch.int32,
-                 backend: str = "reference", device="cpu"):
+                 backend: str = "reference", device=None):
         if slots <= 0 or width <= 0:
             raise ValueError(f"bank needs slots>0, width>0; got "
                              f"({slots}, {width})")
         if backend not in ("reference", "cuda"):
             raise ValueError(f"bank backend must be 'reference' or 'cuda', "
                              f"got {backend!r}")
+        device = resolve_device(device)
         self.slots = slots
         self.width = width
         self.backend = backend

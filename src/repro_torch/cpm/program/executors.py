@@ -9,8 +9,13 @@ One contract, bit-identical results:
     row by row, where the JAX package ``vmap``\\ s over rows.
   * ``cuda``      — each *fused* group lowers to ONE ``fused_stream``
     kernel launch: the row block loads once and every instruction of the
-    group reads and writes it in shared memory.  On CPU rows the same
-    lowering runs the kernel's plain twin.
+    group reads and writes it in shared memory, ``block_r`` rows a block
+    (autotuned per stream signature, shape, dtype and backend key).  On
+    CPU rows the same lowering runs the kernel's plain twin.  *Eager*
+    groups (fusable runs the cost model priced slower fused) and
+    *boundary* groups replay per op on the per-op kernels — and so does a
+    fused group whose CUDA rows the kernel cannot hold resident (see
+    :func:`fits_fused_stream`).
 
 Operand layout is described once (``_RANKS``): scalars are rank 0,
 needle/template/values vectors rank 1.  An operand whose leading dims
@@ -21,14 +26,17 @@ the kernel; anything else broadcasts as ``(1, k)``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import cpm_kernels as K
 from repro_torch.kernels.cpm_kernels import FUSED_PRODUCERS
 
 from .. import backends as B
+from .. import tuning
 from .._tensor import asarray, result_type
 from ..optable import OP_TABLE
 from . import ir
@@ -89,22 +97,16 @@ def _per_row_operands(instr: ir.Instruction, lead) -> bool:
 def apply_instruction(arr, instr: ir.Instruction, backend: str | None = None):
     """Execute one instruction eagerly on ``backend`` (default: the
     array's).  As in the JAX executor, an op that the op table gives no
-    kernel at all replays on the reference (per-op pin compatibility).
-    On a forced ``cuda`` backend an op with a ported per-op kernel runs it
-    (``compare``, and ``count`` through it: the ``csrc/compare.cu``
-    launch); an op whose TPU kernel is not yet ported raises: a forced
-    kernel backend never substitutes another realization."""
+    kernel at all replays on the reference (per-op pin compatibility);
+    on a forced ``cuda`` backend every other op runs its per-op kernel
+    (``count`` through ``compare``, ``insert`` / ``delete`` / ``shift``
+    through ``shift_range``), and a backend that lacked one would raise:
+    a forced kernel backend never substitutes another realization."""
     bk = backend or arr.backend
-    op = _DERIVED.get(instr.op, instr.op)
-    if bk not in ("reference", "auto") and not B.get_backend(bk).supports(op):
-        spec = OP_TABLE.get(op)
-        if spec is None or _KERNEL_COLUMN not in spec.backends:
-            bk = "reference"
-        else:
-            raise NotImplementedError(
-                f"op {op!r} has no per-op kernel on the {bk!r} backend yet "
-                f"(ROADMAP Queue 2); fused groups run through fused_stream, "
-                f"backend='auto' replays on the reference")
+    spec = OP_TABLE.get(_DERIVED.get(instr.op, instr.op))
+    if bk not in ("reference", "auto") and spec is not None \
+            and _KERNEL_COLUMN not in spec.backends:
+        bk = "reference"
     a = dataclasses.replace(arr, backend=bk)
     lead = arr.batch_shape
     if lead and (instr.op in _ROWWISE_ALWAYS
@@ -147,21 +149,35 @@ def _apply_rows(a, instr: ir.Instruction):
 # plan execution
 # ---------------------------------------------------------------------------
 
+def fits_fused_stream(arr) -> bool:
+    """Whether the ``fused_stream`` kernel takes ``arr``'s rows: any rows
+    on the CPU (the plain twin), on the card int32 or float32 rows whose
+    two resident copies fit a block's shared memory (29,056 lanes)."""
+    if not arr.data.is_cuda:
+        return True
+    return (arr.dtype in (torch.int32, torch.float32)
+            and 2 * arr.n * 4 <= K.MAX_SMEM_BYTES)
+
+
 def run_plan(plan, arr, backend: str | None = None):
     """Execute a scheduled plan; returns ``(final_array, outputs)``.
 
     ``fused`` groups on the cuda backend take the single-launch kernel
-    path; ``boundary`` groups replay per op (same instructions,
-    bit-identical results).  ``"auto"`` resolves once per plan by
-    ``backends.auto_backend_name``, the rule per-op dispatch uses: rows
-    shorter than ``CUDA_MIN_N`` run on the reference, as in JAX."""
+    path; ``eager`` groups (fusable runs the cost model rejected) and
+    ``boundary`` groups replay per op — same instructions, bit-identical
+    results, another launch structure.  A fused group whose rows the
+    kernel cannot hold (:func:`fits_fused_stream`) replays per op too.
+    ``"auto"`` resolves once per plan by ``backends.auto_backend_name``,
+    the rule per-op dispatch uses: rows shorter than the crossover run on
+    the reference, as in JAX."""
     bk = backend or arr.backend
     if bk == "auto":
         bk = B.auto_backend_name(arr.data)
     outputs: list = [None] * len(plan.program)
     cur = arr
     for group in plan.groups:
-        if group.kind == "fused" and bk == "cuda":
+        if group.kind == "fused" and bk == "cuda" \
+                and fits_fused_stream(cur):
             cur, produced = _run_fused(cur, group)
             for idx, val in produced:
                 outputs[idx] = val
@@ -178,6 +194,48 @@ def run_plan(plan, arr, backend: str | None = None):
 # ---------------------------------------------------------------------------
 # the fused-group lowering
 # ---------------------------------------------------------------------------
+
+#: don't bother timing row blockings below this problem size — the launch
+#: count is tiny and tuning would cost more than it can ever return
+_TUNE_MIN_ROWS = 4
+_TUNE_MIN_ELEMS = 1 << 15
+
+
+def _blockr_candidates(r: int) -> list[int]:
+    return sorted({br for br in (1, 8, 32, r) if 1 <= br <= r})
+
+
+def _fused_block_r(descs, operands, data, r: int, n: int) -> int:
+    """Autotuned rows a block for one fused stream, cached per
+    (op-stream signature, shape, dtype, backend key) with a JSON spill
+    (JAX ``executors.py:186-222``); candidates are timed on zeros of the
+    recorded shapes, only where ``tuning.measurable``.  Any value gives
+    the same bits."""
+    if r < _TUNE_MIN_ROWS or r * n < _TUNE_MIN_ELEMS:
+        return 1
+    cands = _blockr_candidates(r)
+    if len(cands) < 2:
+        return 1
+    sig = hashlib.md5(repr(descs).encode()).hexdigest()[:12]
+    key = (f"blockr:{'+'.join(op for op, _, _ in descs)}:{sig}"
+           f"|{r}x{n}|{_dtname(data.dtype)}"
+           f"|{tuning.backend_key(data.device)}")
+    cached = tuning.lookup(key)
+    if cached is not None:
+        return int(cached)
+    if not tuning.tuning_enabled() or not tuning.measurable():
+        return 1
+    dev = data.device
+    datz = tuning.synth((r, n), data.dtype, dev)
+    ulz = tuning.synth((r,), torch.int32, dev)
+    opz = tuple(tuning.synth(a.shape, a.dtype, dev) for a in operands)
+    backend = B.get_backend("cuda")
+
+    def run(br):
+        return backend.fused_stream(datz, ulz, descs, opz, block_r=br)
+
+    return int(tuning.pick(key, cands, run, default=1))
+
 
 def _norm_operand(v, rank: int, lead, r: int, device, dtype=None):
     """One dynamic operand as a contiguous ``(rows, k)`` kernel input
@@ -287,8 +345,10 @@ def _run_fused(arr, group):
         operands.extend(opnds)
         if instr.op in PRODUCERS:
             meta.append((idx, instr.op, all_shared))
+    descs, operands = tuple(descs), tuple(operands)
+    block_r = _fused_block_r(descs, operands, data, r, n)
     out_x, out_ul, prods = B.get_backend("cuda").fused_stream(
-        data, ul.contiguous(), tuple(descs), tuple(operands))
+        data, ul.contiguous(), descs, operands, block_r=block_r)
 
     if any(i.op in _TRANSFORMS for i in group.instructions):
         new = dataclasses.replace(arr, data=out_x.reshape(*lead, n),

@@ -85,13 +85,21 @@ class CPMProgram:
     # -- whole-program cost model (delegates to the scheduler) --------------
     def steps_report(self, n: int, section: int | None = None) -> dict:
         """Per-instruction + total concurrent-step counts at device size
-        ``n``, from the op table's formulas."""
+        ``n``, from the op table's formulas.
+
+        Telemetry hook: every report also feeds the process-global cycle
+        ledger (``repro_torch.obs.cycles``), so predicted cycles
+        accumulate per op family next to the trips an audit measures.
+        Host-side accounting only; ``REPRO_OBS=0`` skips it."""
+        from repro_torch.obs import cycles
+
         from . import scheduler
         per = [(f"{i}:{ins.op}",
                 scheduler.instruction_steps(ins, n, section=section))
                for i, ins in enumerate(self.instructions)]
         report = dict(per)
         report["total"] = sum(s for _, s in per)
+        cycles.note_report(self, n, report)
         return report
 
     def run(self, array, backend: str | None = None):

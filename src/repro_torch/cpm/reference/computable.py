@@ -4,9 +4,9 @@ covers (template match, stencil), the §7.4/§7.5 two-phase reductions,
 the §8 log-depth super ops, and the §7.7 sorts (odd-even exchange,
 defect detection, the ~sqrt(N) hybrid).
 
-Every loop trip (a tree level, an exchange cycle) is one concurrent step
-and is counted (:mod:`.trips`), so the step counts can be held to the
-op table's formulas.  The 2-D and image algorithms (``section_sum_2d``,
+Every loop trip (a tree level, an exchange cycle, a template item) is
+one concurrent step and is counted (:mod:`.trips`), so the step counts
+can be held to the op table's formulas.  The 2-D and image algorithms (``section_sum_2d``,
 ``stencil_2d``, the tap algebra, ``template_match_2d``,
 ``line_segment_value``, ``edge_along_x``) are not ported yet (ROADMAP
 Queue 1).
@@ -245,6 +245,7 @@ def template_match_1d(data: torch.Tensor, template: torch.Tensor):
     dt = torch.float32 if not data.dtype.is_floating_point else data.dtype
     acc = torch.zeros(data.shape, dtype=dt, device=data.device)
     for j in range(m):
+        trip()
         shifted = torch.roll(data, -j, dims=-1)
         acc = acc + torch.abs(shifted - template[j])
     return acc

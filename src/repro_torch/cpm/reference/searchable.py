@@ -3,7 +3,7 @@ port of ``repro.cpm.reference.searchable``).
 
 Each PE compares its register against a broadcast datum and ANDs the
 result with its right neighbour's storage bit, so an M-item needle takes
-M concurrent steps.  ``needle`` may carry leading batch axes matching
+M concurrent steps (each a counted loop trip, :mod:`.trips`).  ``needle`` may carry leading batch axes matching
 ``hay``'s (one needle per row), which replaces the JAX package's
 ``vmap`` over rows.
 """
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from .pe_array import enumerate_matches
+from .trips import trip
 
 
 def masked_eq(hay: torch.Tensor, datum, mask=None) -> torch.Tensor:
@@ -29,6 +30,7 @@ def substring_match(hay: torch.Tensor, needle: torch.Tensor,
         needle_len = m
     state = torch.zeros(hay.shape, dtype=torch.bool, device=hay.device)
     for i in range(m):
+        trip()
         hit = masked_eq(hay, needle[..., i:i + 1], mask)
         shifted = torch.roll(state, 1, dims=-1)
         shifted[..., 0] = False

@@ -1,10 +1,15 @@
 // Shared device code of the per-op CPM kernels (compare.cu, reduce.cu,
-// compact.cu, histogram.cu, super_reduce.cu, oddeven_sort.cu) and of
-// fused_stream.cu's compare branch.
+// compact.cu, histogram.cu, super_reduce.cu, oddeven_sort.cu,
+// activate.cu, shift_range.cu, template_match.cu, stencil.cu) and of
+// fused_stream.cu.
 //
 //  * cpm_cmp: the §6.1 broadcast-compare predicate, one definition for the
 //    eager compare kernel and the fused stream, so the two stay bit
 //    identical (ROADMAP, "Shared bodies").
+//  * The lane rules of the JAX value bodies that the per-op kernels share
+//    with fused_stream.cu, so fused and eager groups stay bit identical:
+//    cpm_activate (_activate_vals), cpm_shift_src (_shift_vals),
+//    cpm_sad (_sad_vals) and cpm_stencil (_stencil_vals).
 //  * cpm_min_takes_a / cpm_max_takes_a and SumOp / MaxOp / MinOp: the
 //    combines of the reductions and of the odd-even exchange, with
 //    jnp.minimum / jnp.maximum semantics (the port's
@@ -42,6 +47,75 @@ __device__ __forceinline__ bool cpm_cmp(int c, A a, A b) {
     case 0: return a == b; case 1: return a != b; case 2: return a < b;
     case 3: return a > b; case 4: return a <= b; default: return a >= b;
   }
+}
+
+// int32 arithmetic that wraps like the JAX int32 ops it mirrors
+__device__ __forceinline__ int cpm_wadd(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+__device__ __forceinline__ int cpm_wsub(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+// Python / jnp floor modulo for b >= 1
+__device__ __forceinline__ int cpm_fmod_floor(long long a, int b) {
+  long long r = a % b;
+  return (int)(r < 0 ? r + b : r);
+}
+
+// §3.3 Rule 4, _activate_vals at lane i: start <= i <= end and
+// (i - start) mod max(carry, 1) == 0 (int32 difference, floor modulo).
+__device__ __forceinline__ bool cpm_activate(int i, int start, int end,
+                                             int carry) {
+  return i >= start && i <= end &&
+         cpm_fmod_floor(cpm_wsub(i, start), max(carry, 1)) == 0;
+}
+
+// §4.1 _shift_vals at lane i of an n-lane row whose lanes [start, end]
+// move by `shift`: the lane whose value lane i holds afterwards (the
+// jnp.roll source where the moved range lands inside the row, lane i
+// itself elsewhere), or -1 where lane i was vacated and `has_fill` asks
+// for the fill.  Content moved past either row end is dropped.
+__device__ __forceinline__ int cpm_shift_src(int i, int n, int start,
+                                             int end, int shift,
+                                             bool has_fill) {
+  const int j = cpm_fmod_floor((long long)i - shift, n);   // roll source
+  bool dst = j >= start && j <= end;
+  if (shift > 0) dst = dst && i >= shift;
+  else if (shift < 0) dst = dst && (long long)i < (long long)n + shift;
+  if (dst) return j;
+  return (has_fill && i >= start && i <= end) ? -1 : i;
+}
+
+// §7.6 _sad_vals at one lane: sum_j |x(j) - t(j)| for j = 0 .. m-1 in
+// that order, every difference and sum rounded as written; x(j) is the
+// lane j places on (wrapping), t(j) the template's item j, both float32.
+template <class X, class T>
+__device__ __forceinline__ float cpm_sad(int m, X x, T t) {
+  float acc = 0.f;
+  for (int j = 0; j < m; ++j)
+    acc = __fadd_rn(acc, fabsf(__fsub_rn(x(j), t(j))));
+  return acc;
+}
+
+// §7.3 _stencil_vals at lane i of an n-lane row: sum over the taps k in
+// their order, zero taps skipped, of w_k * x[i - (k - c)] (c = ntaps / 2,
+// the index wrapping), every product and sum rounded as written; without
+// `wrap` a lane that wrapped around reads 0.  x(j) is lane j as float32.
+template <class X>
+__device__ __forceinline__ float cpm_stencil(int i, int n, const float* w,
+                                             int ntaps, bool wrap, X x) {
+  const int c = ntaps / 2;
+  float acc = 0.f;
+  for (int k = 0; k < ntaps; ++k) {
+    if (w[k] == 0.f) continue;
+    const int sh = k - c;
+    float v = x(cpm_fmod_floor((long long)i - sh, n));
+    if (!wrap && ((sh > 0 && i < sh) ||
+                  (sh < 0 && (long long)i >= (long long)n + sh)))
+      v = 0.f;
+    acc = __fadd_rn(acc, __fmul_rn(w[k], v));
+  }
+  return acc;
 }
 
 // Whether min(a, b) is a (else b); a tie of equal integers takes a.

@@ -37,12 +37,16 @@
 //    row stride (0 for a broadcast (1, k) operand) and stencil taps — no
 //    descriptor copy to the device before a launch.
 //  * The compare branch calls cpm_cmp (cpm_ops.cuh), the predicate of the
-//    eager compare kernel, so fused and eager compares are one body.
+//    eager compare kernel, and the activate, shift / insert / delete,
+//    template and stencil branches call the lane rules of the per-op
+//    activate, shift_range, template_match and stencil kernels
+//    (cpm_activate, cpm_shift_src, cpm_sad, cpm_stencil), so fused and
+//    eager groups are one body.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cpm_ops.cuh"     // cpm_cmp, the compare predicate of compare.cu
+#include "cpm_ops.cuh"     // cpm_cmp and the shared lane rules
 
 #define FS_MAX_INSTR 16
 #define FS_MAX_TAPS 64
@@ -75,18 +79,6 @@ struct FsProgram {
 
 namespace {
 
-// int32 arithmetic that wraps like the JAX int32 ops it mirrors
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
-// Python / jnp floor modulo for b >= 1
-__device__ __forceinline__ int fmod_floor(long long a, int b) {
-  long long r = a % b;
-  return (int)(r < 0 ? r + b : r);
-}
 __device__ __forceinline__ float as_f(uint32_t w) { return __uint_as_float(w); }
 
 __device__ __forceinline__ const uint32_t* opnd(const FsInstr& I, int which,
@@ -110,14 +102,8 @@ __device__ __forceinline__ uint32_t shift_val(const uint32_t* cur, int i,
                                               int n, int start, int end,
                                               int shift, bool has_fill,
                                               uint32_t fill) {
-  const int j = fmod_floor((long long)i - shift, n);   // roll source lane
-  const bool src_i = i >= start && i <= end;
-  bool dst = j >= start && j <= end;
-  if (shift > 0) dst = dst && i >= shift;
-  else if (shift < 0) dst = dst && (long long)i < (long long)n + shift;
-  uint32_t out = dst ? cur[j] : cur[i];
-  if (has_fill && src_i && !dst) out = fill;
-  return out;
+  const int src = cpm_shift_src(i, n, start, end, shift, has_fill);
+  return src < 0 ? fill : cur[src];
 }
 
 __device__ __forceinline__ bool word_eq(uint32_t a, uint32_t b, bool fl) {
@@ -146,11 +132,10 @@ fused_stream_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ xo,
       switch (I.op) {
         case ACTIVATE: {
           const int st = opnd_i(I, 0, row, 0), en = opnd_i(I, 0, row, 1);
-          const int carry = max(opnd_i(I, 0, row, 2), 1);
+          const int carry = opnd_i(I, 0, row, 2);
           int8_t* out = static_cast<int8_t*>(I.out) + orow;
           for (int i = threadIdx.x; i < n; i += FS_THREADS)
-            out[i] = (i >= st && i <= en &&
-                      fmod_floor(wsub(i, st), carry) == 0) ? 1 : 0;
+            out[i] = cpm_activate(i, st, en, carry) ? 1 : 0;
           break;
         }
         case SHIFT: {
@@ -165,10 +150,10 @@ fused_stream_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ xo,
           const int pos = opnd_i(I, 0, row, 0);
           const uint32_t* v = opnd(I, 1, row);
           for (int i = threadIdx.x; i < n; i += FS_THREADS) {
-            uint32_t w = shift_val(cur, i, n, pos, wsub(ul, 1), I.k, false,
-                                   0u);
+            uint32_t w = shift_val(cur, i, n, pos, cpm_wsub(ul, 1), I.k,
+                                   false, 0u);
             for (int j = 0; j < I.k; ++j)            // broadcast write
-              if (i == wadd(pos, j)) w = v[j];
+              if (i == cpm_wadd(pos, j)) w = v[j];
             nxt[i] = w;
           }
           break;
@@ -176,10 +161,10 @@ fused_stream_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ xo,
         case DELETE: {
           const int pos = opnd_i(I, 0, row, 0);
           const uint32_t fill = opnd(I, 1, row)[0];
-          const int lo = wsub(ul, I.k);
+          const int lo = cpm_wsub(ul, I.k);
           for (int i = threadIdx.x; i < n; i += FS_THREADS) {
-            uint32_t w = shift_val(cur, i, n, wadd(pos, I.k), wsub(ul, 1),
-                                   -I.k, false, 0u);
+            uint32_t w = shift_val(cur, i, n, cpm_wadd(pos, I.k),
+                                   cpm_wsub(ul, 1), -I.k, false, 0u);
             if (i >= lo && i < ul) w = fill;
             nxt[i] = w;
           }
@@ -224,7 +209,7 @@ fused_stream_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ xo,
             bool ok = true;
             if (start) {
               ok = (long long)i <= (long long)n - m;
-              e = fmod_floor((long long)i + m - 1, n);
+              e = cpm_fmod_floor((long long)i + m - 1, n);
             }
             bool end_ok = m >= 1 && e >= m - 1 && e < ul;
             for (int t = 0; end_ok && t < m; ++t)
@@ -237,13 +222,14 @@ fused_stream_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ xo,
           const int m = I.m;
           float* out = static_cast<float*>(I.out) + orow;
           for (int i = threadIdx.x; i < n; i += FS_THREADS) {
-            float acc = 0.f;
-            for (int j = 0; j < m; ++j) {            // j = 0 .. m-1 in order
-              const uint32_t w = cur[fmod_floor((long long)i + j, n)];
-              const float xv = xf ? as_f(w) : __int2float_rn((int)w);
-              acc = __fadd_rn(acc, fabsf(__fsub_rn(xv, opnd_f32(I, 0, row,
-                                                                j))));
-            }
+            float acc = cpm_sad(
+                m,
+                [&](int j) {
+                  const uint32_t w =
+                      cur[cpm_fmod_floor((long long)i + j, n)];
+                  return xf ? as_f(w) : __int2float_rn((int)w);
+                },
+                [&](int j) { return opnd_f32(I, 0, row, j); });
             if ((I.flags & F_TAIL) && !((long long)i + m <= ul))
               acc = __int_as_float(0x7f800000);      // +inf
             out[i] = acc;
@@ -252,34 +238,22 @@ fused_stream_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ xo,
         }
         case STENCIL: {
           const bool wrap = I.flags & F_WRAP;
-          const int c = I.ntaps / 2;
           float* out = static_cast<float*>(I.out) + orow;
-          for (int i = threadIdx.x; i < n; i += FS_THREADS) {
-            float acc = 0.f;
-            for (int k = 0; k < I.ntaps; ++k) {      // fixed tap order
-              const float w = prog.taps[I.tap_off + k];
-              if (w == 0.f) continue;
-              const int sh = k - c;
-              const int j = fmod_floor((long long)i - sh, n);
-              uint32_t word = cur[j];
-              if (!wrap && !(j < ul)) word = 0u;     // zero-padded tail
-              float v = xf ? as_f(word) : __int2float_rn((int)word);
-              if (!wrap) {
-                if (sh > 0 && i < sh) v = 0.f;
-                else if (sh < 0 && (long long)i >= (long long)n + sh) v = 0.f;
-              }
-              acc = __fadd_rn(acc, __fmul_rn(w, v));
-            }
-            out[i] = acc;
-          }
+          for (int i = threadIdx.x; i < n; i += FS_THREADS)
+            out[i] = cpm_stencil(
+                i, n, prog.taps + I.tap_off, I.ntaps, wrap, [&](int j) {
+                  // without wrap the dead tail is zero-padded
+                  const uint32_t w = (!wrap && !(j < ul)) ? 0u : cur[j];
+                  return xf ? as_f(w) : __int2float_rn((int)w);
+                });
           break;
         }
       }
       if (I.op == SHIFT || I.op == INSERT || I.op == DELETE) {
         __syncthreads();                               // nxt complete
         uint32_t* t = cur; cur = nxt; nxt = t;
-        if (I.op == INSERT) ul = min(wadd(ul, I.k), n);
-        if (I.op == DELETE) ul = max(wsub(ul, I.k), 0);
+        if (I.op == INSERT) ul = min(cpm_wadd(ul, I.k), n);
+        if (I.op == DELETE) ul = max(cpm_wsub(ul, I.k), 0);
       }
     }
     uint32_t* out_row = xo + (long long)row * n;

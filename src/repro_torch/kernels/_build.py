@@ -29,10 +29,10 @@ _CHECKOUT = Path(__file__).resolve().parents[3]
 
 _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-#: per-source extra flags: fused_stream's float producers (SAD, stencil)
-#: must round every product and sum like the plain version, so no FMA
-#: contraction there
-_EXTRA = {"fused_stream": ["-fmad=false"]}
+#: per-source extra flags: the float stencils (fused_stream's producer,
+#: the per-op stencil) must round every product and sum like the plain
+#: version, so no FMA contraction there
+_EXTRA = {"fused_stream": ["-fmad=false"], "stencil": ["-fmad=false"]}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

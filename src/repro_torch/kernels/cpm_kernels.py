@@ -30,7 +30,13 @@ twin.  :func:`histogram`, :func:`super_sum` / :func:`super_limit` and
 :func:`oddeven_sort` replace ``:315``, ``:456`` / ``:466`` and ``:177``
 (``csrc/histogram.cu``, ``csrc/super_reduce.cu``,
 ``csrc/oddeven_sort.cu``), and :func:`substring_match` replaces ``:540``
-(``csrc/substring_match.cu``), the same way.
+(``csrc/substring_match.cu``), the same way.  :func:`activate`,
+:func:`shift_range`, :func:`template_match` and :func:`stencil` replace
+``:89``, ``:133``, ``:496`` and ``:585`` (``csrc/activate.cu``,
+``shift_range.cu``, ``template_match.cu``, ``stencil.cu``): the per-op
+kernels an ``eager`` group of the cost-priced scheduler replays, each
+built on the value body (twin) and lane rule (kernel) the fused stream
+uses.  Every TPU kernel of the JAX package now has its Hopper kernel.
 """
 
 from __future__ import annotations
@@ -1094,3 +1100,250 @@ def oddeven_sort(x, steps: int | None = None):
 
 
 oddeven_sort.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the per-op kernels an eager group replays: activate, shift_range,
+# template_match and stencil (csrc/activate.cu, shift_range.cu,
+# template_match.cu, stencil.cu)
+# ---------------------------------------------------------------------------
+#
+# Replace ``src/repro/kernels/cpm_kernels.py:89`` (``activate``), ``:133``
+# (``shift_range``), ``:496`` (``template_match``) and ``:585``
+# (``stencil``).  Each twin is built on the value body that
+# :func:`fused_stream_plain` uses (``_activate_vals``, ``_shift_vals``,
+# ``_sad_vals``, ``_stencil_vals``), as each kernel is built on the lane
+# rule that ``csrc/fused_stream.cu`` uses (``csrc/cpm_ops.cuh``), so a
+# group replayed op by op equals the fused group bit for bit.  Dynamic
+# scalars (``start``, ``end``, ``carry``) reach the kernels as int32
+# device tensors, never through a host read.
+
+def _scalars(device, *vals) -> torch.Tensor:
+    """``jnp.asarray(v, int32)`` of each scalar, stacked into one
+    contiguous ``(k,)`` tensor on ``device``: the kernels read it there,
+    so a value an earlier kernel produced needs no host read."""
+    from repro_torch.cpm._tensor import asarray
+
+    return torch.stack([asarray(v, torch.int32, device).reshape(())
+                        for v in vals]).contiguous()
+
+
+def _scalar_device(device, *vals) -> torch.device:
+    from repro_torch.cpm._tensor import device_of
+
+    return torch.device(device) if device is not None else device_of(*vals)
+
+
+def activate_plain(n: int, start, end, carry=1, *, device=None):
+    """Rule-4 activation mask of length ``n`` -> ``(n,)`` bool, as the TPU
+    kernel: ``_activate_vals`` over the lane addresses, int8 flags cast to
+    bool."""
+    dev = _scalar_device(device, start, end, carry)
+    p = _scalars(dev, start, end, carry)
+    idx = torch.arange(int(n), dtype=torch.int32, device=dev)
+    return _activate_vals(idx, p[0], p[1], p[2]).to(torch.int8) \
+        .to(torch.bool)
+
+
+def activate(n: int, start, end, carry=1, *, device=None):
+    """Rule-4 activation mask of length ``n`` -> ``(n,)`` bool on
+    ``device`` (default: where the scalars lie, else the CPU): one
+    ``csrc/activate.cu`` launch for a CUDA device (counted in
+    ``activate.launches``), the plain twin on the CPU."""
+    dev = _scalar_device(device, start, end, carry)
+    if dev.type == "cpu":
+        return activate_plain(n, start, end, carry, device=dev)
+    if dev.type != "cuda":
+        raise ValueError(f"activate runs on the CPU or CUDA, got {dev}")
+    n = int(n)
+    if not 0 <= n < 2 ** 31:
+        raise ValueError(f"activate: n must be in [0, 2**31), got {n}")
+    p = _scalars(dev, start, end, carry)
+    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    P = ctypes.c_void_p
+    _build.launch("activate", "activate_launch", [P, P, ctypes.c_int], dev,
+                  p.data_ptr(), out.data_ptr(), n)
+    activate.launches += 1
+    return out
+
+
+activate.launches = 0
+
+
+def _shift_fill(x, fill):
+    """The fill as one element of ``x``'s dtype on its device: the TPU
+    kernel's ``jnp.asarray(fill, x.dtype)`` inside its jit, which takes a
+    Python scalar at 32 bits first and then casts (wrapping an int)."""
+    from repro_torch.cpm._tensor import asarray
+
+    f = asarray(fill, device=x.device).to(x.dtype)
+    if f.numel() != 1:
+        raise ValueError(f"shift_range: fill must be one element, got "
+                         f"shape {tuple(f.shape)}")
+    return f.reshape(1).contiguous()
+
+
+def _static_shift(shift) -> int:
+    shift = int(shift)
+    if not -2 ** 31 < shift < 2 ** 31:
+        raise ValueError(f"shift_range: shift must fit int32, got {shift}")
+    return shift
+
+
+def shift_range_plain(x, start, end, shift: int = 1, fill=None):
+    """§4.1 move of lanes ``[start, end]`` of every ``(R, N)`` row by a
+    static ``shift``, as the TPU kernel: ``_shift_vals`` with the fill
+    cast to ``x.dtype``; vacated lanes keep their content unless ``fill``
+    is given, content crossing the row ends is dropped."""
+    n = x.shape[-1]
+    se = _scalars(x.device, start, end)
+    f = None if fill is None else _shift_fill(x, fill)[0]
+    idx = torch.arange(n, dtype=torch.int32, device=x.device)[None, :]
+    return _shift_vals(x, idx, se[0], se[1], _static_shift(shift), n, f)
+
+
+def shift_range(x, start, end, shift: int = 1, fill=None):
+    """§4.1 range move of every ``(R, N)`` row -> a new ``(R, N)`` array of
+    ``x.dtype``: one ``csrc/shift_range.cu`` launch for CUDA tensors
+    (counted in ``shift_range.launches``; rows move as 1-, 2-, 4- or
+    8-byte words, so any dtype), the plain twin for CPU tensors.
+    ``start`` / ``end`` may be device tensors: the kernel reads them on
+    the card, so the call never syncs."""
+    if not _on_card("shift_range", x):
+        return shift_range_plain(x, start, end, shift, fill)
+    if x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"shift_range takes contiguous (R, N) rows, got "
+                         f"shape {tuple(x.shape)}")
+    size = x.element_size()
+    if size not in (1, 2, 4, 8):
+        raise TypeError(f"the shift_range kernel moves 1-, 2-, 4- or 8-byte "
+                        f"elements, got {x.dtype}")
+    shift = _static_shift(shift)
+    r, n = x.shape
+    if r >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError("shift_range: more than 2**31 rows or lanes")
+    se = _scalars(x.device, start, end)
+    f = None if fill is None else _shift_fill(x, fill)
+    out = torch.empty_like(x)
+    if r == 0 or n == 0:
+        return out
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch("shift_range", "shift_range_launch",
+                  [P, P, P, P, I, I, I, I], x.device, x.data_ptr(),
+                  out.data_ptr(), se.data_ptr(),
+                  None if f is None else f.data_ptr(), r, n, shift, size)
+    shift_range.launches += 1
+    return out
+
+
+shift_range.launches = 0
+
+#: lanes a template_match block computes (TM_TILE of
+#: csrc/template_match.cu): it stages TM_TILE + 2 M - 1 float32 values
+TEMPLATE_TILE = 256
+#: the longest template whose tile halo and items fit a block's shared
+#: memory on the H100 (MAX_SMEM_BYTES)
+TEMPLATE_MAX_M = (MAX_SMEM_BYTES // 4 - TEMPLATE_TILE + 1) // 2
+
+
+def template_match_plain(data, template):
+    """§7.6 sliding SAD of an ``(M,)`` template at every start of every
+    ``(R, N)`` row -> ``(R, N)`` float32, as the TPU kernel: ``_sad_vals``
+    over the rows cast to float32, ``j = 0 .. M-1`` in order, the tail
+    wrapping."""
+    return _sad_vals(data.to(torch.float32), template.reshape(1, -1),
+                     template.shape[-1])
+
+
+def template_match(data, template):
+    """§7.6 sliding SAD -> ``(R, N)`` float32: one ``csrc/template_match.cu``
+    launch for CUDA tensors (counted in ``template_match.launches``; a
+    template of at most :data:`TEMPLATE_MAX_M` items), the plain twin
+    for CPU tensors."""
+    if not _on_card("template_match", data):
+        return template_match_plain(data, template)
+    if data.ndim != 2:
+        raise ValueError(f"template_match takes (R, N) rows, got shape "
+                         f"{tuple(data.shape)}")
+    code = _kernel_dtype("template_match", data)
+    if template.ndim != 1 or template.device != data.device:
+        raise ValueError(f"template_match: the template must be (M,) on "
+                         f"{data.device}, got {tuple(template.shape)} on "
+                         f"{template.device}")
+    t = template.to(torch.float32).contiguous()
+    m = t.shape[0]
+    if m > TEMPLATE_MAX_M:
+        raise ValueError(f"the template_match kernel takes templates of at "
+                         f"most {TEMPLATE_MAX_M} items (its tile halo and "
+                         f"the items in shared memory), got {m}")
+    r, n = data.shape
+    if r >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError("template_match: more than 2**31 rows or lanes")
+    out = torch.empty((r, n), dtype=torch.float32, device=data.device)
+    if r == 0 or n == 0:
+        return out
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch("template_match", "template_match_launch",
+                  [P, P, P, I, I, I, I], data.device, data.data_ptr(),
+                  t.data_ptr(), out.data_ptr(), r, n, m, code)
+    template_match.launches += 1
+    return out
+
+
+template_match.launches = 0
+
+#: must equal ST_MAX_TAPS in csrc/stencil.cu
+STENCIL_MAX_TAPS = 64
+
+
+class _StTaps(ctypes.Structure):
+    _fields_ = [("ntaps", ctypes.c_int), ("wrap", ctypes.c_int),
+                ("w", ctypes.c_float * STENCIL_MAX_TAPS)]
+
+
+def stencil_plain(x, taps, wrap: bool = True):
+    """§7.3 taps over every ``(R, N)`` row -> ``(R, N)`` float32, as the TPU
+    kernel: ``_stencil_vals`` over the rows cast to float32 (fixed tap
+    order, zero taps skipped; ``wrap=False`` zero-pads the row ends)."""
+    n = x.shape[-1]
+    idx = torch.arange(n, dtype=torch.int32, device=x.device)[None, :]
+    return _stencil_vals(x.to(torch.float32), idx,
+                         tuple(float(t) for t in taps), bool(wrap), n)
+
+
+def stencil(x, taps, wrap: bool = True):
+    """§7.3 tap stencil -> ``(R, N)`` float32: one ``csrc/stencil.cu``
+    launch for CUDA tensors (counted in ``stencil.launches``; at most
+    :data:`STENCIL_MAX_TAPS` taps), the plain twin for CPU tensors."""
+    taps = tuple(float(t) for t in taps)
+    if not _on_card("stencil", x):
+        return stencil_plain(x, taps, wrap)
+    if x.ndim != 2:
+        raise ValueError(f"stencil takes (R, N) rows, got shape "
+                         f"{tuple(x.shape)}")
+    code = _kernel_dtype("stencil", x)
+    if len(taps) > STENCIL_MAX_TAPS:
+        raise ValueError(f"the stencil kernel takes at most "
+                         f"{STENCIL_MAX_TAPS} taps, got {len(taps)}")
+    st = _StTaps(ntaps=len(taps), wrap=int(bool(wrap)))
+    for j, w in enumerate(taps):
+        st.w[j] = w
+        if w != 0 and st.w[j] == 0:
+            # the kernel skips zero taps by their float32 value
+            raise ValueError(f"stencil tap {w!r} underflows float32")
+    r, n = x.shape
+    if r >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError("stencil: more than 2**31 rows or lanes")
+    out = torch.empty((r, n), dtype=torch.float32, device=x.device)
+    if r == 0 or n == 0:
+        return out
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch("stencil", "stencil_launch",
+                  [P, P, I, I, I, ctypes.POINTER(_StTaps)], x.device,
+                  x.data_ptr(), out.data_ptr(), r, n, code,
+                  ctypes.byref(st))
+    stencil.launches += 1
+    return out
+
+
+stencil.launches = 0

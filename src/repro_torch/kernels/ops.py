@@ -28,7 +28,11 @@ KERNELS = {"flash_attention": fa.flash_attention,
            "histogram": cpm_kernels.histogram,
            "super_sum": cpm_kernels.super_sum,
            "super_limit": cpm_kernels.super_limit,
-           "oddeven_sort": cpm_kernels.oddeven_sort}
+           "oddeven_sort": cpm_kernels.oddeven_sort,
+           "activate": cpm_kernels.activate,
+           "shift_range": cpm_kernels.shift_range,
+           "template_match": cpm_kernels.template_match,
+           "stencil": cpm_kernels.stencil}
 
 
 def _mode(impl, t) -> str:
@@ -79,6 +83,23 @@ def substring_match(hay, needle, *, impl=None):
     if _mode(impl, hay) == "ref":
         return ref.substring_match_ref(hay, needle)
     return cpm_kernels.substring_match(hay, needle)
+
+
+def template_match(data, template, *, impl=None):
+    """§7.6 sliding SAD of an ``(M,)`` template over every ``(R, N)`` row:
+    the kernel's float32 SAD, or the reference's (as
+    ``repro.kernels.ops.template_match``)."""
+    if _mode(impl, data) == "ref":
+        return ref.template_match_ref(data, template)
+    return cpm_kernels.template_match(data, template)
+
+
+def stencil(x, taps, *, impl=None):
+    """§7.3 ring stencil (``wrap=True``) of every ``(R, N)`` row: the kernel
+    or the reference (as ``repro.kernels.ops.stencil``)."""
+    if _mode(impl, x) == "ref":
+        return ref.stencil_ref(x, list(taps))
+    return cpm_kernels.stencil(x, tuple(taps))
 
 
 def launch_counts() -> dict[str, int]:

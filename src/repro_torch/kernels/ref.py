@@ -1,5 +1,6 @@
 """Plain-PyTorch oracles (a port of ``repro.kernels.ref``): attention,
-and the row sort and sectioned sum the CPM kernels are held to.
+and the row sort, sectioned sum, substring match, template match and
+stencil the CPM kernels are held to.
 
 ``flash_attention_ref`` is the chunked online-softmax dataflow the JAX
 package runs off the TPU: streams stay in the input dtype, the softmax
@@ -149,3 +150,15 @@ def substring_match_ref(hay: torch.Tensor, needle: torch.Tensor):
     from repro_torch.cpm.reference.searchable import substring_match
 
     return substring_match(hay, needle)
+
+
+def template_match_ref(data: torch.Tensor, template: torch.Tensor):
+    """Sliding SAD of every row (the reference's ``template_match_1d``)."""
+    from repro_torch.cpm.reference.computable import template_match_1d
+    return template_match_1d(data, template)
+
+
+def stencil_ref(x: torch.Tensor, taps):
+    """Ring stencil of every row (the reference's ``stencil_1d``)."""
+    from repro_torch.cpm.reference.computable import stencil_1d
+    return stencil_1d(x, taps)

@@ -95,6 +95,9 @@ class Metric:
 class Counter(Metric):
     kind = "counter"
 
+    def inc(self, amount=1, **labels):
+        self.labels(**labels).inc(amount)
+
 
 class Gauge(Metric):
     kind = "gauge"

@@ -65,9 +65,11 @@ class Engine:
     ``params`` decide the device (build them with ``lm.init_params`` or
     ``convert.params_from_numpy``).  ``cpm_backend`` picks the commit
     path: ``"reference"`` (one scatter) or ``"cuda"`` (the recorded
-    commit program, one ``fused_stream`` launch per round; its plain twin
-    for CPU tensors); by default ``cuda`` on a CUDA device, ``reference``
-    on the CPU.  The session pool's token banks follow it."""
+    commit program scheduled by the cost model: one ``fused_stream``
+    launch a round, or the ``insert`` replayed row by row on
+    ``shift_range``; the plain twins for CPU tensors); by default
+    ``cuda`` on a CUDA device, ``reference`` on the CPU.  The session
+    pool's token banks follow it."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
                  cpm_backend: str | None = None):

@@ -4,10 +4,13 @@
 Per verify round the engine appends the round's predictions at each row's
 live end and rolls the §4.2 length register back to the accepted prefix:
 ``insert(used, preds) -> truncate(used + emit_n)`` on the token buffer.
-Both ops are fusable, so the fuse-all schedule makes the pair one group —
-on the cuda backend ONE ``fused_stream`` kernel launch per round.  (The
-JAX package schedules this stream cost-aware; the port's scheduler is the
-fuse-all partition until ``costmodel`` is ported, ROADMAP Queue 1.)
+The stream is scheduled *cost-aware* (the device geometry is known
+here): on the cuda backend the launch/byte model
+(``repro_torch.cpm.program.costmodel``, calibrated on the card) decides
+per commit whether the pair runs as ONE ``fused_stream`` launch or as
+per-op dispatch (the ``insert`` replayed row by row on the
+``shift_range`` kernel); on the reference backend no decision is made.
+Either way the instructions — and the committed tokens — are identical.
 """
 
 from __future__ import annotations
@@ -21,13 +24,14 @@ from repro_torch.cpm.program import schedule
 def record_commit_program(buf, used, preds, emit_n,
                           backend: str = "reference"):
     """Build (not run) the commit stream of one verify round; returns
-    ``(device, plan)``."""
+    ``(device, plan)``, the plan's group ``fused`` or ``eager`` as the
+    backend's cost model decides."""
     used = used.to(torch.int32)
     dev = CPMArray(buf, used, backend=backend)
     prog = CPMProgram() \
         .append("insert", pos=used, values=preds) \
         .append("truncate", new_len=used + emit_n)
-    return dev, schedule(prog)
+    return dev, schedule(prog, device=dev, backend=backend)
 
 
 def commit_tokens(buf, used, preds, emit_n, backend: str = "reference"):

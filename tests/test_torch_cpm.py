@@ -297,14 +297,17 @@ class TestProgramsAgainstJax:
 
 class TestBackends:
     def test_forced_cuda_backend_raises_per_op(self):
-        """Ops whose per-op kernel is still to port raise on a forced cuda
-        backend (``stencil`` through ``CPMArray``, ``shift_range`` on the
-        backend itself)."""
+        """Every op with a TPU kernel runs on a forced cuda backend
+        (``stencil`` through ``CPMArray``, ``shift_range`` on the backend
+        itself, the kernels' plain twins on CPU rows) and equals JAX; an
+        op with no kernel column (``hybrid_sort``) raises per op."""
         dev = cpm_array(_DATA, _USED, backend="cuda", device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-            dev.stencil((1.0, 2.0, 1.0))
-        with pytest.raises(NotImplementedError):
-            get_backend("cuda").shift_range(T(_DATA), 0, 3, 1)
+        ref = jcpm(_DATA, _USED)
+        _eq(ref.stencil((1.0, 2.0, 1.0)), dev.stencil((1.0, 2.0, 1.0)))
+        _eq(jmov.shift_range(J(_DATA), 0, 3, 1),
+            get_backend("cuda").shift_range(T(_DATA), 0, 3, 1))
+        with pytest.raises(NotImplementedError, match="hybrid_sort"):
+            resolve("cuda", "hybrid_sort", T(_DATA))
 
     def test_forced_cuda_backend_runs_the_ported_ops(self):
         """``compare``, ``section_sum``, ``global_limit`` and ``compact``
@@ -327,18 +330,23 @@ class TestBackends:
     def test_eager_replay_inside_a_program_uses_reference(self):
         """An eager replay on ``auto`` runs the reference on CPU rows; a
         forced cuda replay of ``compare`` runs its per-op kernel (the twin
-        here), and of an op whose per-op kernel is still to port raises
-        (pin compatibility: never a substituted realization)."""
+        here), and so does one of ``stencil`` and ``truncate``, whose
+        per-op kernels are ported now (pin compatibility: never a
+        substituted realization)."""
         dev = cpm_array(_DATA, _USED, device="cpu")
         prog = CPMProgram().append("compare", datum=4, op="ge")
         got = apply_instruction(dev, prog.instructions[0], backend="auto")
         _eq(jcpm(_DATA, _USED).compare(4, "ge"), got)
         got = apply_instruction(dev, prog.instructions[0], backend="cuda")
         _eq(jcpm(_DATA, _USED).compare(4, "ge"), got)
-        for instr in CPMProgram().append("stencil", taps=(1.0, 2.0, 1.0)) \
-                .append("truncate", new_len=3).instructions:
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-                apply_instruction(dev, instr, backend="cuda")
+        stencil, truncate = CPMProgram() \
+            .append("stencil", taps=(1.0, 2.0, 1.0)) \
+            .append("truncate", new_len=3).instructions
+        _eq(jcpm(_DATA, _USED).stencil((1.0, 2.0, 1.0)),
+            apply_instruction(dev, stencil, backend="cuda"))
+        got = apply_instruction(dev, truncate, backend="cuda")
+        assert got.backend == "cuda"
+        _eq(jcpm(_DATA, _USED).truncate(3).used_len, got.used_len)
 
     def test_non_linear_recording_raises(self):
         dev = cpm_array(_DATA, _USED, device="cpu")

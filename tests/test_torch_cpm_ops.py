@@ -38,15 +38,33 @@ try:                        # the reference; the GPU machine has no JAX
     import jax.numpy as jnp
 
     from repro.cpm import cpm_array as jcpm_array
+    from repro.cpm.optable import OP_TABLE as JOP_TABLE
     from repro.kernels import cpm_kernels as JK
 except ImportError:
     jnp = None
 
 from repro_torch.cpm import backends as B  # noqa: E402
 from repro_torch.cpm import cpm_array  # noqa: E402
+from repro_torch.cpm import tuning  # noqa: E402
 from repro_torch.cpm.pool import SlotAllocator  # noqa: E402
 from repro_torch.kernels import cpm_kernels as TK  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _static_tuning(tmp_path_factory):
+    """The cuda backend's plain twins would calibrate the cost model and
+    tune sections on CPU rows, at random: keep this file's tests on the
+    static defaults (the cost model's priors), any spill in a temporary
+    directory and never the user's."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_CPM_TUNING_CACHE",
+                  str(tmp_path_factory.mktemp("tuning") / "cpm.json"))
+        mp.setenv("REPRO_TORCH_CPM_AUTOTUNE", "0")
+        mp.setenv("REPRO_TORCH_CPM_CALIBRATE", "0")
+        tuning.clear()
+        yield
+    tuning.clear()
 
 
 @pytest.fixture(autouse=True)
@@ -328,12 +346,17 @@ class TestDispatch:
         assert B.auto_name(is_cuda, n) == want
 
     def test_cuda_supports_exactly_the_ported_ops(self):
+        """Every op the JAX op table gives a ``pallas`` column is ported:
+        the cuda backend supports exactly those."""
         bk = B.get_backend("cuda")
-        ported = {"compare", "substring_match", "compact", "global_limit",
-                  "section_sum", "histogram", "super_sum", "super_limit",
-                  "sort"}
-        for op in ported | {"stencil", "activate", "template_match",
-                            "shift"}:
+        ported = {name for name, spec in JOP_TABLE.items()
+                  if "pallas" in spec.backends}
+        assert ported == {"activate", "shift", "insert", "delete",
+                          "truncate", "compare", "substring_match",
+                          "compact", "global_limit", "section_sum",
+                          "histogram", "super_sum", "super_limit", "sort",
+                          "template_match", "stencil"}
+        for op in JOP_TABLE:
             assert bk.supports(op) == (op in ported), op
         assert B.resolve("auto", "compare", torch.zeros(4096)).name \
             == "reference"                      # CPU rows

@@ -46,12 +46,29 @@ except ImportError:
 
 from repro_torch.cpm import CPMArray, cpm_array  # noqa: E402
 from repro_torch.cpm import backends as B  # noqa: E402
+from repro_torch.cpm import tuning  # noqa: E402
 from repro_torch.cpm.optable import op_steps, optimal_section  # noqa: E402
 from repro_torch.cpm.reference import (comparable, computable,  # noqa: E402
                                        movable, pe_array, searchable)
 from repro_torch.cpm.reference.trips import count_trips  # noqa: E402
 from repro_torch.kernels import cpm_kernels as TK  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _static_tuning(tmp_path_factory):
+    """The cuda backend's plain twins would calibrate the cost model and
+    tune sections on CPU rows, at random: keep this file's tests on the
+    static defaults (the cost model's priors), any spill in a temporary
+    directory and never the user's."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_CPM_TUNING_CACHE",
+                  str(tmp_path_factory.mktemp("tuning") / "cpm.json"))
+        mp.setenv("REPRO_TORCH_CPM_AUTOTUNE", "0")
+        mp.setenv("REPRO_TORCH_CPM_CALIBRATE", "0")
+        tuning.clear()
+        yield
+    tuning.clear()
 
 
 @pytest.fixture(autouse=True)

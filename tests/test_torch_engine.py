@@ -30,6 +30,7 @@ from repro.serve import GenConfig as JGenConfig  # noqa: E402
 from repro.serve import program_paths as jpaths  # noqa: E402
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.cpm import tuning  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.serve import Engine, GenConfig, program_paths  # noqa: E402
@@ -37,6 +38,22 @@ from repro_torch.serve import sampling  # noqa: E402
 
 TOL = 2e-2
 MAX_NEW = 12
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _static_tuning(tmp_path_factory):
+    """The cuda backend's plain twins would calibrate the cost model and
+    tune sections on CPU rows, at random: keep this file's tests on the
+    static defaults (the cost model's priors), any spill in a temporary
+    directory and never the user's."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_CPM_TUNING_CACHE",
+                  str(tmp_path_factory.mktemp("tuning") / "cpm.json"))
+        mp.setenv("REPRO_TORCH_CPM_AUTOTUNE", "0")
+        mp.setenv("REPRO_TORCH_CPM_CALIBRATE", "0")
+        tuning.clear()
+        yield
+    tuning.clear()
 
 
 @pytest.fixture(scope="module")

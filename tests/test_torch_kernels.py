@@ -385,16 +385,19 @@ class TestFusedStreamDescriptor:
 
 class TestBuild:
     def test_sources_and_cache_key(self):
-        assert _build.sources() == ["compact", "compare", "flash_attention",
-                                    "fused_stream", "histogram",
-                                    "oddeven_sort", "reduce", "rows",
-                                    "substring_match", "super_reduce"]
+        assert _build.sources() == ["activate", "compact", "compare",
+                                    "flash_attention", "fused_stream",
+                                    "histogram", "oddeven_sort", "reduce",
+                                    "rows", "shift_range", "stencil",
+                                    "substring_match", "super_reduce",
+                                    "template_match"]
         p1 = _build._lib_path("fused_stream")
         assert p1 == _build._lib_path("fused_stream")
         assert p1.parent == _build.build_dir()
         assert p1.parent.parent.parent == _build._CHECKOUT
         assert p1 != _build._lib_path("flash_attention")
         assert "-fmad=false" in _build._flags("fused_stream")
+        assert "-fmad=false" in _build._flags("stencil")
         for name in _build.sources():
             assert any("sm_90a" in f for f in _build._flags(name))
         # a shared header is part of every library's key

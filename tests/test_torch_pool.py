@@ -44,11 +44,28 @@ except ImportError:
     jnp = None
 
 from repro_torch.cpm import cpm_array  # noqa: E402
+from repro_torch.cpm import tuning  # noqa: E402
 from repro_torch.cpm.pool import (CPMBank, MultiBankScheduler,  # noqa: E402
                                   OracleAllocator, SessionTable,
                                   SlotAllocator, packed_commit)
 from repro_torch.kernels import cpm_kernels as TK  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _static_tuning(tmp_path_factory):
+    """The cuda backend's plain twins would calibrate the cost model and
+    tune sections on CPU rows, at random: keep this file's tests on the
+    static defaults (the cost model's priors), any spill in a temporary
+    directory and never the user's."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_CPM_TUNING_CACHE",
+                  str(tmp_path_factory.mktemp("tuning") / "cpm.json"))
+        mp.setenv("REPRO_TORCH_CPM_AUTOTUNE", "0")
+        mp.setenv("REPRO_TORCH_CPM_CALIBRATE", "0")
+        tuning.clear()
+        yield
+    tuning.clear()
 
 
 @pytest.fixture(autouse=True)
@@ -182,13 +199,19 @@ class TestAllocatorOps:
 
     @pytest.mark.parametrize("op", ["stencil", "template_match"])
     def test_cuda_backend_raises_naming_queue_2(self, op):
-        """Ops whose per-op kernel is still to port raise on cuda."""
-        arr = cpm_array(_t(np.arange(8, dtype=np.int32)), 5, backend="cuda")
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            if op == "stencil":
-                arr.stencil((1.0, 2.0, 1.0))
-            else:
-                arr.template_match(_t(np.ones(3, np.float32)))
+        """The two ops whose per-op kernels were the last of ROADMAP Queue
+        2 no longer raise on cuda: their kernels' plain twins (CPU rows)
+        equal the JAX reference backend."""
+        x = np.arange(8, dtype=np.int32)
+        arr = cpm_array(_t(x), 5, backend="cuda")
+        jarr = jcpm_array(x, 5, backend="reference")
+        if op == "stencil":
+            got, want = arr.stencil((1.0, 2.0, 1.0)), \
+                jarr.stencil((1.0, 2.0, 1.0))
+        else:
+            t = np.ones(3, np.float32)
+            got, want = arr.template_match(_t(t)), jarr.template_match(t)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     @pytest.mark.parametrize("op", ["compare", "section_sum",
                                     "global_limit", "compact"])
@@ -333,7 +356,8 @@ class TestBanksAndPacker:
         data, gidx, sidx, src = _bank_case(7, 12, 8, 5)
         lens = np.arange(12, dtype=np.int32) + 1
         new_lens = np.arange(5, dtype=np.int32) + 20
-        jb, tb = JBank(12, 8), CPMBank(12, 8, backend=backend)
+        jb = JBank(12, 8)
+        tb = CPMBank(12, 8, backend=backend, device="cpu")
         jb.data, jb.lens = jnp.asarray(data), jnp.asarray(lens)
         tb.data, tb.lens = _t(data), _t(lens)
         np.testing.assert_array_equal(tb.gather(_t(gidx)).numpy(),
@@ -347,7 +371,7 @@ class TestBanksAndPacker:
 
     @pytest.mark.parametrize("backend", ["reference", "cuda"])
     def test_write_read_roundtrip(self, backend):
-        b = CPMBank(4, 16, backend=backend)
+        b = CPMBank(4, 16, backend=backend, device="cpu")
         b.write_row(2, np.arange(5) + 1)
         row, ln = b.read_row(2)
         assert ln == 5
@@ -379,7 +403,7 @@ class TestBanksAndPacker:
     def test_scheduler_flush_matches_jax(self, slots):
         """Partial and full (shuffled) banks: idle rows keep their live
         region, operands land by slot, counters agree."""
-        jbank, tbank = JBank(4, 12), CPMBank(4, 12)
+        jbank, tbank = JBank(4, 12), CPMBank(4, 12, device="cpu")
         for slot in range(4):
             jbank.write_row(slot, jnp.full((3,), 10 + slot), 3)
             tbank.write_row(slot, np.full((3,), 10 + slot), 3)
@@ -399,20 +423,20 @@ class TestBanksAndPacker:
         assert ts.bank_launches == js.bank_launches == 1
 
     def test_scheduler_rejects_mixed_templates_and_twin_slots(self):
-        sched = MultiBankScheduler([CPMBank(2, 8)])
+        sched = MultiBankScheduler([CPMBank(2, 8, device="cpu")])
         sched.submit(0, 0, [("truncate", {"new_len": 1})])
         sched.submit(0, 1, [("insert", {"pos": 0, "values": [1]})])
         with pytest.raises(ValueError, match="templates"):
             sched.flush()
-        sched = MultiBankScheduler([CPMBank(2, 8)])
+        sched = MultiBankScheduler([CPMBank(2, 8, device="cpu")])
         sched.submit(0, 1, [("truncate", {"new_len": 1})])
         sched.submit(0, 1, [("truncate", {"new_len": 2})])
         with pytest.raises(ValueError, match="slot 1"):
             sched.flush()
 
     def test_two_schedulers_keep_separate_series(self):
-        a, b = MultiBankScheduler([CPMBank(2, 4)]), \
-            MultiBankScheduler([CPMBank(2, 4)])
+        a = MultiBankScheduler([CPMBank(2, 4, device="cpu")])
+        b = MultiBankScheduler([CPMBank(2, 4, device="cpu")])
         a.submit(0, 0, [("truncate", {"new_len": 0})])
         a.flush()
         assert a.bank_launches == 1 and b.bank_launches == 0

@@ -37,6 +37,7 @@ except ImportError:
     jax = None
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.cpm import tuning  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.serve import Engine, Gateway, GenConfig  # noqa: E402
 
@@ -46,6 +47,22 @@ COUNTERS = ("decode_steps", "emitted", "submitted", "admits",
             "prefill_launches", "admit_batches", "preemptions",
             "page_stalls", "restores", "cancels", "pages_free",
             "bank_launches", "streams_packed")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _static_tuning(tmp_path_factory):
+    """The cuda backend's plain twins would calibrate the cost model and
+    tune sections on CPU rows, at random: keep this file's tests on the
+    static defaults (the cost model's priors), any spill in a temporary
+    directory and never the user's."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_CPM_TUNING_CACHE",
+                  str(tmp_path_factory.mktemp("tuning") / "cpm.json"))
+        mp.setenv("REPRO_TORCH_CPM_AUTOTUNE", "0")
+        mp.setenv("REPRO_TORCH_CPM_CALIBRATE", "0")
+        tuning.clear()
+        yield
+    tuning.clear()
 
 
 @pytest.fixture(autouse=True)
