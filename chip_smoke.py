@@ -27,8 +27,8 @@ Phases, in order; any failure exits non-zero:
      layer per prefill, and the commit, scheduled by the cost model
      (phases 1-8 price with its priors: no calibration, no tuning), must
      launch what its verdict implies — one ``fused_stream`` a round, or
-     one ``shift_range`` a row a round (the executor's row replay of the
-     eager ``insert``) — and no other per-op CPM kernel;
+     one ``shift_range`` a round (the eager ``insert`` over every row's
+     own bounds) — and no other per-op CPM kernel;
   6. serve 12 greedy requests through ``Gateway.tick`` over the paged
      session pool on the same weights (8 slots in 2 banks, chunk 4,
      32-token pages, 24 pages per bank, no backend named so that the
@@ -86,16 +86,21 @@ Phases, in order; any failure exits non-zero:
      ``stencil((1, 2, 1))`` zero-padded and ringed on float32 and int32
      rows and a five-tap stencil with zero taps, each result bit for bit
      with the kernels' plain twins run in their place and with the
-     reference backend (the stencil within 1e-5 relative); ``insert`` on
-     the per-row lengths through ``CPMProgram.run`` (64 ``shift_range``
-     launches: the executor replays moves row by row).  Then the cost
-     model calibrates on the card into ``build/chip_smoke/`` (its four
-     coefficients printed with the card), its probe stream runs forced
-     fused and forced eager on (64, 16,384) int32 rows, bit for bit, with
-     the calibrated verdict; phase 5's speculative path runs again with
-     the commit priced by the calibrated model (the launches its verdict
-     implies, tokens equal to the scan path's, no host sync in a commit
-     and one a round); a small pool's steady step still launches
+     reference backend (the stencil within 1e-5 relative); ``insert``
+     and ``delete`` on the per-row lengths through ``CPMProgram.run``
+     (one ``shift_range`` launch each over all 64 rows, per-row bounds).
+     Then the cost model calibrates on the card into
+     ``build/chip_smoke/`` (its four coefficients printed with the card),
+     its probe stream runs forced fused and forced eager on (64, 16,384)
+     int32 rows, bit for bit, with the calibrated verdict, and the
+     ``auto`` crossover is measured and read back; phase 5's speculative
+     path runs three times: with the commit priced by the calibrated
+     model, then under coefficients that force each verdict (one
+     ``fused_stream`` a round, then one ``shift_range`` a round), each
+     with the launches its verdict implies, tokens equal to the scan
+     path's, no host sync in a commit and one a round, the two forced
+     runs and their commits at the generate shape timed in the same
+     process; a small pool's steady step still launches
      ``gather_rows``, ``fused_stream`` and ``scatter_rows`` once, with no
      cost decision.  The four kernels are timed at these shapes
      (``conv1d`` beside the stencil).
@@ -629,7 +634,7 @@ def serve_granite(torch, dev, layers, record):
                                      PROMPT_LEN + MAX_NEW, SPEC)
     if after_scan["fused_stream"] != 0 or after_scan["shift_range"] != 0:
         fail(f"the scan path launched a commit kernel: {after_scan}")
-    commit_launch_check(counts, kind, stats["rounds"], BATCH, "generate")
+    commit_launch_check(counts, kind, stats["rounds"], "generate")
 
     # timings outside the counted run
     t0 = time.perf_counter()
@@ -1745,8 +1750,10 @@ def check_streams(torch, np, dev, data):
             fail(f"template_match M={m}: no exact zero where the template "
                  f"was cut from the row")
 
-    # per-row lengths through the executor: the move replays row by row
-    prog = CPMProgram().append("insert", pos=CPM_N // 4, values=[7, 8])
+    # per-row lengths through the executor: each move is one launch over
+    # every row's own bounds
+    prog = (CPMProgram().append("insert", pos=CPM_N // 4, values=[7, 8])
+            .append("delete", pos=CPM_N // 8, k=2, fill=-1))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = prog.run(cpm_array(xi, ul, backend="cuda"))[0]
@@ -1754,19 +1761,20 @@ def check_streams(torch, np, dev, data):
     rows_s = time.perf_counter() - t0
     rows_counts = ops.launch_counts()
     want = {name: 0 for name in rows_counts}
-    want["shift_range"] = CPM_R
+    want["shift_range"] = 2
     if rows_counts != want:
-        fail(f"the per-row-length insert launched {rows_counts}, want "
-             f"{want} (one shift_range a row: the executor replays moves "
-             f"row by row)")
+        fail(f"the per-row-length insert and delete launched "
+             f"{rows_counts}, want {want} (one shift_range a move over "
+             f"the rows' own bounds)")
     ref_out = prog.run(cpm_array(xi, ul, backend="reference"))[0]
     hold("shift_range", torch.equal(out.data, ref_out.data)
          and torch.equal(out.used_len, ref_out.used_len), 0.0,
-         f"insert on per-row lengths through CPMProgram.run: {CPM_R} "
-         f"row launches, equal to the reference backend")
-    print(f"per-row-length insert through CPMProgram.run: {rows_s:.3f}s, "
-          f"{rows_counts['shift_range']} shift_range launches (a row "
-          f"each; JAX's vmap makes one)")
+         f"insert and delete on per-row lengths through CPMProgram.run: "
+         f"one launch each over {CPM_R} rows, equal to the reference "
+         f"backend's row replay")
+    print(f"per-row-length insert + delete through CPMProgram.run: "
+          f"{rows_s:.3f}s, {rows_counts['shift_range']} shift_range "
+          f"launches ({CPM_R} rows each, per-row bounds)")
     return ({"streams": counts, "rows": rows_counts}, errs,
             {"templates": templates, "used": used, "path_s": path_s,
              "rows_s": rows_s})
@@ -1819,6 +1827,24 @@ def check_cost_model(torch, np, dev, data, card):
     verdict = schedule(prog, device=dev64)
     d = verdict.groups[0].decision
     block_r = tuning.entries("blockr:")
+
+    # the auto crossover: measured on the card, read back by cuda_min_n
+    from repro_torch.cpm import backends as B
+    t0 = time.perf_counter()
+    xover = B.measure_crossover(dev)
+    xover_s = time.perf_counter() - t0
+    for op in B.XOVER_OPS:
+        n = xover[op]
+        if B.cuda_min_n(op, dev) != n:
+            fail(f"cuda_min_n({op!r}) does not read the measured {n}")
+        wide = data["xi"][:1]                    # rows up to 1,048,576
+        if n < 1 << 30 and (
+                B.auto_backend_name(wide[:, :n], op) != "cuda"
+                or n > 1 and B.auto_backend_name(wide[:, :n - 1],
+                                                 op) != "reference"):
+            fail(f"backend='auto' for {op} does not switch at {n} lanes")
+    print(f"auto crossover measured in {xover_s:.2f}s: {xover} lanes "
+          f"(static {B.CUDA_MIN_N}); {card}")
     print(f"probe stream on ({CPM_R}, {PROBE_N}) int32 rows: fused "
           f"{times['fused'] * 1e6:.1f} us ({launches['fused']}), eager "
           f"{times['eager'] * 1e6:.1f} us ({launches['eager']}), bit for "
@@ -1830,28 +1856,25 @@ def check_cost_model(torch, np, dev, data, card):
             "probe_fused_us": times["fused"] * 1e6,
             "probe_eager_us": times["eager"] * 1e6,
             "probe_launches": launches, "probe_verdict": d,
-            "block_r": block_r}
+            "block_r": block_r, "crossover": xover}
 
 
 def _commit_verdict(torch, dev, batch, cap, spec):
     """The kind the cost model gives the engine's commit at its shape."""
     from repro_torch.serve import program_paths
 
-    z = torch.zeros((batch,), dtype=torch.int32, device=dev)
     _, plan = program_paths.record_commit_program(
-        torch.zeros((batch, cap), dtype=torch.int32, device=dev), z + cap // 2,
-        torch.zeros((batch, spec), dtype=torch.int32, device=dev), z,
-        backend="cuda")
+        *_commit_args(torch, dev, batch, cap, spec), backend="cuda")
     return plan.groups[0].kind, plan.groups[0].decision
 
 
-def commit_launch_check(counts, kind, rounds, batch, path):
+def commit_launch_check(counts, kind, rounds, path):
     """The launches a commit verdict implies: one fused_stream a round
-    and no shift_range (fused), or one shift_range a row a round (the
-    executor's row replay of insert) and no fused_stream (eager); no
-    other per-op CPM kernel."""
+    and no shift_range (fused), or one shift_range a round (the eager
+    insert over all rows' own bounds) and no fused_stream
+    (eager); no other per-op CPM kernel."""
     want = ({"fused_stream": rounds, "shift_range": 0} if kind == "fused"
-            else {"fused_stream": 0, "shift_range": batch * rounds})
+            else {"fused_stream": 0, "shift_range": rounds})
     got = {k: counts[k] for k in want}
     if got != want:
         fail(f"the {path} path's {kind} commit launched {got} over "
@@ -1889,19 +1912,38 @@ def _syncs_inside(module, name, into):
         setattr(module, name, inner)
 
 
-def check_generate_by_cost(torch, dev, gen, card):
-    """Phase 9, part 3: phase 5's speculative path again, its commit now
-    priced by the calibrated coefficients; the launches the verdict
-    implies, tokens equal to the scan path's, no host sync in a commit
-    and one a round outside the prefill."""
+#: coefficients that force each commit verdict (source "override": the
+#: model's prediction stands, nothing is measured): a fused launch ten
+#: times cheaper than an eager one fuses even the one-launch commit; no
+#: launch cost and a dearer fused byte slope never fuses
+FORCE_FUSED = (1e-5, 1e-12, 1e-6, 1e-12)
+FORCE_EAGER = (1e-9, 1e-12, 1e-9, 2e-12)
+
+
+@contextlib.contextmanager
+def _forced_cost(dev, coeffs):
+    """The cost model's coefficients for ``dev`` set to ``coeffs`` (the
+    tuning spill's ``calib:`` entry, which ``costmodel.params_for``
+    reads), restored afterwards."""
+    from repro_torch.cpm import tuning
+    from repro_torch.cpm.program import CostParams
+
+    key = f"calib:{tuning.backend_key(dev)}"
+    saved = tuning.lookup(key)
+    tuning.store(key, CostParams(*coeffs, source="override").as_dict())
+    try:
+        yield
+    finally:
+        tuning.store(key, saved)
+
+
+def _generate_counted(torch, gen):
+    """Phase 5's speculative path once, counted: (tokens, stats, launch
+    counts, host syncs in commits / the prefill / the rounds, seconds)."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.serve import program_paths
 
-    engine, prompt, scan, spec_cfg = (gen[k] for k in
-                                      ("engine", "prompt", "scan", "spec"))
-    kind, decision = _commit_verdict(torch, dev, BATCH,
-                                     PROMPT_LEN + MAX_NEW, SPEC)
     in_commit, in_prefill, rounds_syncs = [], [], []
     ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1912,35 +1954,86 @@ def check_generate_by_cost(torch, dev, gen, card):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            spec, stats = engine.generate({"tokens": prompt}, spec_cfg)
+            spec, stats = gen["engine"].generate({"tokens": gen["prompt"]},
+                                                 gen["spec"])
         finally:
             torch.cuda.set_sync_debug_mode("default")
             rounds_syncs.extend(_syncs_of(caught))
     torch.cuda.synchronize()
     spec_s = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    if not torch.equal(spec, scan):
-        fail("speculative tokens under the calibrated commit differ from "
-             "the scan tokens")
-    commit_launch_check(counts, kind, stats["rounds"], BATCH,
-                        "costed generate")
-    if in_commit:
-        fail(f"a commit synchronized with the host: {in_commit[:3]}")
-    if len(rounds_syncs) != stats["rounds"]:
-        fail(f"{len(rounds_syncs)} host syncs over {stats['rounds']} rounds "
-             f"outside the prefill, want one a round: {rounds_syncs[:3]}")
-    print(f"generate, commit priced by the calibrated model: {kind} "
-          f"(fused {decision['fused_us']:.1f} us vs eager "
-          f"{decision['eager_us']:.1f} us, {decision['params']}); "
-          f"{stats['rounds']} rounds in {spec_s:.2f}s, launches "
-          f"fused_stream {counts['fused_stream']}, shift_range "
-          f"{counts['shift_range']}; host syncs: {len(rounds_syncs)} in the "
-          f"rounds (0 in commits), {len(in_prefill)} in the prefill; "
-          f"tokens == scan; {card}")
-    return counts, {"verdict": kind, "decision": decision,
-                    "rounds": stats["rounds"], "spec_s": spec_s,
-                    "host_syncs_rounds": len(rounds_syncs),
-                    "host_syncs_prefill": len(in_prefill)}
+    return (spec, stats, ops.launch_counts(),
+            (in_commit, in_prefill, rounds_syncs), spec_s)
+
+
+def _commit_args(torch, dev, batch, cap, spec):
+    """A verify round's commit inputs at the generate path's shape."""
+    z = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    return (torch.zeros((batch, cap), dtype=torch.int32, device=dev),
+            z + cap // 2,
+            torch.zeros((batch, spec), dtype=torch.int32, device=dev),
+            z + 1)
+
+
+def check_generate_by_cost(torch, dev, gen, card):
+    """Phase 9, part 3: phase 5's speculative path again, its commit now
+    priced by the calibrated coefficients, then under coefficients that
+    force each verdict; each run with the launches its verdict implies,
+    tokens equal to the scan path's, no host sync in a commit and one a
+    round outside the prefill.  The two forced runs, and one commit at
+    the generate shape under each verdict, are timed here side by side."""
+    from repro_torch.serve import program_paths
+
+    runs, path_counts = {}, {}
+    for name, coeffs in (("calibrated", None), ("fused", FORCE_FUSED),
+                         ("eager", FORCE_EAGER)):
+        with (_forced_cost(dev, coeffs) if coeffs
+              else contextlib.nullcontext()):
+            kind, decision = _commit_verdict(torch, dev, BATCH,
+                                             PROMPT_LEN + MAX_NEW, SPEC)
+            if coeffs and kind != name:
+                fail(f"coefficients {coeffs} gave the commit {kind}, "
+                     f"want {name}")
+            spec, stats, counts, syncs, spec_s = _generate_counted(torch,
+                                                                   gen)
+            args = _commit_args(torch, dev, BATCH, PROMPT_LEN + MAX_NEW,
+                                SPEC)
+            commit_ms, commit_src, commit_call_ms = timed(
+                lambda: program_paths.commit_tokens(*args, backend="cuda"),
+                20)
+        in_commit, in_prefill, rounds_syncs = syncs
+        if not torch.equal(spec, gen["scan"]):
+            fail(f"speculative tokens under the {name} commit ({kind}) "
+                 f"differ from the scan tokens")
+        commit_launch_check(counts, kind, stats["rounds"],
+                            f"{name} generate")
+        if in_commit:
+            fail(f"a {name} commit synchronized with the host: "
+                 f"{in_commit[:3]}")
+        if len(rounds_syncs) != stats["rounds"]:
+            fail(f"{len(rounds_syncs)} host syncs over {stats['rounds']} "
+                 f"rounds outside the prefill ({name} commit), want one a "
+                 f"round: {rounds_syncs[:3]}")
+        print(f"generate, commit priced by the {name} coefficients: {kind} "
+              f"(fused {decision['fused_us']:.1f} us vs eager "
+              f"{decision['eager_us']:.1f} us, {decision['params']}); "
+              f"{stats['rounds']} rounds in {spec_s:.3f}s, launches "
+              f"fused_stream {counts['fused_stream']}, shift_range "
+              f"{counts['shift_range']}; host syncs: {len(rounds_syncs)} in "
+              f"the rounds (0 in commits), {len(in_prefill)} in the "
+              f"prefill; tokens == scan; one commit at ({BATCH}, "
+              f"{PROMPT_LEN + MAX_NEW}): {commit_ms:.4f} ms on the card "
+              f"({commit_src}), {commit_call_ms:.4f} ms a call with host "
+              f"time; {card}")
+        runs[name] = {"verdict": kind, "decision": decision,
+                      "rounds": stats["rounds"], "spec_s": spec_s,
+                      "commit_ms": commit_ms, "commit_ms_source": commit_src,
+                      "commit_call_ms": commit_call_ms,
+                      "launches": {k: counts[k] for k in
+                                   ("fused_stream", "shift_range")},
+                      "host_syncs_rounds": len(rounds_syncs),
+                      "host_syncs_prefill": len(in_prefill)}
+        path_counts[name] = counts
+    return path_counts, runs
 
 
 def check_pool_by_cost(torch, dev, gen):
@@ -2039,6 +2132,12 @@ def time_stream_kernels(torch, dev, data, sdata, errs):
                "call_ms": call_ms, "plain_call_ms": plain_call,
                "device_launches": launches,
                "shape": [CPM_N] if name == "activate" else [CPM_R, CPM_N]}
+        if name == "shift_range":
+            # per-row bounds: each row's own live end, as a batched
+            # device's moves take them
+            hi = data["ul"] - 1
+            rec["per_row_ms"] = timed(lambda: ck.shift_range(xi, p[0], hi,
+                                                             1), 20)[0]
         if name == "template_match":
             rec["m"] = 64
             for m in (4, 16):
@@ -2142,7 +2241,7 @@ def main(argv=None) -> int:
     from repro_torch.cpm import tuning
     tuning.clear(in_process_only=False)
     record["cost_model"] = check_cost_model(torch, np, dev, data, card)
-    costed_counts, record["generate_by_cost"] = check_generate_by_cost(
+    by_cost, record["generate_by_cost"] = check_generate_by_cost(
         torch, dev, gen, card)
     pool2_counts = check_pool_by_cost(torch, dev, gen)
     del gen, params
@@ -2155,7 +2254,10 @@ def main(argv=None) -> int:
     paths = {"generate": gen_counts, "pool": pool_counts, "cpm": cpm_counts,
              "allocator": alloc_counts, "cpm2": cpm2_counts,
              "streams": s_counts["streams"], "rows": s_counts["rows"],
-             "generate_by_cost": costed_counts, "pool_by_cost": pool2_counts}
+             "generate_by_cost": by_cost["calibrated"],
+             "generate_fused": by_cost["fused"],
+             "generate_eager": by_cost["eager"],
+             "pool_by_cost": pool2_counts}
     for k in kernels:
         # each kernel's count on the newest path that runs it (the pool for
         # the serving kernels, phase 7, 8 or 9 for the per-op ones)

@@ -14,9 +14,11 @@ Every method is a recordable instruction (``repro_torch.cpm.program``):
 inside ``with record() as prog:`` the call is appended to the program
 and still returns its eager value.  The in-place move ops (shift,
 insert, delete) take a scalar ``used_len`` per call; batched devices
-with per-row lengths run them through the program executor, which
-replays row by row.  Every op runs on either backend: on ``cuda`` one
-kernel call each, a batched ``(*batch, n)`` layout included
+with per-row lengths run them through the program executor, which on
+``cuda`` moves every row in one ``shift_range`` call (per-row bounds)
+and on the reference replays row by row.  Every op runs on either
+backend: on ``cuda`` one kernel call each, a batched ``(*batch, n)``
+layout included
 (``activate``; ``shift`` / ``insert`` / ``delete`` on ``shift_range``;
 ``compare`` / ``count``; ``substring_match`` / ``find_all``;
 ``histogram``; ``template_match``; ``stencil``; the §7-§8 reductions;

@@ -15,9 +15,9 @@
 forced backend that cannot realize an op raises, and ``"auto"`` picks the
 reference for any op the kernel backend lacks.  ``"auto"`` sends rows to
 the kernels only when they lie on a GPU and are at least
-:func:`cuda_min_n` lanes long: a crossover measured on the card and kept
-in the tuning cache, else the JAX package's static ``PALLAS_MIN_N``
-(:data:`CUDA_MIN_N`).
+:func:`cuda_min_n` lanes long: a crossover that :func:`measure_crossover`
+measured on the card and kept in the tuning cache, else the JAX
+package's static ``PALLAS_MIN_N`` (:data:`CUDA_MIN_N`).
 """
 
 from __future__ import annotations
@@ -82,10 +82,11 @@ def get_backend(name: str) -> Backend:
 def cuda_min_n(op: str | None = None, device=None) -> int:
     """Minimum last-axis length for ``auto`` routing to the kernels.
 
-    Consults the tuning cache for a *measured* reference/cuda crossover
-    on ``device``'s card (default ``cuda``) — ``xover:<op>:<backend key>``
-    per op first, then the pooled ``xover:*:<backend key>`` — and falls
-    back to the static :data:`CUDA_MIN_N` (JAX ``pallas_min_n``)."""
+    Consults the tuning cache for the reference/cuda crossover that
+    :func:`measure_crossover` measured on ``device``'s card (default
+    ``cuda``) — ``xover:<op>:<backend key>`` per op first, then the
+    pooled ``xover:*:<backend key>`` — and falls back to the static
+    :data:`CUDA_MIN_N` (JAX ``pallas_min_n``)."""
     from .. import tuning
     bk = tuning.backend_key(torch.device("cuda") if device is None
                             else device)
@@ -94,6 +95,52 @@ def cuda_min_n(op: str | None = None, device=None) -> int:
         if n is not None:
             return int(n)
     return CUDA_MIN_N
+
+
+#: the ops :func:`measure_crossover` times (the JAX package's crossover
+#: sweep, ``benchmarks/run.py``), at its row lengths and on to the paper
+#: benchmark's 1,048,576, so that "never" means never up to there
+XOVER_OPS = ("compare", "section_sum")
+XOVER_SIZES = (256, 1024, 4096, 16384, 65536, 262144, 1 << 20)
+_XOVER_CALLS = {"compare": lambda a: a.compare(8, "lt"),
+                "section_sum": lambda a: a.section_sum()}
+
+
+def measure_crossover(device=None, ops=XOVER_OPS, sizes=XOVER_SIZES,
+                      reps: int = 5) -> dict:
+    """Measure where the kernels start to beat the reference on
+    ``device`` (default: the card) and store it for :func:`cuda_min_n`.
+
+    Per op, the first of ``sizes`` at which one ``cuda`` call on a row of
+    random int32 symbols is no slower than one ``reference`` call on the
+    same row (``2**30`` where none is) goes to ``xover:<op>:<backend
+    key>``, and the largest of those to the pooled ``xover:*:<backend
+    key>``, as the JAX package's sweep does.  Returns ``{op: n, "*":
+    pooled}``."""
+    from repro_torch import resolve_device
+
+    from .. import tuning
+    from ..array import cpm_array
+
+    dev = resolve_device(device)
+    bk = tuning.backend_key(dev)
+    g = torch.Generator().manual_seed(2)
+    found = {}
+    for op in ops:
+        call, found[op] = _XOVER_CALLS[op], 1 << 30
+        for n in sizes:
+            data = torch.randint(0, 16, (n,), generator=g,
+                                 dtype=torch.int32).to(dev)
+            t = {b: tuning.time_call(
+                lambda b=b: call(cpm_array(data, backend=b)), reps=reps)
+                for b in ("reference", "cuda")}
+            if t["cuda"] <= t["reference"]:
+                found[op] = n
+                break
+        tuning.store(f"xover:{op}:{bk}", found[op])
+    found["*"] = max(found[op] for op in ops)
+    tuning.store(f"xover:*:{bk}", found["*"])
+    return found
 
 
 def auto_name(is_cuda: bool, n: int, min_n: int = CUDA_MIN_N) -> str:

@@ -144,7 +144,9 @@ def calibrate(device) -> CostParams:
 
 def params_for(device) -> CostParams:
     """The coefficients for ``device``'s backend key: tuning-cache hit,
-    else a fresh calibration (spilled), else the priors."""
+    else a fresh calibration (spilled), else the priors.  A probe the
+    wrappers refuse (``ValueError`` / ``TypeError``) prices with the
+    priors; a failed kernel build or launch (``RuntimeError``) raises."""
     key = f"calib:{tuning.backend_key(device)}"
     cached = tuning.lookup(key)
     if isinstance(cached, dict):
@@ -158,7 +160,7 @@ def params_for(device) -> CostParams:
         return roofline_params()
     try:
         params = calibrate(device)
-    except (ValueError, TypeError, RuntimeError):
+    except (ValueError, TypeError):
         return roofline_params()
     tuning.store(key, params.as_dict())
     return params
@@ -203,11 +205,17 @@ def group_cost(instructions, rows: int, n: int, itemsize: int,
 FUSE_MARGIN = 0.85
 
 #: when a *calibrated* prediction lands in this fused/eager ratio band,
-#: the fit's noise exceeds the predicted gap — settle the verdict by
-#: timing the actual group both ways on synthesized inputs instead
-#: (cached per (op-stream, shape, dtype, backend key)).  Priors and
-#: explicit overrides are never second-guessed.
-MEASURE_BAND = (0.5, 1.5)
+#: settle the verdict by timing the actual group both ways on synthesized
+#: inputs instead (cached per (op-stream, shape, dtype, backend key)).
+#: JAX's band is (0.5, 1.5): there only a near-tie is within the fit's
+#: noise.  The port's is every ratio: its calibrated intercepts are the
+#: host's dispatch times, which differ per op and per operand, so the
+#: fit's ratio is no guide for a group unlike the probe (on an NVIDIA
+#: H100 80GB HBM3 at 700 W, chip_smoke.py: the probe fit L_e 289 us and
+#: L_f 759 us, while the generate commit took 808 us a call eager and 210
+#: us fused; PERF.md §6).  Priors and explicit overrides are never
+#: second-guessed.
+MEASURE_BAND = (0.0, float("inf"))
 _MEASURE_REPS = 3
 
 
@@ -226,7 +234,8 @@ def _measured_fuse(instructions, lead, n: int, dtype,
                    device) -> dict | None:
     """Time the run fused vs eager on a synthesized device of the real
     geometry; returns the verdict dict or None (a miss while tuning is off
-    or nothing is measurable, or a measurement that failed)."""
+    or nothing is measurable, or a group the wrappers refuse at this
+    geometry; a failed build or launch raises)."""
     from .ir import CPMProgram
 
     sig = "+".join(i.op for i in instructions)
@@ -249,7 +258,7 @@ def _measured_fuse(instructions, lead, n: int, dtype,
         t_fused, t_eager = _timed_both(
             prog, tuning.synth((*lead, n), dtype, device), used,
             _MEASURE_REPS)
-    except (ValueError, TypeError, RuntimeError):
+    except (ValueError, TypeError):
         return None
     verdict = {"fuse": bool(t_fused <= t_eager),
                "fused_us": t_fused * 1e6, "eager_us": t_eager * 1e6}
@@ -262,9 +271,10 @@ def decide(instructions, rows: int, n: int, itemsize: int,
            device=None) -> dict:
     """The scheduler's per-run verdict, recorded in the FusionGroup.
 
-    Model-predicted from ``params``; a borderline *calibrated* prediction
-    (ratio inside ``MEASURE_BAND``) is settled by direct measurement when
-    the caller supplies ``dtype`` / ``device`` — see ``_measured_fuse``.
+    Model-predicted from ``params``; a *calibrated* prediction (ratio
+    inside ``MEASURE_BAND``: on the port, any) is settled by direct
+    measurement when the caller supplies ``dtype`` / ``device`` — see
+    ``_measured_fuse``.
     """
     fused_s, eager_s = group_cost(instructions, rows, n, itemsize, params)
     verdict = {"fuse": bool(fused_s <= FUSE_MARGIN * eager_s),

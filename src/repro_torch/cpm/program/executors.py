@@ -63,7 +63,9 @@ _RANKS: dict[str, dict[str, int]] = {
 }
 
 #: move ops read ``used_len`` inside roll/select masks — their unbatched
-#: lowerings are only row-correct, so batched devices always replay rows
+#: lowerings are only row-correct, so batched devices replay rows, except
+#: on the cuda backend, whose ``shift_range`` takes per-row bounds
+#: (:func:`_apply_moves`)
 _ROWWISE_ALWAYS = frozenset({"shift", "insert", "delete"})
 
 _TRANSFORMS = frozenset({"shift", "insert", "delete", "truncate"})
@@ -100,8 +102,9 @@ def apply_instruction(arr, instr: ir.Instruction, backend: str | None = None):
     kernel at all replays on the reference (per-op pin compatibility);
     on a forced ``cuda`` backend every other op runs its per-op kernel
     (``count`` through ``compare``, ``insert`` / ``delete`` / ``shift``
-    through ``shift_range``), and a backend that lacked one would raise:
-    a forced kernel backend never substitutes another realization."""
+    through ``shift_range``, one call over a batched device's rows), and
+    a backend that lacked one would raise: a forced kernel backend never
+    substitutes another realization."""
     bk = backend or arr.backend
     spec = OP_TABLE.get(_DERIVED.get(instr.op, instr.op))
     if bk not in ("reference", "auto") and spec is not None \
@@ -109,11 +112,73 @@ def apply_instruction(arr, instr: ir.Instruction, backend: str | None = None):
         bk = "reference"
     a = dataclasses.replace(arr, backend=bk)
     lead = arr.batch_shape
+    if lead and instr.op in _ROWWISE_ALWAYS and _moves_at_once(a, instr):
+        return _apply_moves(a, instr)
     if lead and (instr.op in _ROWWISE_ALWAYS
                  or _per_row_operands(instr, lead)):
         return _apply_rows(a, instr)
     with ir.suspended():
         return getattr(a, instr.op)(**instr.operands)
+
+
+def _moves_at_once(a, instr: ir.Instruction) -> bool:
+    """Whether a move on batched ``a`` runs as one ``shift_range`` call:
+    on the cuda backend (``auto`` as it resolves for the op), unless
+    ``shift`` carries a per-row fill, which the kernel takes as one
+    element."""
+    bk = a.backend
+    if bk == "auto":
+        bk = B.auto_backend_name(a.data, instr.op)
+    return bk == "cuda" and not (
+        instr.op == "shift"
+        and _is_per_row(instr.operands.get("fill"), 0, a.batch_shape))
+
+
+def _apply_moves(a, instr: ir.Instruction):
+    """One move on every row of batched ``a`` in one ``shift_range``
+    call: per-row ``start`` / ``end`` (``used_len - 1`` of each row for
+    ``insert`` / ``delete``) as ``(R,)`` bounds, then the same window
+    write / tail fill as ``CPMArray.insert`` / ``delete`` per row, so the
+    bits equal the row replay's."""
+    lead, n, dev = a.batch_shape, a.n, a.device
+    r = math.prod(lead)
+    data = a.data.reshape(r, n)
+    ul = asarray(a.used_len, torch.int32, dev).expand(lead).reshape(r)
+    ops = instr.operands
+    kernels = B.get_backend("cuda")
+
+    def col(v, dtype=torch.int32):           # scalar or per-row -> (r,)
+        return asarray(v, dtype, dev).expand(lead).reshape(r)
+
+    if instr.op == "shift":
+        out = kernels.shift_range(data, col(ops["start"]), col(ops["end"]),
+                                  int(ops["shift"]), ops["fill"])
+        return dataclasses.replace(a, data=out.reshape(*lead, n),
+                                   used_len=ul.reshape(lead))
+    idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+    if instr.op == "insert":
+        values = asarray(ops["values"], a.dtype, dev)
+        k = values.shape[-1]
+        pos = col(ops["pos"])
+        shifted = kernels.shift_range(data, pos, ul - 1, k, None)
+        p = pos[:, None]
+        window = (idx >= p) & (idx < p + k)
+        vals = torch.gather(values.expand(*lead, k).reshape(r, k), 1,
+                            torch.clamp(idx - p, 0, k - 1).long()
+                            .expand(r, n))
+        out = torch.where(window, vals, shifted)
+        new_ul = torch.clamp(ul + k, max=n)
+    else:                                    # delete
+        k = int(ops["k"])
+        shifted = kernels.shift_range(data, col(ops["pos"]) + k, ul - 1, -k,
+                                      None)
+        u = ul[:, None]
+        vacated = (idx >= u - k) & (idx < u)
+        fill = col(ops["fill"], a.dtype)[:, None]
+        out = torch.where(vacated, fill, shifted)
+        new_ul = torch.clamp(ul - k, min=0)
+    return dataclasses.replace(a, data=out.reshape(*lead, n),
+                               used_len=new_ul.reshape(lead))
 
 
 def _apply_rows(a, instr: ir.Instruction):

@@ -169,7 +169,9 @@ def pick(key: str, candidates: list, run: Callable[[Any], Any],
     """Cached argmin-time choice among ``candidates``.
 
     ``run(c)`` executes one candidate on synthesized inputs; a candidate
-    that raises (invalid for the shape) is disqualified.  With tuning
+    that the kernel's wrapper refuses for the shape (``ValueError`` /
+    ``TypeError``) is disqualified, while a failed build or launch
+    (``RuntimeError``) propagates.  With tuning
     off, where nothing is :func:`measurable`, or with every candidate
     failing, returns ``default`` without caching, so the decision can be
     made later under better conditions."""
@@ -182,7 +184,7 @@ def pick(key: str, candidates: list, run: Callable[[Any], Any],
     for c in candidates:
         try:
             t = time_call(lambda: run(c), reps=reps)
-        except (ValueError, TypeError, RuntimeError):
+        except (ValueError, TypeError):
             continue
         if t < best_t:
             best, best_t = c, t

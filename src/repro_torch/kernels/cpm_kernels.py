@@ -1147,9 +1147,15 @@ def activate_plain(n: int, start, end, carry=1, *, device=None):
 
 def activate(n: int, start, end, carry=1, *, device=None):
     """Rule-4 activation mask of length ``n`` -> ``(n,)`` bool on
-    ``device`` (default: where the scalars lie, else the CPU): one
-    ``csrc/activate.cu`` launch for a CUDA device (counted in
-    ``activate.launches``), the plain twin on the CPU."""
+    ``device`` (default: where a tensor scalar lies, else the card, as
+    every entry point: ``repro_torch.resolve_device``, which raises
+    without one): one ``csrc/activate.cu`` launch for a CUDA device
+    (counted in ``activate.launches``), the plain twin on the CPU."""
+    if device is None and not any(isinstance(v, torch.Tensor)
+                                  for v in (start, end, carry)):
+        from repro_torch import resolve_device
+
+        device = resolve_device(None)
     dev = _scalar_device(device, start, end, carry)
     if dev.type == "cpu":
         return activate_plain(n, start, end, carry, device=dev)
@@ -1190,16 +1196,38 @@ def _static_shift(shift) -> int:
     return shift
 
 
+def _shift_bounds(x, start, end):
+    """``start`` / ``end`` as the kernel reads them: one int32 ``(1, 2)``
+    pair for every row, or an ``(R, 2)`` pair a row where either is an
+    ``(R,)`` tensor (per-row bounds, e.g. a batched device's per-row
+    ``used_len - 1``).  Returns ``(pairs, per_row)``."""
+    from repro_torch.cpm._tensor import asarray
+
+    r = x.shape[0] if x.ndim == 2 else 1
+    s, e = (asarray(v, torch.int32, x.device) for v in (start, end))
+    s, e = (v.reshape(()) if v.numel() == 1 else v for v in (s, e))
+    if s.ndim == 0 and e.ndim == 0:
+        return torch.stack([s, e]).reshape(1, 2).contiguous(), False
+    for v in (s, e):
+        if v.ndim > 1 or (v.ndim == 1 and (x.ndim != 2 or len(v) != r)):
+            raise ValueError(f"shift_range: start / end must be scalars or "
+                             f"({r},) per-row bounds for rows of shape "
+                             f"{tuple(x.shape)}, got shape {tuple(v.shape)}")
+    return torch.stack([s.expand(r), e.expand(r)], dim=1).contiguous(), True
+
+
 def shift_range_plain(x, start, end, shift: int = 1, fill=None):
     """§4.1 move of lanes ``[start, end]`` of every ``(R, N)`` row by a
     static ``shift``, as the TPU kernel: ``_shift_vals`` with the fill
     cast to ``x.dtype``; vacated lanes keep their content unless ``fill``
-    is given, content crossing the row ends is dropped."""
+    is given, content crossing the row ends is dropped.  ``start`` /
+    ``end`` are scalars or ``(R,)`` per-row bounds."""
     n = x.shape[-1]
-    se = _scalars(x.device, start, end)
+    se, per_row = _shift_bounds(x, start, end)
+    lo, hi = (se[:, 0:1], se[:, 1:2]) if per_row else (se[0, 0], se[0, 1])
     f = None if fill is None else _shift_fill(x, fill)[0]
     idx = torch.arange(n, dtype=torch.int32, device=x.device)[None, :]
-    return _shift_vals(x, idx, se[0], se[1], _static_shift(shift), n, f)
+    return _shift_vals(x, idx, lo, hi, _static_shift(shift), n, f)
 
 
 def shift_range(x, start, end, shift: int = 1, fill=None):
@@ -1207,8 +1235,9 @@ def shift_range(x, start, end, shift: int = 1, fill=None):
     ``x.dtype``: one ``csrc/shift_range.cu`` launch for CUDA tensors
     (counted in ``shift_range.launches``; rows move as 1-, 2-, 4- or
     8-byte words, so any dtype), the plain twin for CPU tensors.
-    ``start`` / ``end`` may be device tensors: the kernel reads them on
-    the card, so the call never syncs."""
+    ``start`` / ``end`` are scalars or ``(R,)`` per-row bounds, and may be
+    device tensors: the kernel reads them on the card, so the call never
+    syncs, and rows of different bounds still move in one launch."""
     if not _on_card("shift_range", x):
         return shift_range_plain(x, start, end, shift, fill)
     if x.ndim != 2 or not x.is_contiguous():
@@ -1222,15 +1251,15 @@ def shift_range(x, start, end, shift: int = 1, fill=None):
     r, n = x.shape
     if r >= 2 ** 31 or n >= 2 ** 31:
         raise ValueError("shift_range: more than 2**31 rows or lanes")
-    se = _scalars(x.device, start, end)
+    se, per_row = _shift_bounds(x, start, end)
     f = None if fill is None else _shift_fill(x, fill)
     out = torch.empty_like(x)
     if r == 0 or n == 0:
         return out
     P, I = ctypes.c_void_p, ctypes.c_int
     _build.launch("shift_range", "shift_range_launch",
-                  [P, P, P, P, I, I, I, I], x.device, x.data_ptr(),
-                  out.data_ptr(), se.data_ptr(),
+                  [P, P, P, I, P, I, I, I, I], x.device, x.data_ptr(),
+                  out.data_ptr(), se.data_ptr(), 2 if per_row else 0,
                   None if f is None else f.data_ptr(), r, n, shift, size)
     shift_range.launches += 1
     return out

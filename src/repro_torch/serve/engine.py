@@ -66,8 +66,9 @@ class Engine:
     ``convert.params_from_numpy``).  ``cpm_backend`` picks the commit
     path: ``"reference"`` (one scatter) or ``"cuda"`` (the recorded
     commit program scheduled by the cost model: one ``fused_stream``
-    launch a round, or the ``insert`` replayed row by row on
-    ``shift_range``; the plain twins for CPU tensors); by default
+    launch a round, or the eager ``insert``: one ``shift_range`` launch
+    over the rows' own lengths; the plain twins for CPU tensors); by
+    default
     ``cuda`` on a CUDA device, ``reference`` on the CPU.  The session
     pool's token banks follow it."""
 

@@ -8,8 +8,8 @@ The stream is scheduled *cost-aware* (the device geometry is known
 here): on the cuda backend the launch/byte model
 (``repro_torch.cpm.program.costmodel``, calibrated on the card) decides
 per commit whether the pair runs as ONE ``fused_stream`` launch or as
-per-op dispatch (the ``insert`` replayed row by row on the
-``shift_range`` kernel); on the reference backend no decision is made.
+per-op dispatch (the ``insert`` as one ``shift_range`` launch over
+every row's own bounds); on the reference backend no decision is made.
 Either way the instructions — and the committed tokens — are identical.
 """
 

@@ -178,7 +178,11 @@ class TestAgainstJax:
 
     def test_constants_equal_jax(self):
         assert costmodel.FUSE_MARGIN == jcostmodel.FUSE_MARGIN
-        assert costmodel.MEASURE_BAND == jcostmodel.MEASURE_BAND
+        # the port settles every calibrated verdict by measurement: its
+        # band holds JAX's and every other ratio
+        lo, hi = costmodel.MEASURE_BAND
+        jlo, jhi = jcostmodel.MEASURE_BAND
+        assert lo <= min(jlo, 0.0) and hi >= max(jhi, float("inf"))
         assert costmodel._PROBE_SIZES == jcostmodel._PROBE_SIZES
         assert [i.op for i in costmodel._probe_program(64)] == \
             [i.op for i in jcostmodel._probe_program(64)]
@@ -358,8 +362,12 @@ class TestAutotune:
             raise RuntimeError("CUDA error")
 
         assert tuning.pick("t:fail", [1, 2, 3], run, default=9) == 2
-        assert tuning.pick("t:none", [1], broken, default=9) == 9
+        assert tuning.pick("t:none", [1], run, default=9) == 9
         assert tuning.lookup("t:none") is None
+        # a failed build or launch is not a refused shape: it surfaces
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tuning.pick("t:broken", [1, 2], broken, default=9)
+        assert tuning.lookup("t:broken") is None
 
     def test_switches_off_fall_back_uncached(self, isolated_cache,
                                              monkeypatch):
@@ -485,6 +493,62 @@ class TestCalibration:
         for f in src.rglob("*.py"):
             assert "REPRO_CPM_" not in f.read_text(), f
 
+    @pytest.mark.parametrize("exc,surfaces", [(ValueError, False),
+                                              (TypeError, False),
+                                              (RuntimeError, True)])
+    def test_probe_failures(self, isolated_cache, monkeypatch, exc,
+                            surfaces):
+        """A probe the wrappers refuse prices with the priors, uncached; a
+        failed kernel build or launch raises instead of changing the
+        verdict."""
+        def failing(device):
+            raise exc("probe failed")
+
+        monkeypatch.setattr(costmodel, "calibrate", failing)
+        if surfaces:
+            with pytest.raises(exc, match="probe failed"):
+                costmodel.params_for("cpu")
+        else:
+            assert costmodel.params_for("cpu") == roofline_params()
+        assert tuning.lookup("calib:cuda-twin-cpu") is None
+
+    @pytest.mark.parametrize("source,measured", [("calibrated", True),
+                                                 ("override", False),
+                                                 ("roofline", False)])
+    def test_calibrated_verdicts_are_measured(self, source, measured):
+        """A calibrated prediction far from a tie (fused / eager = 10) is
+        still settled by timing the group (the twins here), and cached;
+        priors and overrides keep the model's verdict."""
+        params = CostParams(1e-9, 1e-12, 1e-8, 1e-12, source=source)
+        instrs = (CPMProgram().append("insert", pos=2, values=[5, 6])
+                  .append("truncate", new_len=9).instructions)
+        d = costmodel.decide(instrs, 4, 32, 4, params, lead=(4,),
+                             dtype=torch.int32, device="cpu")
+        assert d["params"] == ("measured" if measured else source)
+        assert bool(tuning.entries("fuse:")) == measured
+        if not measured:
+            assert d["fuse"] is False
+
+    def test_measured_fuse_surfaces_launch_failures(self, monkeypatch):
+        """``_measured_fuse`` (a calibrated near-tie settled by timing)
+        returns None for a group the wrappers refuse and raises on a
+        failed launch."""
+        instrs = (CPMProgram().append("compare", datum=3, op="lt")
+                  .append("activate", start=0, end=7, carry=1)
+                  .instructions)
+        for exc, surfaces in ((ValueError, False), (RuntimeError, True)):
+            def failing(*a, exc=exc, **k):
+                raise exc("launch failed")
+
+            monkeypatch.setattr(costmodel, "_timed_both", failing)
+            if surfaces:
+                with pytest.raises(exc, match="launch failed"):
+                    costmodel._measured_fuse(instrs, (), 64, torch.int32,
+                                             "cpu")
+            else:
+                assert costmodel._measured_fuse(
+                    instrs, (), 64, torch.int32, "cpu") is None
+
     def test_backend_key_names_the_card(self, monkeypatch):
         assert tuning.backend_key("cpu") == "cuda-twin-cpu"
         monkeypatch.setattr(torch.cuda, "get_device_name",
@@ -508,6 +572,28 @@ class TestCudaMinN:
         assert B.cuda_min_n("compare", "cpu") == 1024   # another key
         tuning.clear()
         assert B.cuda_min_n("compare") == 1024
+
+    def test_measured_crossover_is_read_back(self, isolated_cache):
+        """``measure_crossover`` is the producer of the keys ``cuda_min_n``
+        reads: per op, the first size where the kernels (their twins on
+        CPU rows) are no slower than the reference, and the pooled
+        maximum."""
+        sizes = (64, 256)
+        found = B.measure_crossover("cpu", sizes=sizes, reps=1)
+        assert set(found) == {*B.XOVER_OPS, "*"}
+        for op in B.XOVER_OPS:
+            assert found[op] in (*sizes, 1 << 30)
+            assert B.cuda_min_n(op, "cpu") == found[op]
+        assert found["*"] == max(found[op] for op in B.XOVER_OPS)
+        assert B.cuda_min_n(None, "cpu") == found["*"]
+        spilled = json.loads(isolated_cache.read_text())
+        assert spilled["xover:*:cuda-twin-cpu"] == found["*"]
+
+    def test_measure_crossover_defaults_to_the_card(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            B.measure_crossover()
+        assert tuning.entries("xover:") == {}
 
     def test_cpu_rows_stay_on_the_reference(self):
         tuning.store("xover:*:cuda-twin-cpu", 1)

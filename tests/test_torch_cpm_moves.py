@@ -107,7 +107,8 @@ class TestTwinsAgainstPallas:
     def test_activate(self, n, start, end, carry):
         want = JK.activate(n, start, end, carry, interpret=True)
         _same(TK.activate_plain(n, start, end, carry), want)
-        _same(TK.activate(n, start, end, carry), want)      # CPU: the twin
+        _same(TK.activate(n, start, end, carry, device="cpu"),
+              want)                                   # CPU: the twin
 
     @pytest.mark.parametrize("dtype", [np.bool_, np.int8, np.int32,
                                        np.float32, np.float16])
@@ -125,6 +126,36 @@ class TestTwinsAgainstPallas:
         want = JK.shift_range(jnp.asarray(x), start, end, shift, fill,
                               interpret=True)
         _same(TK.shift_range(_t(x), start, end, shift, fill), want)
+
+    @pytest.mark.parametrize("dtype", [np.bool_, np.int8, np.int32,
+                                       np.float32])
+    @pytest.mark.parametrize("shift", [3, -4, 0, 45])
+    def test_shift_range_per_row_bounds(self, dtype, shift):
+        """``(R,)`` per-row bounds move each row as the Pallas kernel
+        moves that row with its own scalars (JAX ``vmap``\\ s the kernel),
+        in one call; a scalar beside a per-row bound broadcasts."""
+        x = _rows((4, 40), dtype, seed=shift & 0xff)
+        starts = np.asarray([5, 0, 30, -3], np.int32)
+        ends = np.asarray([30, 39, 5, 100], np.int32)
+        fill = {np.bool_: True, np.int8: -1, np.int32: 7,
+                np.float32: -0.5}[dtype]
+        for lo, hi, f in ((starts, ends, None), (starts, ends, fill),
+                          (2, ends, fill), (starts, 20, None)):
+            want = np.concatenate([np.asarray(JK.shift_range(
+                jnp.asarray(x[i:i + 1]), int(np.broadcast_to(lo, 4)[i]),
+                int(np.broadcast_to(hi, 4)[i]), shift, f, interpret=True))
+                for i in range(4)])
+            args = [_t(v) if isinstance(v, np.ndarray) else v
+                    for v in (lo, hi)]
+            _same(TK.shift_range_plain(_t(x), *args, shift, f), want)
+            _same(TK.shift_range(_t(x), *args, shift, f), want)
+
+    def test_shift_range_bounds_shape(self):
+        x = _t(np.zeros((3, 8), np.int32))
+        with pytest.raises(ValueError, match="per-row bounds"):
+            TK.shift_range(x, _t(np.zeros(2, np.int32)), 5, 1)
+        with pytest.raises(ValueError, match="per-row bounds"):
+            TK.shift_range(x, 0, _t(np.zeros((3, 1), np.int32)), 1)
 
     @pytest.mark.parametrize("fill", [300, -129, 2 ** 31 - 1])
     def test_shift_fill_casts_as_the_kernel(self, fill):
@@ -227,9 +258,10 @@ class TestCPMArray:
                                     "shift_fill", "template", "stencil",
                                     "activate"])
     def test_batched_ragged_rows_replay_like_jax(self, op):
-        """A (3, N) device with per-row lengths: the executor replays the
-        moves row by row (JAX vmaps), the others in one call; equal to
-        JAX pallas, and to the port's reference."""
+        """A (3, N) device with per-row lengths: the executor runs the
+        moves in one ``shift_range`` call with per-row bounds on ``cuda``
+        and row by row on the reference (JAX vmaps), the others in one
+        call; equal to JAX pallas, and to the port's reference."""
         x = np.stack([_DATA, _DATA[::-1], (_DATA * 3) % 7]).astype(np.int32)
         used = np.asarray([_N, 30, 5], np.int32)
         method, args = _OPS[op]
@@ -285,6 +317,57 @@ class TestExecutor:
         want = apply_instruction(dev, instr, backend="reference")
         for g, w in zip(_result(got), _result(want)):
             _same(g, w.numpy())
+
+
+    @pytest.mark.parametrize("op,kw,calls", [
+        ("insert", dict(pos=[3, 0, 5], values=[[5, 6], [7, 8], [9, 1]]), 1),
+        ("insert", dict(pos=4, values=[5, 6, 7]), 1),
+        ("delete", dict(pos=[3, 1, 2], k=2, fill=[0, -1, 9]), 1),
+        ("shift", dict(start=[2, 0, 4], end=[30, 9, 40], shift=-2,
+                       fill=-1), 1),
+        ("shift", dict(start=2, end=30, shift=3, fill=[1, 2, 3]), 3)])
+    def test_batched_moves_are_one_kernel_call(self, op, kw, calls,
+                                               monkeypatch):
+        """On ``cuda`` a move on a (3, N) device with per-row lengths is
+        ONE ``shift_range`` call with ``(R,)`` bounds (a per-row ``shift``
+        fill, which the kernel takes as one element, replays rows), equal
+        to the reference backend's row replay."""
+        seen = []
+        inner = TK.shift_range
+
+        def counted(*a, **k):
+            seen.append(1)
+            return inner(*a, **k)
+
+        monkeypatch.setattr(TK, "shift_range", counted)
+        x = np.stack([_DATA, _DATA[::-1], (_DATA * 3) % 7]).astype(np.int32)
+        used = _t(np.asarray([_N, 30, 5], np.int32))
+        instr = CPMProgram().append(op, **{
+            k: _t(np.asarray(v, np.int32)) if isinstance(v, list) else v
+            for k, v in kw.items()}).instructions[0]
+        got = apply_instruction(
+            cpm_array(_t(x), used, backend="cuda", device="cpu"), instr)
+        assert len(seen) == calls
+        want = apply_instruction(
+            cpm_array(_t(x), used, backend="reference", device="cpu"),
+            instr)
+        for g, w in zip(_result(got), _result(want)):
+            _same(g, w.numpy())
+
+
+class TestActivateDevice:
+    def test_activate_without_a_device_goes_to_the_card(self,
+                                                         monkeypatch):
+        """``activate(n, start, end)`` with Python scalars and no device
+        resolves to the card (``repro_torch.resolve_device``) and raises
+        without one; tensor scalars keep their device."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            TK.activate(8, 0, 3)
+        want = TK.activate_plain(8, 0, 3, 1)
+        _same(TK.activate(8, 0, 3, device="cpu"), want.numpy())
+        p = torch.tensor([0, 3, 1], dtype=torch.int32)
+        _same(TK.activate(8, p[0], p[1], p[2]), want.numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +470,45 @@ class TestKernelsOnCard:
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
         with pytest.raises(ValueError, match="at most"):
             TK.stencil(x, (1.0,) * (TK.STENCIL_MAX_TAPS + 1))
+
+    @pytest.mark.parametrize("dtype", [torch.int8, torch.int32,
+                                       torch.float32])
+    def test_shift_range_per_row_bounds(self, cuda_device, dtype):
+        g = torch.Generator(device=cuda_device).manual_seed(5)
+        x = torch.randint(-100, 100, (5, 3001), generator=g,
+                          device=cuda_device).to(dtype)
+        lo = torch.tensor([0, 7, 2999, -4, 1500], dtype=torch.int32,
+                          device=cuda_device)
+        hi = torch.tensor([3000, 6, 3005, 100, 2000], dtype=torch.int32,
+                          device=cuda_device)
+        ops.reset_launch_counts()
+        for shift, fill in ((2, None), (-3, -1), (0, 1), (3001, None)):
+            got = TK.shift_range(x, lo, hi, shift, fill)
+            want = TK.shift_range_plain(x, lo, hi, shift, fill)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.uint8),
+                               want.view(torch.uint8)), shift
+        assert ops.launch_counts()["shift_range"] == 4
+
+    def test_moves_on_per_row_lengths_launch_once(self, cuda_device):
+        """Per-row lengths through the executor, on rows the fused kernel
+        cannot hold: each move is one ``shift_range`` launch over all
+        rows, equal to the reference backend's row replay."""
+        # rows longer than fused_stream holds (29,056 int32 lanes), so the
+        # program replays per op
+        x = torch.arange(4 * 30000, dtype=torch.int32,
+                         device=cuda_device).reshape(4, 30000) % 97
+        ul = torch.tensor([30000, 29990, 17, 0], dtype=torch.int32,
+                          device=cuda_device)
+        prog = (CPMProgram().append("insert", pos=700, values=[7, 8])
+                .append("delete", pos=5, k=2, fill=-1))
+        ops.reset_launch_counts()
+        got = prog.run(cpm_array(x, ul, backend="cuda"))[0]
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["shift_range"] == 2
+        want = prog.run(cpm_array(x, ul, backend="reference"))[0]
+        assert torch.equal(got.data, want.data)
+        assert torch.equal(got.used_len, want.used_len)
 
     def test_moves_through_cpm_array_launch_once(self, cuda_device):
         """A batched device with a scalar length: each move is one
