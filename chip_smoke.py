@@ -7,11 +7,15 @@
 Phases, in order; any failure exits non-zero:
 
   1. build every CUDA kernel of ``src/repro_torch/csrc`` (one nvcc each,
-     all started together);
+     all started together) and print the registers, static shared memory
+     and spills ``-Xptxas -v`` reports for the sort's and flash
+     attention's kernels;
   2. hold each kernel against its plain PyTorch twin on the card, at the
      main paths' shapes, and time kernel, twin and the one PyTorch call
      that computes the same function where there is one
-     (``scaled_dot_product_attention``; ``index_select`` for
+     (``scaled_dot_product_attention`` with ``enable_gqa``, and pinned
+     to its flash backend on K/V repeated outside the timing, each with
+     the kernels it ran; ``index_select`` for
      ``gather_rows``, ``index_copy_`` on a clone for ``scatter_rows``):
      device time from ``torch.profiler`` (CUDA events when it records
      none) and per-call time with events;
@@ -70,13 +74,18 @@ Phases, in order; any failure exits non-zero:
      and float32 rows (subnormals planted, one row with NaN), a bounded
      one of ``optimal_section(16,384) = 128`` cycles, and the bounded local
      phase of 1024 cycles on phase 7's (64, 1,048,576) int rows (halo
-     tiles).  Each result against the kernel's twin (bit for bit; float
+     tiles); after the counted path, a full sort of those long rows (the
+     bitonic route) against ``torch.sort(...).values`` and, on three
+     rows, ``np.sort`` (its twin, 2^20 cycles deep, is not run).  Each
+     result against the kernel's twin (bit for bit; float
      sums within 1e-5 x sum|x| of NumPy), match addresses against the
      reference backend and NumPy, integer super sums against
      ``section_sum``, limits against ``global_limit``, full sorts against
      ``np.sort`` on rows without NaN; every kernel twice, bit for bit;
      ``backend="auto"`` the same launches, none on an 8-lane row.  The
-     five kernels are timed at these shapes;
+     five kernels are timed at these shapes, the full sorts (16,384 and
+     1,048,576 lanes) beside ``torch.sort``, with the device launches of
+     each sort call (``torch.profiler``);
   9. instruction streams priced by cost, on phase 7's rows: with a scalar
      ``used_len = N - 7`` (each op one launch, counted), ``activate``,
      ``shift`` (with and without a fill, negative), ``insert`` and
@@ -192,16 +201,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def kernel_ms(fn, iters: int = 20):
-    """Mean device time per call of ``fn`` by kernel name, from
-    ``torch.profiler`` (CUPTI): the CUDA kernels (and copies) it launches.
-    Host gaps between launches are excluded, so a wrapper whose Python
-    side is slower than its kernel is not charged for it.  The profiler
-    was seen on the H100 to lose kernel records (14 to 19 of 20 in one
-    window), so a first (warm-up) window of ``iters`` calls is discarded,
-    and a window whose record count of some kernel is not a multiple of
-    ``iters`` is measured again, up to three times.  None when the
-    profiler records no device activity or no window was whole."""
+def _profile(fn, iters: int):
+    """``torch.profiler``'s device records of ``iters`` calls of ``fn``:
+    (key, count, self device ms) a kernel name.  The profiler was seen on
+    the H100 to lose kernel records (14 to 19 of 20 in one window), so a
+    first (warm-up) window of ``iters`` calls is discarded, and a window
+    whose record count of some kernel is not a multiple of ``iters`` is
+    measured again, up to three times.  None when the profiler records no
+    device activity or no window was whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -228,8 +235,65 @@ def kernel_ms(fn, iters: int = 20):
     for ev in evs:
         m = re.search(r"::(\w+)[<(]", ev.key)
         name = m.group(1) if m else ev.key[:40]
-        out[name] = (out.get(name, 0.0)
-                     + ev.self_device_time_total / 1e3 / iters)
+        n, t = out.get(name, (0, 0.0))
+        out[name] = (n + ev.count, t + ev.self_device_time_total / 1e3)
+    return out
+
+
+def kernel_ms(fn, iters: int = 20):
+    """Mean device time per call of ``fn`` by kernel name, from
+    ``torch.profiler`` (CUPTI, :func:`_profile`): the CUDA kernels (and
+    copies) it launches.  Host gaps between launches are excluded, so a
+    wrapper whose Python side is slower than its kernel is not charged for
+    it.  None where the profiler has no whole window."""
+    recs = _profile(fn, iters)
+    return None if recs is None else {
+        name: t / iters for name, (_, t) in recs.items()}
+
+
+def device_launches(fn, iters: int = 5):
+    """Device activities (kernels, memsets) one call of ``fn`` puts on the
+    card, by name (:func:`_profile`); None where the profiler has no whole
+    window."""
+    recs = _profile(fn, iters)
+    return None if recs is None else {
+        name: n // iters for name, (n, _) in recs.items()}
+
+
+def ptxas_report(build, names=("oddeven_sort", "flash_attention")):
+    """Registers, static shared memory and spills of every kernel of the
+    named sources, from their ``-Xptxas -v`` build logs: one entry a
+    kernel instantiation (its mangled name cut to the kernel's name and
+    template numbers)."""
+    out = {}
+    for src in names:
+        kern = None
+        for line in build.build_log(src).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                mangled = m.group(1)
+                base = re.search(r"(flash_fwd_\w+?_kernel|oddeven_pass|"
+                                 r"bitonic_tile|bitonic_stride|nan_rows)",
+                                 mangled)
+                name = base.group(1) if base else mangled[:40]
+                args = re.findall(r"Li(\d+)E|(\w\d+T|BoolT)",
+                                  mangled[base.end():] if base else "")
+                kern = "%s/%s<%s>" % (src, name, ",".join(
+                    a or b for a, b in args[:2]))
+                out[kern] = {}
+                continue
+            if kern is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                out[kern]["spill_stores"] = int(m.group(1))
+                out[kern]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[kern]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                out[kern]["static_smem"] = int(sm.group(1)) if sm else 0
     return out
 
 
@@ -307,13 +371,29 @@ def check_flash(torch, dev, record):
                                                         causal=True), 20)
     plain_ms, _, plain_call = timed(
         lambda: fa.flash_attention_plain(q, k, v, causal=True), 5)
+    # two SDPA yardsticks: the same inputs with enable_gqa (the backend
+    # PyTorch picks), and the flash backend pinned on K/V repeated to H
+    # heads outside the timing; the kernels each ran are printed
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    try:                        # the same inputs; enable_gqa needs >= 2.5
-        lib_ms, _, _ = timed(lambda: sdpa(q, k, v, is_causal=True,
-                                          enable_gqa=True), 20)
-    except TypeError:           # older torch: kv repeated outside the timing
-        kr, vr = (t.repeat_interleave(h // kvh, dim=1) for t in (k, v))
-        lib_ms, _, _ = timed(lambda: sdpa(q, kr, vr, is_causal=True), 20)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def gqa():
+        return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+
+    lib_ms, _, _ = timed(gqa, 20)
+    lib_kernels = kernel_ms(gqa, 20)
+    kr, vr = (t.repeat_interleave(h // kvh, dim=1) for t in (k, v))
+
+    def pinned():
+        return sdpa(q, kr, vr, is_causal=True)
+
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        flash_lib_ms, _, _ = timed(pinned, 20)
+        flash_lib_kernels = kernel_ms(pinned, 20)
+    print(f"flash_attention yardsticks: SDPA enable_gqa {lib_ms:.4f} ms on "
+          f"{lib_kernels}; SDPA pinned to FLASH_ATTENTION, K/V repeated "
+          f"outside the timing, {flash_lib_ms:.4f} ms on "
+          f"{flash_lib_kernels}")
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())   # q, k, v, out
     pairs = s * (s + 1) // 2                                # causal
     flops = 4.0 * d * pairs * b * h
@@ -325,7 +405,13 @@ def check_flash(torch, dev, record):
             "max_abs_err": worst["bfloat16", True, None],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": lib_ms, "ms_source": src,
-            "call_ms": call_ms, "plain_call_ms": plain_call}
+            "call_ms": call_ms, "plain_call_ms": plain_call,
+            "library_call": "scaled_dot_product_attention(enable_gqa=True)",
+            "library_kernels": lib_kernels,
+            "library_flash_pinned_ms": flash_lib_ms,
+            "library_flash_pinned_kernels": flash_lib_kernels,
+            "device_launches": device_launches(
+                lambda: fa.flash_attention(q, k, v, causal=True))}
 
 
 def _nine_op_stream(np, r, n, dtype, per_row, seed):
@@ -1468,6 +1554,22 @@ def check_cpm_ops2(torch, np, dev, data):
         f"{LONG_SORT_STEPS} cycles on ({CPM_R}, {CPM_N}) int32 rows "
         f"(halo tiles), cycle for cycle with the twin")
 
+    # the full sort of phase 7's (64, 2^20) rows on the bitonic route: its
+    # twin is 2^20 cycles deep and is not run
+    x = sort_in["long"]
+    full_long = ck.oddeven_sort(x)
+    hold("oddeven_sort", torch.equal(full_long, torch.sort(x, -1).values),
+         0.0, f"full sort of ({CPM_R}, {CPM_N}) int32 rows, equal to "
+         f"torch.sort(...).values")
+    for r in (0, CPM_R // 2, CPM_R - 1):
+        if not np.array_equal(full_long[r].cpu().numpy(),
+                              np.sort(x[r].cpu().numpy())):
+            fail(f"full sort of a ({CPM_R}, {CPM_N}) row {r} differs from "
+                 f"np.sort")
+    print(f"full sort of ({CPM_R}, {CPM_N}) int32 rows: np.sort held on "
+          f"rows 0, {CPM_R // 2}, {CPM_R - 1}")
+    del full_long
+
     # determinism: every kernel twice on the path's inputs
     for name, fn in (("substring_match",
                       lambda: ck.substring_match(xq, needles[8])),
@@ -1478,7 +1580,9 @@ def check_cpm_ops2(torch, np, dev, data):
                      ("oddeven_sort", lambda: ck.oddeven_sort(
                          sort_in["float"])),
                      ("oddeven_sort", lambda: ck.oddeven_sort(
-                         sort_in["long"], LONG_SORT_STEPS))):
+                         sort_in["long"], LONG_SORT_STEPS)),
+                     ("oddeven_sort", lambda: ck.oddeven_sort(
+                         sort_in["long"]))):
         a, b = fn(), fn()
         hold(name, torch.equal(_bits(torch, a), _bits(torch, b)), 0.0,
              "run twice, bit-identical")
@@ -1506,6 +1610,17 @@ def check_cpm_ops2(torch, np, dev, data):
                           "mfl": torch.where(live, xf, -float("inf")),
                           "sort_in": sort_in, "path_s": path_s,
                           "steps": steps}
+
+
+def _bitonic_bound(r: int, n: int) -> float:
+    """The bitonic network's own bound: R * P/2 * p(p+1)/2
+    compare-exchanges of two operations each over rows padded to
+    P = 2^p lanes, at the float32 rate."""
+    from repro_torch.kernels import cpm_kernels as ck
+
+    pad, tile, _, passes = ck.bitonic_plan(r, n)
+    steps = sum(1 for _ in ck.bitonic_steps(passes, tile))
+    return bound(0, 2.0 * r * (pad // 2) * steps, F32_OPS_PER_S)[0]
 
 
 def time_cpm2_kernels(torch, dev, data, errs, card):
@@ -1599,9 +1714,17 @@ def time_cpm2_kernels(torch, dev, data, errs, card):
             steps = data["steps"]
             rec["shape"] = [SORT_R, SORT_N]
             rec["library_call"] = "torch.sort(...).values"
-            rec["network_bound_ms"] = bound(
+            # the bitonic network's own compare-exchanges (2 operations
+            # each), and the odd-even network's that it replaces
+            rec["network_bound_ms"] = _bitonic_bound(SORT_R, SORT_N)
+            rec["oddeven_network_bound_ms"] = bound(
                 0, 2.0 * SORT_R * SORT_N * -(-SORT_N // 2),
                 F32_OPS_PER_S)[0]
+            xf = data["sort_in"]["float"]
+            rec["float_nan_row"] = {
+                "ms": timed(lambda: ck.oddeven_sort(xf), 5)[0],
+                "device_launches": device_launches(
+                    lambda: ck.oddeven_sort(xf), 2)}
             rec["bounded"] = {
                 "steps": steps,
                 "ms": timed(lambda: ck.oddeven_sort(xs, steps), 20)[0],
@@ -1610,7 +1733,20 @@ def time_cpm2_kernels(torch, dev, data, errs, card):
                 "bound_ms": bound(2 * xs.numel() * 4, 2.0 * SORT_R * steps
                                   * -(-SORT_N // 2), F32_OPS_PER_S)[0],
                 "library_ms": None}
+            rec["bounded"]["device_launches"] = device_launches(
+                lambda: ck.oddeven_sort(xs, steps))
             xl = data["sort_in"]["long"]
+            rec["long_full"] = {
+                "shape": [CPM_R, CPM_N],
+                "ms": timed(lambda: ck.oddeven_sort(xl), 5)[0],
+                "library_ms": timed(lambda: torch.sort(xl, -1).values,
+                                    5)[0],
+                "bound_ms": bound(2 * xl.numel() * 4,
+                                  CPM_R * CPM_N * math.log2(CPM_N),
+                                  F32_OPS_PER_S)[0],
+                "network_bound_ms": _bitonic_bound(CPM_R, CPM_N),
+                "device_launches": device_launches(
+                    lambda: ck.oddeven_sort(xl), 2)}
             rec["long"] = {
                 "shape": [CPM_R, CPM_N], "steps": LONG_SORT_STEPS,
                 "ms": timed(lambda: ck.oddeven_sort(xl, LONG_SORT_STEPS),
@@ -1618,7 +1754,11 @@ def time_cpm2_kernels(torch, dev, data, errs, card):
                 "bound_ms": bound(2 * xl.numel() * 4,
                                   2.0 * CPM_R * LONG_SORT_STEPS
                                   * -(-CPM_N // 2), F32_OPS_PER_S)[0]}
-            print(f"oddeven_sort bounded {rec['bounded']}, long "
+            rec["full_device_launches"] = device_launches(fn)
+            print(f"oddeven_sort full (int32) device launches "
+                  f"{rec['full_device_launches']}; float rows with a "
+                  f"NaN row {rec['float_nan_row']}; bounded "
+                  f"{rec['bounded']}; long full {rec['long_full']}; long "
                   f"{rec['long']}; {card}")
         else:
             rec["shape"] = [CPM_R, CPM_N]
@@ -2204,9 +2344,12 @@ def main(argv=None) -> int:
     built = _build.build_all()
     print(f"built {built} with nvcc for sm_90a in "
           f"{time.perf_counter() - t0:.1f}s")
+    ptxas = ptxas_report(_build)
+    for kern, info in ptxas.items():
+        print(f"ptxas {kern}: {info}")
 
     full = get_config("granite-8b")
-    record = {"card": card, "torch": torch.__version__,
+    record = {"card": card, "torch": torch.__version__, "ptxas": ptxas,
               "config": {"n_heads": full.n_heads,
                          "n_kv_heads": full.n_kv_heads,
                          "head_dim": full.dh}}

@@ -12,8 +12,10 @@ by a hand-written kernel:
     ``CPMArray.substring_match`` and ``find_all`` read), ``compact``,
     ``global_limit`` (the §7.5 ``section_limit`` kernel),
     ``section_sum``, ``histogram``, ``super_sum``, ``super_limit``,
-    ``sort`` (the §7.7 ``oddeven_sort`` kernel, a full sort being N
-    exchange cycles), ``template_match`` and ``stencil``: per-op kernels
+    ``sort`` (the §7.7 ``oddeven_sort`` kernel: a bounded sort runs its
+    exchange cycles; a full sort, whose N cycles give the sorted row, runs
+    a bitonic network on every row without NaN and the cycles on the
+    others), ``template_match`` and ``stencil``: per-op kernels
     (``csrc/activate.cu``, ``shift_range.cu``, ``compare.cu``,
     ``substring_match.cu``, ``compact.cu``, ``reduce.cu``,
     ``histogram.cu``, ``super_reduce.cu``, ``oddeven_sort.cu``,

@@ -31,8 +31,11 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 #: per-source extra flags: the float stencils (fused_stream's producer,
 #: the per-op stencil) must round every product and sum like the plain
-#: version, so no FMA contraction there
-_EXTRA = {"fused_stream": ["-fmad=false"], "stencil": ["-fmad=false"]}
+#: version, so no FMA contraction there; the sort and flash attention
+#: report each kernel's registers, shared memory and spills (``-v``), kept
+#: in the build log beside the library (:func:`build_log`)
+_EXTRA = {"fused_stream": ["-fmad=false"], "stencil": ["-fmad=false"],
+          "oddeven_sort": ["-Xptxas=-v"], "flash_attention": ["-Xptxas=-v"]}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -103,6 +106,14 @@ def _finish(name: str, started) -> None:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    out.with_suffix(".log").write_text(log)
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built ``csrc/<name>.cu`` into the cached
+    library ("" where the library was built before the log was kept)."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def sources() -> list[str]:

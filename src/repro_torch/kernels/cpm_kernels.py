@@ -29,7 +29,9 @@ per-op kernels of the cuda CPM backend (``csrc/compare.cu``,
 twin.  :func:`histogram`, :func:`super_sum` / :func:`super_limit` and
 :func:`oddeven_sort` replace ``:315``, ``:456`` / ``:466`` and ``:177``
 (``csrc/histogram.cu``, ``csrc/super_reduce.cu``,
-``csrc/oddeven_sort.cu``), and :func:`substring_match` replaces ``:540``
+``csrc/oddeven_sort.cu``: bounded sorts run the exchange cycles, full
+sorts a bitonic network on the rows without NaN, :func:`bitonic_plan`),
+and :func:`substring_match` replaces ``:540``
 (``csrc/substring_match.cu``), the same way.  :func:`activate`,
 :func:`shift_range`, :func:`template_match` and :func:`stencil` replace
 ``:89``, ``:133``, ``:496`` and ``:585`` (``csrc/activate.cu``,
@@ -1064,13 +1066,135 @@ def oddeven_plan(n: int, steps: int,
     return tile - 2 * halo, halo, -(-steps // halo)
 
 
+#: the bitonic route's tiles (csrc/oddeven_sort.cu): at most 64 KB of int32
+#: keys in shared memory, at least 1,024 where the row has them, and
+#: smaller while a group's rows would leave SMs of the H100 idle; rows pad
+#: to at least 16 lanes; a device-memory pass merges up to 3 strides; rows
+#: sort in groups of at most 16 MiB of keys, which stay in the 50 MB L2
+#: from one pass to the next
+BITONIC_TILE_MAX, BITONIC_TILE_MIN, BITONIC_MIN_PAD = 16384, 1024, 16
+BITONIC_TARGET_BLOCKS, BITONIC_LEVELS = 132, 3
+BITONIC_GROUP_BYTES = 16 << 20
+_INT32_MAX = 2 ** 31 - 1
+
+
+def bitonic_plan(r: int, n: int) -> tuple[int, int, int, list[tuple]]:
+    """``(P, T, G, passes)`` of the full sort's bitonic network over ``r``
+    rows of ``n`` lanes: rows padded to ``P`` lanes (a power of two),
+    tiles of ``T`` keys, groups of ``G`` rows that run every pass before
+    the next group starts, and the passes in order: ``("tile", k0, k1)``
+    sorts every tile in shared memory over stages ``k0 .. k1`` (strides
+    ``min(k/2, T/2) .. 1`` each), ``("stride", k, j, levels)`` runs
+    ``levels`` strides of stage ``k`` from ``j`` down, all ``>= T``, in
+    device memory.  The first pass is the tile sort, the last a tile
+    pass."""
+    p = max(BITONIC_MIN_PAD, 1 << max(n - 1, 0).bit_length())
+    g = max(1, min(r, BITONIC_GROUP_BYTES // (4 * p)))
+    t = min(p, BITONIC_TILE_MAX)
+    while t > BITONIC_TILE_MIN and g * (p // t) < BITONIC_TARGET_BLOCKS:
+        t //= 2
+    passes: list[tuple] = [("tile", 2, t)]
+    k = 2 * t
+    while k <= p:
+        j = k // 2
+        while j >= t:
+            levels = min(BITONIC_LEVELS, j.bit_length() - t.bit_length() + 1)
+            passes.append(("stride", k, j, levels))
+            j >>= levels
+        passes.append(("tile", k, k))
+        k *= 2
+    return p, t, g, passes
+
+
+def bitonic_steps(passes, t: int):
+    """The ``(k, j)`` compare-exchange steps of ``passes`` in the order the
+    kernels run them (every stage ``k``, its strides ``k/2 .. 1``)."""
+    for kind, a, b, *rest in passes:
+        if kind == "tile":
+            k = a
+            while k <= b:
+                j = min(k // 2, t // 2)
+                while j >= 1:
+                    yield k, j
+                    j //= 2
+                k *= 2
+        else:
+            for i in range(rest[0]):
+                yield a, b >> i
+
+
+def sort_keys(x):
+    """The int32 keys of ``csrc/oddeven_sort.cu`` (``Key<>``): integers and
+    bool widen; float bits keep their sign bit and, when it is set, flip
+    the others, so -0.0 sorts just below +0.0 and equal keys are equal
+    bits."""
+    if x.dtype == torch.float32:
+        b = x.view(torch.int32)
+        return torch.where(b >= 0, b, b ^ 0x7FFFFFFF)
+    if x.dtype in (torch.float16, torch.bfloat16):
+        b = x.view(torch.int16).to(torch.int32)
+        return torch.where(b >= 0, b, b ^ 0x7FFF)
+    return x.to(torch.int32)
+
+
+def sort_values(keys, dtype: torch.dtype):
+    """The inverse of :func:`sort_keys`: int32 keys back to ``dtype``."""
+    if dtype == torch.float32:
+        return torch.where(keys >= 0, keys, keys ^ 0x7FFFFFFF).view(dtype)
+    if dtype in (torch.float16, torch.bfloat16):
+        b = torch.where(keys >= 0, keys, keys ^ 0x7FFF)
+        return b.to(torch.int16).view(dtype)
+    return keys.to(dtype)
+
+
+def bitonic_rows(x, steps: int | None = None):
+    """``(R,)`` bool: the rows of ``(R, N)`` ``x`` that the sort kernel
+    takes through the bitonic network, which gives the twin's bits there:
+    every row of a full sort (``steps >= N``) whose keys hold no NaN (all
+    rows of an integer or bool dtype); none of a bounded sort."""
+    r, n = x.shape
+    if (n if steps is None else steps) < n:
+        return torch.zeros(r, dtype=torch.bool, device=x.device)
+    if not x.dtype.is_floating_point:
+        return torch.ones(r, dtype=torch.bool, device=x.device)
+    return ~torch.isnan(x).any(-1)
+
+
+def bitonic_sort_plain(x):
+    """The kernel's bitonic route in PyTorch, for the CPU tests: ``(R, N)``
+    rows to :func:`sort_keys`, padded with ``INT32_MAX`` keys to
+    :func:`bitonic_plan`'s ``P`` lanes, every step of its passes in order
+    (lane ``i`` meets ``i ^ j``, ascending where ``i & k == 0``), the first
+    ``N`` lanes back to ``x.dtype``.  The twin that defines the function
+    stays :func:`oddeven_sort_plain`; this one makes the network's
+    schedule, padding and key round trip testable without a card."""
+    r, n = x.shape
+    p, t, _, passes = bitonic_plan(r, n)
+    keys = torch.full((r, p), _INT32_MAX, dtype=torch.int32, device=x.device)
+    keys[:, :n] = sort_keys(x)
+    idx = torch.arange(p, device=x.device)
+    for k, j in bitonic_steps(passes, t):
+        lo = idx[(idx & j) == 0]
+        hi = lo | j
+        asc = (lo & k) == 0
+        a, b = keys[:, lo], keys[:, hi]
+        small, big = torch.minimum(a, b), torch.maximum(a, b)
+        keys[:, lo] = torch.where(asc, small, big)
+        keys[:, hi] = torch.where(asc, big, small)
+    return sort_values(keys[:, :n].contiguous(), x.dtype)
+
+
 def oddeven_sort(x, steps: int | None = None):
     """``steps`` (default N) odd-even exchange cycles over every ``(R, N)``
     row -> ``(R, N)`` of ``x.dtype``, bit for bit the twin's: one
-    ``csrc/oddeven_sort.cu`` call for CUDA tensors (one device launch a
-    pass; rows longer than :data:`SORT_TILE` lanes take
-    ``oddeven_plan``'s halo passes; counted once in
-    ``oddeven_sort.launches``), the plain twin for CPU tensors."""
+    ``csrc/oddeven_sort.cu`` call for CUDA tensors, counted once in
+    ``oddeven_sort.launches``, the plain twin for CPU tensors.  A bounded
+    sort (``steps < N``) runs the cycles (one device launch a pass; rows
+    longer than :data:`SORT_TILE` lanes take ``oddeven_plan``'s halo
+    passes).  A full sort runs :func:`bitonic_plan`'s passes for the rows
+    of :func:`bitonic_rows`, chosen on the device (float rows: a NaN flag
+    pass first, then the cycles for the flagged rows), so its launches
+    depend on shape, dtype and ``steps`` only."""
     if not _on_card("oddeven_sort", x):
         return oddeven_sort_plain(x, steps)
     if x.ndim != 2:
@@ -1087,14 +1211,31 @@ def oddeven_sort(x, steps: int | None = None):
         return out
     if r >= 2 ** 31:
         raise ValueError("oddeven_sort: more than 2**31 rows")
+    full = steps >= n
+    cycles = not full or x.dtype.is_floating_point
     interior, halo, passes = oddeven_plan(n, steps)
-    scratch = torch.empty_like(x) if passes > 1 else None
+    scratch = torch.empty_like(x) if cycles and passes > 1 else None
+    keys = flag = plan = None
+    p = t = g = nplan = 0
+    if full:
+        p, t, g, bitonic = bitonic_plan(r, n)
+        nplan = len(bitonic)
+        plan = (ctypes.c_longlong * (4 * nplan))(*[
+            v for kind, a, b, *rest in bitonic
+            for v in ((0, a, b, 0) if kind == "tile" else (1, a, b, *rest))])
+        if p > t:
+            keys = torch.empty((r, p), dtype=torch.int32, device=x.device)
+        if x.dtype.is_floating_point:
+            flag = torch.empty(r, dtype=torch.int32, device=x.device)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     _build.launch("oddeven_sort", "oddeven_sort_launch",
-                  [P, P, P, I, L, L, L, L, I, I], x.device, x.data_ptr(),
-                  out.data_ptr(), None if scratch is None
-                  else scratch.data_ptr(), r, n, steps, interior, halo,
-                  passes, code)
+                  [P, P, P, I, L, L, L, L, I, P, P, L, I, I, I, P, I],
+                  x.device, x.data_ptr(), out.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), r, n,
+                  steps, interior, halo, passes,
+                  None if keys is None else keys.data_ptr(),
+                  None if flag is None else flag.data_ptr(), p, t, g,
+                  nplan, plan, code)
     oddeven_sort.launches += 1
     return out
 

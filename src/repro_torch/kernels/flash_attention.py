@@ -10,9 +10,12 @@ float32, the denominator is floored at ``1e-30`` and the output is cast
 to ``q.dtype``.
 
 :func:`flash_attention` launches ``csrc/flash_attention.cu`` for CUDA
-tensors and counts the launch in ``flash_attention.launches``; for CPU
-tensors it runs :func:`flash_attention_plain`, which repeats the TPU
-kernel's arithmetic tile by tile in PyTorch.
+tensors and counts the launch in ``flash_attention.launches``: bf16 with
+D = 64 or 128 on the wgmma kernel fed by TMA loads (whose 16-byte rule on
+bases and strides it checks), bf16 with D = 16 or 32 on the ``mma.sync``
+kernel, float32 on the FP32 kernel.  For CPU tensors it runs
+:func:`flash_attention_plain`, which repeats the TPU kernel's arithmetic
+tile by tile in PyTorch.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ NEG_INF = -1e30
 #: rows of q handled by one CUDA block at most (the wrapper's contract)
 MAX_BLOCK_Q = 128
 _HEAD_DIMS = (16, 32, 64, 128)
+#: bf16 head dims of the wgmma + TMA kernel (the others take mma.sync)
+_TMA_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -119,6 +124,12 @@ def flash_attention(q, k, v, *, causal=True, window=None,
         raise ValueError(f"head dim {d} not built (have {_HEAD_DIMS})")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel needs a unit stride on D")
+    if q.dtype == torch.bfloat16 and d in _TMA_HEAD_DIMS and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            for t in (q, k, v)):
+        raise ValueError("the bf16 wgmma kernel loads q, k, v tiles with "
+                         "TMA: they need 16-byte aligned bases and strides "
+                         "that are multiples of 8 elements (16 bytes)")
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 4 or any(st % 2 for st in t.stride()[:3])
             for t in (q, k, v)):

@@ -60,8 +60,9 @@ def decode_attention(q, k, v, cache_len=None, *, window=None):
 
 
 def sort(x, *, impl=None):
-    """Row-wise ascending sort of ``(R, N)`` rows: the odd-even kernel
-    (N exchange cycles) or the reference's full sort."""
+    """Row-wise ascending sort of ``(R, N)`` rows: the sort kernel's full
+    sort (the result of N odd-even exchange cycles, by its bitonic route
+    on rows without NaN) or the reference's full sort."""
     if _mode(impl, x) == "ref":
         return ref.oddeven_sort_ref(x)
     return cpm_kernels.oddeven_sort(x)

@@ -488,6 +488,51 @@ class TestKernelsOnCard:
             torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                        atol=tol)
 
+    @pytest.mark.parametrize("layout", ["contiguous", "strided"])
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("group", [1, 2, 4, 8])
+    def test_wgmma_flash_gqa_groups(self, cuda_device, group, d, layout):
+        """The bf16 wgmma + TMA kernel (D 64 and 128) over GQA groups 1, 2,
+        4 and 8 (one head a block, or two), causal, windowed and not,
+        ragged S = 200, Sq != Skv, on packed tensors and on the main
+        path's strided views."""
+        kvh = 2
+        h = kvh * group
+        rng = np.random.default_rng(group * d)
+        for b, sq, skv, causal, window in [(2, 256, 256, True, None),
+                                           (1, 200, 200, True, 33),
+                                           (1, 200, 200, False, None),
+                                           (1, 64, 128, True, None),
+                                           (1, 130, 130, False, 50)]:
+            def make(n, s):
+                shape = (b, s, n, d) if layout == "strided" else (b, n, s, d)
+                t = torch.from_numpy(rng.standard_normal(shape).astype(
+                    np.float32)).to(cuda_device, torch.bfloat16)
+                return t.transpose(1, 2) if layout == "strided" else t
+            q, k, v = make(h, sq), make(kvh, skv), make(kvh, skv)
+            got = TFA.flash_attention(q, k, v, causal=causal, window=window,
+                                      block_q=sq, block_k=skv)
+            torch.cuda.synchronize()
+            want = TFA.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window, block_q=sq,
+                                             block_k=skv)
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+
+    def test_wgmma_flash_refuses_what_tma_cannot_load(self, cuda_device):
+        """TMA needs 16-byte aligned bases and strides: the wrapper raises,
+        naming the rule, and never copies the input."""
+        kv = torch.zeros((1, 2, 64, 64), device=cuda_device,
+                         dtype=torch.bfloat16)
+        flat = torch.zeros(2 * 64 * 64 + 1, device=cuda_device,
+                           dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="TMA"):
+            TFA.flash_attention(flat[1:].view(1, 2, 64, 64), kv, kv)
+        wide = torch.zeros((1, 2, 64, 68), device=cuda_device,
+                           dtype=torch.bfloat16)[..., :64]
+        with pytest.raises(ValueError, match="TMA"):
+            TFA.flash_attention(wide, kv, kv)
+
     @pytest.mark.parametrize("block_r", [1, 3])
     @pytest.mark.parametrize("per_row", [False, True])
     @pytest.mark.parametrize("dtype", [np.int32, np.float32])
