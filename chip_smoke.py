@@ -8,8 +8,8 @@ Phases, in order; any failure exits non-zero:
 
   1. build every CUDA kernel of ``src/repro_torch/csrc`` (one nvcc each,
      all started together) and print the registers, static shared memory
-     and spills ``-Xptxas -v`` reports for the sort's and flash
-     attention's kernels;
+     and spills ``-Xptxas -v`` reports for the kernels of the sort, flash
+     attention, ``shift_range`` and ``stencil``;
   2. hold each kernel against its plain PyTorch twin on the card, at the
      main paths' shapes, and time kernel, twin and the one PyTorch call
      that computes the same function where there is one
@@ -127,6 +127,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -177,6 +178,9 @@ F32_OPS_PER_S = 67e12
 # resident rows fit fused_stream)
 STREAM_TEMPLATES = (4, 16, 64)
 STENCIL5 = (0.5, 0.0, 1.0, 0.0, -0.25)
+#: the 63-tap stencil timed in phase 9: every tap nonzero, so each lane
+#: does 63 multiplies and adds
+STENCIL63 = tuple(math.sin(k + 1.0) for k in range(63))
 PROBE_N = 16384
 STREAM_KERNELS = ("activate", "shift_range", "template_match", "stencil")
 
@@ -260,7 +264,12 @@ def device_launches(fn, iters: int = 5):
         name: n // iters for name, (n, _) in recs.items()}
 
 
-def ptxas_report(build, names=("oddeven_sort", "flash_attention")):
+#: the mangled template arguments of shift_range_kernel<W>: its word type
+_WORDS = {"h": "u8", "t": "u16", "j": "u32", "m": "u64"}
+
+
+def ptxas_report(build, names=("oddeven_sort", "flash_attention",
+                               "shift_range", "stencil")):
     """Registers, static shared memory and spills of every kernel of the
     named sources, from their ``-Xptxas -v`` build logs: one entry a
     kernel instantiation (its mangled name cut to the kernel's name and
@@ -273,13 +282,17 @@ def ptxas_report(build, names=("oddeven_sort", "flash_attention")):
             if m:
                 mangled = m.group(1)
                 base = re.search(r"(flash_fwd_\w+?_kernel|oddeven_pass|"
-                                 r"bitonic_tile|bitonic_stride|nan_rows)",
+                                 r"bitonic_tile|bitonic_stride|nan_rows|"
+                                 r"shift_range_kernel|stencil_kernel)",
                                  mangled)
                 name = base.group(1) if base else mangled[:40]
-                args = re.findall(r"Li(\d+)E|(\w\d+T|BoolT)",
-                                  mangled[base.end():] if base else "")
-                kern = "%s/%s<%s>" % (src, name, ",".join(
-                    a or b for a, b in args[:2]))
+                rest = mangled[base.end():] if base else ""
+                args = re.findall(r"Li(\d+)E|(B?[A-Z]\d+T|BoolT)", rest)
+                tmpl = ",".join(a or b for a, b in args[:2])
+                if name == "shift_range_kernel":
+                    w = re.match(r"I([hjmt])E", rest)
+                    tmpl = _WORDS[w.group(1)] if w else rest[:8]
+                kern = "%s/%s<%s>" % (src, name, tmpl)
                 out[kern] = {}
                 continue
             if kern is None:
@@ -1634,8 +1647,6 @@ def time_cpm2_kernels(torch, dev, data, errs, card):
     for the full sort the larger of its bytes and R * N * log2(N)
     comparisons, with the odd-even network's own R * N * N/2
     compare-exchanges beside it as ``network_bound_ms``."""
-    import math
-
     from repro_torch.kernels import cpm_kernels as ck
 
     xh, e64 = data["hist_in"][64]
@@ -2224,10 +2235,21 @@ def check_pool_by_cost(torch, dev, gen):
     return counts
 
 
+def _stencil_conv(torch, F, x, taps):
+    """The zero-padded stencil as one ``conv1d`` (odd tap counts; a
+    correlation, so the taps go in reversed): a yardstick, timed only."""
+    w = torch.tensor(taps, dtype=torch.float32,
+                     device=x.device).flip(0)[None, None, :]
+    return lambda: F.conv1d(x[:, None, :], w, padding=len(taps) // 2)[:, 0]
+
+
 def time_stream_kernels(torch, dev, data, sdata, errs):
     """The four phase-9 kernels at its shapes: device time, twin, bound
     and the PyTorch call that computes the same function (``conv1d`` for
-    the zero-padded stencil, timed only)."""
+    the zero-padded stencil, timed only).  ``shift_range`` is also timed
+    beside ``clone()`` plus one slice ``copy_`` over the same move, two
+    calls and no library call; ``stencil`` also at 5 and 63 taps, each
+    with its bound and its ``conv1d``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import cpm_kernels as ck
@@ -2278,6 +2300,16 @@ def time_stream_kernels(torch, dev, data, sdata, errs):
             hi = data["ul"] - 1
             rec["per_row_ms"] = timed(lambda: ck.shift_range(xi, p[0], hi,
                                                              1), 20)[0]
+
+            def two_calls():     # lanes [q, h] land on [q + 1, h + 1]
+                out = xi.clone()
+                out[:, q + 1:h + 2].copy_(xi[:, q:h + 1])
+                return out
+
+            if not torch.equal(two_calls(), fn()):
+                fail("clone + copy_ does not compute shift_range's move")
+            rec["two_calls"] = "clone() + one slice copy_ (two calls)"
+            rec["two_calls_ms"] = timed(two_calls, 20)[0]
         if name == "template_match":
             rec["m"] = 64
             for m in (4, 16):
@@ -2292,6 +2324,27 @@ def time_stream_kernels(torch, dev, data, sdata, errs):
                                    "reversed, padding 1 (TF32 off)")
             rec["library_max_abs_err"] = float(
                 (conv() - fn()).abs().max())
+            for tag, w in (("taps5", STENCIL5), ("taps63", STENCIL63)):
+                nz = sum(1 for v in w if v != 0.0)
+                got = ck.stencil(xf, w, False)
+                err = float((got - ck.stencil_plain(xf, w, False))
+                            .abs().max())
+                if err != 0.0:
+                    fail(f"stencil {tag} disagrees with its twin: {err}")
+                rec[f"{tag}_ms"] = timed(
+                    lambda w=w: ck.stencil(xf, w, False), 20)[0]
+                rec[f"{tag}_bound_ms"], rec[f"{tag}_bound_by"] = bound(
+                    2 * nel * 4, 2.0 * nel * nz, F32_OPS_PER_S)
+                rec[f"{tag}_library_ms"] = timed(
+                    _stencil_conv(torch, F, xf, w), 20)[0]
+                print(f"stencil {tag}: {rec[f'{tag}_ms']:.4f} ms, bound "
+                      f"{rec[f'{tag}_bound_ms']:.4f} ms by "
+                      f"{rec[f'{tag}_bound_by']}, conv1d "
+                      f"{rec[f'{tag}_library_ms']:.4f} ms")
+        if name == "shift_range":
+            print(f"shift_range: {rec['ms']:.4f} ms, per-row bounds "
+                  f"{rec['per_row_ms']:.4f} ms, clone + copy_ "
+                  f"{rec['two_calls_ms']:.4f} ms (two calls)")
         out.append(rec)
     return out
 

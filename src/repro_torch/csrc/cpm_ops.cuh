@@ -9,7 +9,9 @@
 //  * The lane rules of the JAX value bodies that the per-op kernels share
 //    with fused_stream.cu, so fused and eager groups stay bit identical:
 //    cpm_activate (_activate_vals), cpm_shift_src (_shift_vals),
-//    cpm_sad (_sad_vals) and cpm_stencil (_stencil_vals).
+//    cpm_sad (_sad_vals) and cpm_stencil (_stencil_vals, through
+//    cpm_stencil_lanes and cpm_stencil_lane, which stencil.cu's staged
+//    tiles use).
 //  * cpm_min_takes_a / cpm_max_takes_a and SumOp / MaxOp / MinOp: the
 //    combines of the reductions and of the odd-even exchange, with
 //    jnp.minimum / jnp.maximum semantics (the port's
@@ -74,15 +76,18 @@ __device__ __forceinline__ bool cpm_activate(int i, int start, int end,
 // move by `shift`: the lane whose value lane i holds afterwards (the
 // jnp.roll source where the moved range lands inside the row, lane i
 // itself elsewhere), or -1 where lane i was vacated and `has_fill` asks
-// for the fill.  Content moved past either row end is dropped.
+// for the fill.  Content moved past either row end is dropped.  The roll
+// source (i - shift) mod n only counts where it equals i - shift (the
+// moved range lands inside the row), so no modulo is taken: the shift is
+// clamped to [-n, n] (|shift| >= n lands nothing, as +-n does), and then
+// i - shift lies in [-n, 2n), which as an unsigned 32-bit number is below
+// n exactly when it is a lane of the row (n < 2^31).
 __device__ __forceinline__ int cpm_shift_src(int i, int n, int start,
                                              int end, int shift,
                                              bool has_fill) {
-  const int j = cpm_fmod_floor((long long)i - shift, n);   // roll source
-  bool dst = j >= start && j <= end;
-  if (shift > 0) dst = dst && i >= shift;
-  else if (shift < 0) dst = dst && (long long)i < (long long)n + shift;
-  if (dst) return j;
+  const int s = shift > n ? n : (shift < -n ? -n : shift);
+  const unsigned j = (unsigned)i - (unsigned)s;
+  if (j < (unsigned)n && (int)j >= start && (int)j <= end) return (int)j;
   return (has_fill && i >= start && i <= end) ? -1 : i;
 }
 
@@ -97,25 +102,59 @@ __device__ __forceinline__ float cpm_sad(int m, X x, T t) {
   return acc;
 }
 
-// §7.3 _stencil_vals at lane i of an n-lane row: sum over the taps k in
-// their order, zero taps skipped, of w_k * x[i - (k - c)] (c = ntaps / 2,
-// the index wrapping), every product and sum rounded as written; without
-// `wrap` a lane that wrapped around reads 0.  x(j) is lane j as float32.
+// §7.3 the lane that position p of an n-lane row reads: p itself inside
+// the row; outside it the lane p wraps to, or -1 (zero padding) without
+// `wrap`.  A stencil's positions lie at most ntaps - 1 lanes outside the
+// row, so one add or subtract of n wraps them unless the row is shorter
+// than that; only such rows take the floor modulo.
+__device__ __forceinline__ int cpm_stencil_lane(long long p, int n,
+                                                bool wrap) {
+  if (p >= 0 && p < n) return (int)p;
+  if (!wrap) return -1;
+  if (p < 0 && p >= -(long long)n) return (int)(p + n);
+  if (p >= n && p < 2LL * n) return (int)(p - n);
+  return cpm_fmod_floor(p, n);
+}
+
+// §7.3 _stencil_vals at M adjacent lanes i0 .. i0 + M - 1: acc[m] = the
+// sum over the taps k in their order, zero taps skipped, of w_k * the
+// value at lane i0 + m - (k - c) (c = ntaps / 2), every product and sum
+// rounded as written.  x(d) is the value at offset d from i0 as float32,
+// the wrap or zero padding already applied.  The values slide through a
+// window of M registers, one read of x a tap.
+template <int M, class X>
+__device__ __forceinline__ void cpm_stencil_lanes(float (&acc)[M],
+                                                  const float* w, int ntaps,
+                                                  X x) {
+  const int c = ntaps / 2;
+  float win[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = 0.f;
+#pragma unroll
+  for (int m = 0; m + 1 < M; ++m) win[m] = x(m + c + 1);
+  for (int k = 0; k < ntaps; ++k) {
+    if (M == 1 && w[k] == 0.f) continue;      // no window to slide
+#pragma unroll
+    for (int m = M - 1; m > 0; --m) win[m] = win[m - 1];
+    win[0] = x(c - k);                        // win[m]: lane i0 + m + c - k
+    if (w[k] == 0.f) continue;
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      acc[m] = __fadd_rn(acc[m], __fmul_rn(w[k], win[m]));
+  }
+}
+
+// §7.3 _stencil_vals at lane i of an n-lane row; without `wrap` a lane
+// that wrapped around reads 0.  x(j) is lane j as float32.
 template <class X>
 __device__ __forceinline__ float cpm_stencil(int i, int n, const float* w,
                                              int ntaps, bool wrap, X x) {
-  const int c = ntaps / 2;
-  float acc = 0.f;
-  for (int k = 0; k < ntaps; ++k) {
-    if (w[k] == 0.f) continue;
-    const int sh = k - c;
-    float v = x(cpm_fmod_floor((long long)i - sh, n));
-    if (!wrap && ((sh > 0 && i < sh) ||
-                  (sh < 0 && (long long)i >= (long long)n + sh)))
-      v = 0.f;
-    acc = __fadd_rn(acc, __fmul_rn(w[k], v));
-  }
-  return acc;
+  float acc[1];
+  cpm_stencil_lanes<1>(acc, w, ntaps, [&](int d) {
+    const int j = cpm_stencil_lane((long long)i + d, n, wrap);
+    return j < 0 ? 0.f : x(j);
+  });
+  return acc[0];
 }
 
 // Whether min(a, b) is a (else b); a tie of equal integers takes a.

@@ -1371,6 +1371,57 @@ def shift_range_plain(x, start, end, shift: int = 1, fill=None):
     return _shift_vals(x, idx, lo, hi, _static_shift(shift), n, f)
 
 
+#: output bytes a shift_range block owns: SHIFT_TILE_BYTES of
+#: csrc/shift_range.cu (4,096 int32 lanes)
+SHIFT_TILE_BYTES = 16384
+
+
+def shift_src_plain(i, n: int, start, end, shift: int, has_fill: bool):
+    """``cpm_shift_src`` of ``csrc/cpm_ops.cuh`` on int64 lane tensors
+    ``i`` of an ``n``-lane row (``start`` / ``end`` scalars or tensors
+    that broadcast against ``i``): the lane whose value lane ``i`` holds
+    after the move, or -1 where it takes the fill.  No modulo: the shift
+    is clamped to ``[-n, n]``, and ``i - shift`` taken as an unsigned
+    32-bit number is below ``n`` exactly when it is a lane of the row."""
+    i = torch.as_tensor(i, dtype=torch.int64)
+    start, end = (torch.as_tensor(v, dtype=torch.int64, device=i.device)
+                  for v in (start, end))
+    s = max(-n, min(int(shift), n))
+    j = (i - s) & 0xFFFFFFFF
+    dst = (j < n) & (j >= start) & (j <= end)
+    vacated = (i >= start) & (i <= end) & bool(has_fill)
+    return torch.where(dst, j, torch.where(vacated, -1, i))
+
+
+def shift_tile_cases(n: int, start: int, end: int, shift: int, tile: int,
+                     head: int = 0, has_fill: bool = False):
+    """The tiles of one ``n``-lane row that ``csrc/shift_range.cu``'s
+    blocks own, each with the case the block decides for it: a list of
+    ``(lo, hi, case)`` over lanes ``[lo, hi)``.  ``tile`` is lanes a tile
+    (``SHIFT_TILE_BYTES // itemsize``), ``head`` the lanes before the
+    output row's first 16-byte boundary.  ``"a"``: out = x over the tile;
+    ``"b"``: out[i] = x[i - shift] over the tile; ``"c"``: lane by lane
+    (:func:`shift_src_plain`)."""
+    s = max(-n, min(int(shift), n))
+    slo, shi = max(int(start), 0), min(int(end), n - 1)
+    dlo, dhi = max(slo + s, 0), min(shi + s, n - 1)
+    out = []
+    for b in range(-(-n // tile)):
+        lo = 0 if b == 0 else head + b * tile
+        hi = min(n, head + (b + 1) * tile)
+        if lo >= hi:
+            continue
+        if dlo <= lo and hi - 1 <= dhi:
+            case = "b"
+        elif (hi - 1 < dlo or lo > dhi) and \
+                (not has_fill or hi - 1 < slo or lo > shi):
+            case = "a"
+        else:
+            case = "c"
+        out.append((lo, hi, case))
+    return out
+
+
 def shift_range(x, start, end, shift: int = 1, fill=None):
     """§4.1 range move of every ``(R, N)`` row -> a new ``(R, N)`` array of
     ``x.dtype``: one ``csrc/shift_range.cu`` launch for CUDA tensors
@@ -1479,6 +1530,55 @@ def stencil_plain(x, taps, wrap: bool = True):
     idx = torch.arange(n, dtype=torch.int32, device=x.device)[None, :]
     return _stencil_vals(x.to(torch.float32), idx,
                          tuple(float(t) for t in taps), bool(wrap), n)
+
+
+#: outputs of a row a stencil block computes: ST_TILE of csrc/stencil.cu
+STENCIL_TILE = 2048
+
+
+def stencil_lane_plain(q, n: int, wrap: bool):
+    """``cpm_stencil_lane`` of ``csrc/cpm_ops.cuh`` on int64 position
+    tensors: the lane position ``q`` reads, or -1 (zero padding).  One add
+    or subtract of ``n`` wraps a position unless the row is shorter than
+    the taps; only then the floor modulo."""
+    q = torch.as_tensor(q, dtype=torch.int64)
+    inside = (q >= 0) & (q < n)
+    if not wrap:
+        return torch.where(inside, q, -1)
+    once = torch.where(q < 0, q + n, q - n)
+    return torch.where(inside, q, torch.where((q >= -n) & (q < 2 * n),
+                                              once, torch.remainder(q, n)))
+
+
+def stencil_tiled_plain(x, taps, wrap: bool = True,
+                        tile: int = STENCIL_TILE):
+    """The schedule of ``csrc/stencil.cu`` in torch: each ``tile`` of
+    outputs of every row stages, as float32, the positions it reads (the
+    tile, ``ntaps - 1 - c`` lanes before it and ``c`` after it), each
+    through :func:`stencil_lane_plain` once and 0 from the last position
+    an output inside the row reads on; then each output adds its taps'
+    staged values in tap order, zero taps skipped.  Equal to
+    :func:`stencil_plain` bit for bit."""
+    taps = tuple(float(t) for t in taps)
+    r, n = x.shape
+    xf = x.to(torch.float32)
+    c = len(taps) // 2
+    before = len(taps) - 1 - c if taps else 0
+    out = torch.empty((r, n), dtype=torch.float32, device=x.device)
+    for t0 in range(0, n, tile):
+        width = min(tile, n - t0)
+        q = torch.arange(t0 - before, t0 + tile + c, device=x.device)
+        j = torch.where(q < t0 + width + c, stencil_lane_plain(q, n, wrap),
+                        -1)
+        staged = torch.where(j >= 0, xf[:, j.clamp(min=0)], 0.0)
+        acc = torch.zeros((r, width), dtype=torch.float32, device=x.device)
+        for k, w in enumerate(taps):
+            if w == 0:
+                continue
+            u = before + c - k        # the slot of output t0's tap k
+            acc = acc + w * staged[:, u:u + width]
+        out[:, t0:t0 + width] = acc
+    return out
 
 
 def stencil(x, taps, wrap: bool = True):
