@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero:
   1. build every CUDA kernel of ``src/repro_torch/csrc`` (one nvcc each,
      all started together) and print the registers, static shared memory
      and spills ``-Xptxas -v`` reports for the kernels of the sort, flash
-     attention, ``shift_range`` and ``stencil``;
+     attention, ``shift_range``, ``stencil``, ``histogram`` and
+     ``template_match``;
   2. hold each kernel against its plain PyTorch twin on the card, at the
      main paths' shapes, and time kernel, twin and the one PyTorch call
      that computes the same function where there is one
@@ -82,10 +83,14 @@ Phases, in order; any failure exits non-zero:
      reference backend and NumPy, integer super sums against
      ``section_sum``, limits against ``global_limit``, full sorts against
      ``np.sort`` on rows without NaN; every kernel twice, bit for bit;
-     ``backend="auto"`` the same launches, none on an 8-lane row.  The
-     five kernels are timed at these shapes, the full sorts (16,384 and
-     1,048,576 lanes) beside ``torch.sort``, with the device launches of
-     each sort call (``torch.profiler``);
+     ``backend="auto"`` the same launches, none on an 8-lane row.  After
+     the counted path, ``histogram`` of the int rows with the 64 edges
+     shuffled and of the float rows with a NaN edge (both the counts
+     form; ordered edges take the bin search) against its twin.  The
+     five kernels are timed at these shapes (``histogram`` at 8 and 64
+     edges on both forms, each with the form its blocks took), the full
+     sorts (16,384 and 1,048,576 lanes) beside ``torch.sort``, with the
+     device launches of each sort call (``torch.profiler``);
   9. instruction streams priced by cost, on phase 7's rows: with a scalar
      ``used_len = N - 7`` (each op one launch, counted), ``activate``,
      ``shift`` (with and without a fill, negative), ``insert`` and
@@ -112,7 +117,8 @@ Phases, in order; any failure exits non-zero:
      process; a small pool's steady step still launches
      ``gather_rows``, ``fused_stream`` and ``scatter_rows`` once, with no
      cost decision.  The four kernels are timed at these shapes
-     (``conv1d`` beside the stencil).
+     (``conv1d`` beside the stencil; ``template_match`` at 4, 16 and 64
+     items, each with its bytes, operation and float32 issue bounds).
 
 The lines before the last are the card (``nvidia-smi`` name and power
 limit) and one JSON object with every kernel's launches, error and
@@ -269,7 +275,8 @@ _WORDS = {"h": "u8", "t": "u16", "j": "u32", "m": "u64"}
 
 
 def ptxas_report(build, names=("oddeven_sort", "flash_attention",
-                               "shift_range", "stencil")):
+                               "shift_range", "stencil", "histogram",
+                               "template_match")):
     """Registers, static shared memory and spills of every kernel of the
     named sources, from their ``-Xptxas -v`` build logs: one entry a
     kernel instantiation (its mangled name cut to the kernel's name and
@@ -283,7 +290,9 @@ def ptxas_report(build, names=("oddeven_sort", "flash_attention",
                 mangled = m.group(1)
                 base = re.search(r"(flash_fwd_\w+?_kernel|oddeven_pass|"
                                  r"bitonic_tile|bitonic_stride|nan_rows|"
-                                 r"shift_range_kernel|stencil_kernel)",
+                                 r"shift_range_kernel|stencil_kernel|"
+                                 r"hist_count|hist_finish|"
+                                 r"template_match_kernel)",
                                  mangled)
                 name = base.group(1) if base else mangled[:40]
                 rest = mangled[base.end():] if base else ""
@@ -1492,6 +1501,26 @@ def check_cpm_ops2(torch, np, dev, data):
     if int(got["hist_nan"][3].sum()) != int(((nan_row >= -4) &
                                              (nan_row < 4)).sum()):
         fail("histogram counted a NaN lane")
+    # the path's edges are ordered (the bin search); shuffled edges and a
+    # NaN edge take the counts form, each against the twin
+    perm = torch.randperm(65, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(8))
+    e_nan = edges["float"].clone()
+    e_nan[20] = float("nan")
+    hist_in["shuffled"] = (hist_in[64][0], hist_in[64][1][perm])
+    hist_in["nan_edge"] = (hist_in["nan"][0], e_nan)
+    for key, form in ((8, "search"), (64, "search"), ("frac", "search"),
+                      ("nan", "search"), ("shuffled", "counts"),
+                      ("nan_edge", "counts")):
+        xh, e = hist_in[key]
+        if ck.histogram_path(e) != form:
+            fail(f"histogram {key} edges would take the "
+                 f"{ck.histogram_path(e)} form, want {form}")
+        if key in ("shuffled", "nan_edge"):
+            hold("histogram", torch.equal(ck.histogram(xh, e, 1024),
+                                          ck.histogram_plain(xh, e, 1024)),
+                 0.0, f"{key} edges (the counts form), bit for bit with "
+                 f"the twin")
 
     # super ops: int sums = section_sum, limits = global_limit, bit for
     # bit; float sums within SUM_TOL x sum|x| of NumPy
@@ -1641,9 +1670,10 @@ def time_cpm2_kernels(torch, dev, data, errs, card):
     and the PyTorch call that computes the same function (``card``: the
     ``nvidia-smi`` name and power limit printed beside the times).  Each
     bound is the work the function needs: bytes for the search, the
-    histogram (sorted edges would place a lane in log2(M+1) compares, so
-    the difference-of-counts form's M+1 compares a lane are its own, and
-    are kept beside it as ``counts_form_bound_ms``) and the super ops;
+    histogram (ordered edges place a lane in ceil(log2(M+2)) compares,
+    the bin search its blocks take; the counts form's M+1 compares a
+    lane, which shuffled edges take, are kept beside it as
+    ``counts_form_bound_ms``) and the super ops;
     for the full sort the larger of its bytes and R * N * log2(N)
     comparisons, with the odd-even network's own R * N * N/2
     compare-exchanges beside it as ``network_bound_ms``."""
@@ -1716,11 +1746,29 @@ def time_cpm2_kernels(torch, dev, data, errs, card):
                     xq, needles[k]), iters)[0]
         elif name == "histogram":
             rec["shape"], rec["bins"] = [CPM_R, CPM_N], m
+            rec["form"] = ck.histogram_path(e64)
             rec["counts_form_bound_ms"] = bound(
                 0, 2.0 * nel * (m + 1), F32_OPS_PER_S)[0]
             rec["m8_ms"] = timed(lambda: ck.histogram(xh8, e8, 1024),
                                  iters)[0]
+            rec["m8_form"] = ck.histogram_path(e8)
             rec["m8_bound_ms"] = bound(nel * 4 + 9 * 4 + CPM_R * 8 * 4)[0]
+            # the same rows and edges in shuffled order: the counts form
+            for k, e in ((64, e64), (8, e8)):
+                g = torch.Generator(device=dev).manual_seed(k)
+                es = e[torch.randperm(k + 1, device=dev, generator=g)]
+                rec[f"m{k}_shuffled_form"] = ck.histogram_path(es)
+                if not torch.equal(ck.histogram(xh, es, 1024),
+                                   ck.histogram_plain(xh, es, 1024)):
+                    fail(f"histogram, {k} shuffled edges, against its twin")
+                rec[f"m{k}_shuffled_ms"] = timed(
+                    lambda es=es: ck.histogram(xh, es, 1024), iters)[0]
+            print(f"histogram: M = 64 {rec['ms']:.4f} ms ({rec['form']} "
+                  f"form), M = 8 {rec['m8_ms']:.4f} ms ({rec['m8_form']}); "
+                  f"shuffled edges: M = 64 {rec['m64_shuffled_ms']:.4f} ms "
+                  f"({rec['m64_shuffled_form']}), M = 8 "
+                  f"{rec['m8_shuffled_ms']:.4f} ms "
+                  f"({rec['m8_shuffled_form']}); {card}")
         elif name == "oddeven_sort":
             steps = data["steps"]
             rec["shape"] = [SORT_R, SORT_N]
@@ -2311,7 +2359,11 @@ def time_stream_kernels(torch, dev, data, sdata, errs):
             rec["two_calls"] = "clone() + one slice copy_ (two calls)"
             rec["two_calls_ms"] = timed(two_calls, 20)[0]
         if name == "template_match":
+            # no multiply-add pairs in a SAD: two float32 instructions a
+            # (lane, item), issued at half the 67e12/s operation peak
             rec["m"] = 64
+            rec["issue_bound_ms"] = bound(0, 2.0 * nel * 64,
+                                          F32_OPS_PER_S / 2)[0]
             for m in (4, 16):
                 tm = sdata["templates"][m]
                 rec[f"m{m}_ms"] = timed(lambda tm=tm: ck.template_match(
@@ -2319,6 +2371,17 @@ def time_stream_kernels(torch, dev, data, sdata, errs):
                 rec[f"m{m}_bound_ms"] = bound(2 * nel * 4 + m * 4,
                                               3.0 * nel * m,
                                               F32_OPS_PER_S)[0]
+                rec[f"m{m}_op_bound_ms"] = bound(0, 3.0 * nel * m,
+                                                 F32_OPS_PER_S)[0]
+                rec[f"m{m}_issue_bound_ms"] = bound(0, 2.0 * nel * m,
+                                                    F32_OPS_PER_S / 2)[0]
+            print(f"template_match: M = 64 {rec['ms']:.4f} ms (bound "
+                  f"{rec['bound_ms']:.4f} by {rec['bound_by']}, issue "
+                  f"{rec['issue_bound_ms']:.4f}); M = 16 "
+                  f"{rec['m16_ms']:.4f} (bytes {rec['m16_bound_ms']:.4f}, "
+                  f"issue {rec['m16_issue_bound_ms']:.4f}); M = 4 "
+                  f"{rec['m4_ms']:.4f} (bytes {rec['m4_bound_ms']:.4f}, "
+                  f"issue {rec['m4_issue_bound_ms']:.4f})")
         if name == "stencil":
             rec["library_call"] = ("torch.nn.functional.conv1d, taps "
                                    "reversed, padding 1 (TF32 off)")

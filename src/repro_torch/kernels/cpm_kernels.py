@@ -927,15 +927,135 @@ compact.launches = 0
 #: lanes of the per-edge counts a thread keeps: must equal HIST_THREADS *
 #: HIST_MAX_EPT in csrc/histogram.cu
 HISTOGRAM_MAX_EDGES = 4096
+#: the most edges the bin-search form takes: its 16-bit counters of every
+#: bin and thread fill 132 KB of shared memory at 129 edges
+#: (HIST_SEARCH_MAX_EDGES of csrc/histogram.cu)
+HISTOGRAM_SEARCH_MAX_EDGES = 129
+#: the most lanes a block counts (HIST_MAX_PART), so that no thread's
+#: 16-bit counter of the search form carries
+HISTOGRAM_MAX_PART = 1 << 24
+#: blocks the count pass aims for: 16 a streaming multiprocessor of the
+#: H100's 132, so that the last of the waves of resident blocks is small
+HISTOGRAM_TARGET_BLOCKS = 2112
+#: no part of a row shorter than this goes to a block of its own
+HISTOGRAM_MIN_PART = 4096
+
+
+def histogram_plan(r: int, n: int) -> tuple[int, int]:
+    """``(parts, part_len)`` of ``csrc/histogram.cu``'s count pass: each
+    row splits into ``parts`` runs of ``part_len`` lanes (the last one
+    shorter), enough runs over all rows for about
+    :data:`HISTOGRAM_TARGET_BLOCKS` blocks, none shorter than
+    :data:`HISTOGRAM_MIN_PART` lanes unless it is the whole row and none
+    longer than :data:`HISTOGRAM_MAX_PART`.  The runs need not be whole
+    sections: the pad is added in the finish."""
+    parts = max(1, min(-(-HISTOGRAM_TARGET_BLOCKS // max(r, 1)),
+                       n // HISTOGRAM_MIN_PART))
+    parts = max(parts, -(-n // HISTOGRAM_MAX_PART))
+    return parts, -(-n // parts)
+
+
+def histogram_path(edges) -> str:
+    """The form a block of ``csrc/histogram.cu`` takes for these (already
+    promoted) edges: ``"search"`` for edges in non-decreasing order, free
+    of NaN, of at most :data:`HISTOGRAM_SEARCH_MAX_EDGES`; ``"counts"``
+    otherwise.  Each block decides this on the device from the edges it
+    stages (in the compare type, as here); this is its CPU model."""
+    e = edges.to(_acc_dtype(edges.dtype))
+    ordered = bool((e[:-1] <= e[1:]).all())
+    return "search" if ordered and e.numel() <= HISTOGRAM_SEARCH_MAX_EDGES \
+        else "counts"
+
+
+def _hist_runs(x2, parts: int, part_len: int, vals):
+    """Per-lane int64 ``vals`` of ``(R, n)`` rows summed into ``(R, parts)``
+    runs of ``part_len`` lanes."""
+    r, n = x2.shape
+    pad = parts * part_len - n
+    v = torch.nn.functional.pad(vals, (0, pad)) if pad else vals
+    return v.reshape(r, parts, part_len).sum(-1)
+
+
+def histogram_counts_plain(x2, edges, parts: int, part_len: int):
+    """The count pass's scratch in the counts form: ``(R, parts, E)`` int32
+    ``C_p(e[j])``, the lanes of run ``p`` of each ``(R, n)`` row with
+    ``v < e[j]`` (rows and edges in one dtype; the pad not counted)."""
+    return torch.stack([_hist_runs(x2, parts, part_len,
+                                   (x2 < e).to(torch.int64)) for e in edges],
+                       -1).to(torch.int32)
+
+
+def histogram_search_counts_plain(x2, edges, parts: int, part_len: int):
+    """The same ``(R, parts, E)`` scratch in the search form, as a block of
+    ``csrc/histogram.cu`` computes it: the edges in breadth-first order
+    padded to ``2^L - 1`` nodes with the compare type's largest value (``L
+    = ceil(log2(E + 1))``), each lane's branchless descent ``i = 2 i + 2 -
+    (v < node[i])``, its bin ``k = i - (2^L - 1)`` counted where ``k < E``,
+    and the bins prefix-summed.  Valid for edges that :func:`histogram_path`
+    sends to the search (any count of them here)."""
+    acc = _acc_dtype(x2.dtype)
+    v, e = x2.to(acc), edges.to(acc)
+    ne = e.numel()
+    levels = ne.bit_length()
+    top = torch.iinfo(acc).max if acc == torch.int32 else float("inf")
+    tree = torch.full(((1 << levels) - 1,), top, dtype=acc, device=v.device)
+    for nd in range(tree.numel()):
+        d = (nd + 1).bit_length() - 1          # node nd's depth
+        j = ((2 * (nd + 1 - (1 << d)) + 1) << (levels - 1 - d)) - 1
+        if j < ne:
+            tree[nd] = e[j]
+    i = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+    for _ in range(levels):
+        i = 2 * i + 2 - (v < tree[i]).to(torch.int64)
+    k = i - ((1 << levels) - 1)
+    bins = torch.stack([_hist_runs(x2, parts, part_len,
+                                   (k == b).to(torch.int64))
+                        for b in range(ne)], -1)
+    return torch.cumsum(bins, -1).to(torch.int32)
+
+
+def histogram_finish_plain(counts, edges, pad: int):
+    """Pass 2 of ``csrc/histogram.cu`` (``hist_finish``): ``C(e[j])`` over
+    a row's parts in order plus ``pad`` lanes valued ``e[M]``, then the
+    differences, all wrapping as int32 -> ``(R, M)``."""
+    cum = counts.to(torch.int64).sum(1)
+    cum = cum + pad * (edges[-1] < edges).to(torch.int64)
+    bins = (cum[:, 1:] - cum[:, :-1]) & 0xFFFFFFFF
+    return torch.where(bins >= 2 ** 31, bins - 2 ** 32, bins) \
+        .to(torch.int32)
+
+
+def histogram_search_plain(x, edges, section: int = 1024):
+    """§6.3 histogram by the kernel's search form: the rows and edges
+    promoted as :func:`histogram`, split by :func:`histogram_plan`,
+    counted by :func:`histogram_search_counts_plain` and finished by
+    :func:`histogram_finish_plain`.  Equal to :func:`histogram_plain` bit
+    for bit on edges that :func:`histogram_path` sends to the search;
+    raises on edges out of order or with a NaN, which take the counts
+    form."""
+    ct = torch.promote_types(x.dtype, edges.dtype)
+    x, edges = x.to(ct), edges.to(ct)
+    if edges.numel() < 2 or not bool(
+            (edges[:-1].to(_acc_dtype(ct)) <= edges[1:].to(_acc_dtype(ct)))
+            .all()):
+        raise ValueError("the search form takes at least two edges in "
+                         "non-decreasing order, free of NaN")
+    n = x.shape[-1]
+    x2 = x.reshape(-1, n)
+    parts, part_len = histogram_plan(x2.shape[0], n)
+    counts = histogram_search_counts_plain(x2, edges, parts, part_len)
+    out = histogram_finish_plain(counts, edges, (-n) % section)
+    return out.reshape(*x.shape[:-1], edges.numel() - 1)
 
 
 def histogram(x, edges, section: int = 1024):
     """§6.3 counts of every ``(..., N)`` row in the ``M`` bins of ``(M+1,)``
     edges -> ``(..., M)`` int32: one ``csrc/histogram.cu`` call for CUDA
     tensors (two device launches, the counts and their differences;
-    counted once in ``histogram.launches``), the plain twin for CPU
-    tensors.  Rows and edges promote to one dtype first, as the TPU
-    wrapper does."""
+    counted once in ``histogram.launches``; each block of the counts
+    takes the search form or the counts form by :func:`histogram_path`,
+    on the device), the plain twin for CPU tensors.  Rows and edges
+    promote to one dtype first, as the TPU wrapper does."""
     if not _on_card("histogram", x):
         return histogram_plain(x, edges, section)
     section = int(section)
@@ -959,7 +1079,7 @@ def histogram(x, edges, section: int = 1024):
     r = x2.shape[0]
     if r >= 2 ** 31 or n >= 2 ** 31:
         raise ValueError("histogram: more than 2**31 rows or lanes")
-    parts, part_len = reduce_plan(r, n, section)
+    parts, part_len = histogram_plan(r, n)
     counts = torch.empty((r, parts, e), dtype=torch.int32, device=x.device)
     out = torch.empty((r, e - 1), dtype=torch.int32, device=x.device)
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -1459,12 +1579,22 @@ def shift_range(x, start, end, shift: int = 1, fill=None):
 
 shift_range.launches = 0
 
-#: lanes a template_match block computes (TM_TILE of
-#: csrc/template_match.cu): it stages TM_TILE + 2 M - 1 float32 values
-TEMPLATE_TILE = 256
-#: the longest template whose tile halo and items fit a block's shared
-#: memory on the H100 (MAX_SMEM_BYTES)
-TEMPLATE_MAX_M = (MAX_SMEM_BYTES // 4 - TEMPLATE_TILE + 1) // 2
+#: outputs of a row a template_match block computes (TM_TILE of
+#: csrc/template_match.cu: 256 threads of 8 adjacent outputs)
+TEMPLATE_TILE = 2048
+#: template items a block stages at a time (TM_TCH)
+TEMPLATE_CHUNK = 2048
+
+
+def template_span(m: int, tile: int = TEMPLATE_TILE) -> int:
+    """Positions a ``template_match`` block stages: its tile and the ``M +
+    3`` lanes after it, rounded up to 4 (``tm_span``)."""
+    return (tile + m + 6) & ~3
+
+
+#: the longest template whose staged span and a template chunk fit a
+#: block's shared memory on the H100 (MAX_SMEM_BYTES; ``tm_smem_floats``)
+TEMPLATE_MAX_M = MAX_SMEM_BYTES // 4 - TEMPLATE_CHUNK - TEMPLATE_TILE - 3
 
 
 def template_match_plain(data, template):
@@ -1476,11 +1606,49 @@ def template_match_plain(data, template):
                      template.shape[-1])
 
 
+def template_src_plain(q, n: int, span: int):
+    """The lane staged position ``q`` of an ``n``-lane row reads in
+    ``csrc/template_match.cu``: ``q`` inside the row; past its end one
+    subtraction of ``n``, unless the row is shorter than the ``span`` a
+    block stages (a block-uniform test), which takes the modulo."""
+    q = torch.as_tensor(q, dtype=torch.int64)
+    past = q - n if n >= span else torch.remainder(q, n)
+    return torch.where(q < n, q, past)
+
+
+def template_tiled_plain(data, template, tile: int = TEMPLATE_TILE):
+    """The schedule of ``csrc/template_match.cu`` in torch: each ``tile``
+    of outputs of every row stages, as float32, the :func:`template_span`
+    positions after its first lane, each through
+    :func:`template_src_plain`; each output then adds ``|staged - t[j]|``
+    for ``j = 0 .. M-1`` in order, as ``cpm_sad`` does (the kernel's
+    register window and template chunks change what is read from where,
+    not the order of the sums).  Equal to :func:`template_match_plain`
+    bit for bit."""
+    r, n = data.shape
+    t = template.reshape(-1).to(torch.float32)
+    m = t.numel()
+    xf = data.to(torch.float32)
+    span = template_span(m, tile)
+    out = torch.empty((r, n), dtype=torch.float32, device=data.device)
+    for b0 in range(0, n, tile):
+        width = min(tile, n - b0)
+        q = torch.arange(b0, b0 + span, device=data.device)
+        staged = xf[:, template_src_plain(q, n, span)]
+        acc = torch.zeros((r, width), dtype=torch.float32,
+                          device=data.device)
+        for j in range(m):
+            acc = acc + torch.abs(staged[:, j:j + width] - t[j])
+        out[:, b0:b0 + width] = acc
+    return out
+
+
 def template_match(data, template):
     """§7.6 sliding SAD -> ``(R, N)`` float32: one ``csrc/template_match.cu``
     launch for CUDA tensors (counted in ``template_match.launches``; a
-    template of at most :data:`TEMPLATE_MAX_M` items), the plain twin
-    for CPU tensors."""
+    template of at most :data:`TEMPLATE_MAX_M` items; blocks of
+    :data:`TEMPLATE_TILE` outputs, :func:`template_tiled_plain`), the plain
+    twin for CPU tensors."""
     if not _on_card("template_match", data):
         return template_match_plain(data, template)
     if data.ndim != 2:
@@ -1495,8 +1663,8 @@ def template_match(data, template):
     m = t.shape[0]
     if m > TEMPLATE_MAX_M:
         raise ValueError(f"the template_match kernel takes templates of at "
-                         f"most {TEMPLATE_MAX_M} items (its tile halo and "
-                         f"the items in shared memory), got {m}")
+                         f"most {TEMPLATE_MAX_M} items (its staged span and "
+                         f"a template chunk in shared memory), got {m}")
     r, n = data.shape
     if r >= 2 ** 31 or n >= 2 ** 31:
         raise ValueError("template_match: more than 2**31 rows or lanes")
