@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
      all started together) and print the registers, static shared memory
      and spills ``-Xptxas -v`` reports for the kernels of the sort, flash
      attention, ``shift_range``, ``stencil``, ``histogram`` and
-     ``template_match``;
+     ``template_match``, and the instruction counts of the sort's
+     odd-even kernel (``cuobjdump -sass``) for its issue floor;
   2. hold each kernel against its plain PyTorch twin on the card, at the
      main paths' shapes, and time kernel, twin and the one PyTorch call
      that computes the same function where there is one
@@ -90,7 +91,13 @@ Phases, in order; any failure exits non-zero:
      five kernels are timed at these shapes (``histogram`` at 8 and 64
      edges on both forms, each with the form its blocks took), the full
      sorts (16,384 and 1,048,576 lanes) beside ``torch.sort``, with the
-     device launches of each sort call (``torch.profiler``);
+     device launches of each sort call (``torch.profiler``), and each
+     odd-even case on its own (1,024 cycles of the long rows, 128 cycles
+     of int32 and of float32 rows, the float full sort with its NaN row,
+     and 128 cycles of NaN-free float32 rows against the same rows with a
+     NaN in every tile: the integer loop against the NaN loop, each held
+     against the twin), each with its plan, its device launches, its
+     bound at the published peaks and its issue floor;
   9. instruction streams priced by cost, on phase 7's rows: with a scalar
      ``used_len = N - 7`` (each op one launch, counted), ``activate``,
      ``shift`` (with and without a fill, negative), ``insert`` and
@@ -178,6 +185,14 @@ SORT_R, SORT_N, SORT_LEN_STEP, LONG_SORT_STEPS = 64, 16384, 129, 1024
 #: the float32 rate outside the tensor cores (H100 SXM data sheet), for
 #: the bounds of kernels that compare rather than multiply
 F32_OPS_PER_S = 67e12
+#: the odd-even route's issue floor: min and max issue on the ALU pipe, 64
+#: lanes a clock on each of the H100's 132 SMs (CUDA programming guide,
+#: compute capability 9.0); in the SASS of oddeven_tiles the integer loop
+#: spends 0.75 ALU instructions a lane a cycle (a min for every pair, a
+#: max for half of them, the other half's max two IMADs on the FMA pipe),
+#: the NaN loop 3.5 (two compares, a min, a max and three selects a pair)
+SMS, ALU_LANES_PER_CLOCK = 132, 64
+OE_INT_ALU, OE_NAN_ALU = 0.75, 3.5
 # phase 9: the paper benchmark's T6 template lengths (benchmarks/run.py:151)
 # on phase 7's rows, a five-tap stencil with zero taps, and the cost
 # model's probe stream on rows of the allocator's longest length (two
@@ -288,8 +303,9 @@ def ptxas_report(build, names=("oddeven_sort", "flash_attention",
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 mangled = m.group(1)
-                base = re.search(r"(flash_fwd_\w+?_kernel|oddeven_pass|"
-                                 r"bitonic_tile|bitonic_stride|nan_rows|"
+                base = re.search(r"(flash_fwd_\w+?_kernel|oddeven_tiles|"
+                                 r"nan_chunks|bitonic_tile|bitonic_stride|"
+                                 r"nan_rows|"
                                  r"shift_range_kernel|stencil_kernel|"
                                  r"hist_count|hist_finish|"
                                  r"template_match_kernel)",
@@ -317,6 +333,48 @@ def ptxas_report(build, names=("oddeven_sort", "flash_attention",
                 sm = re.search(r"(\d+) bytes smem", line)
                 out[kern]["static_smem"] = int(sm.group(1)) if sm else 0
     return out
+
+
+def sass_counts(build, src: str = "oddeven_sort",
+                kernel: str = "oddeven_tiles") -> dict:
+    """Counts of the opcodes that set an exchange's issue (min / max,
+    IMAD other than a move, compares, selects, shuffles, barriers, and
+    local-memory loads and stores: spills) in each
+    instantiation of ``kernel`` in the library built from
+    ``csrc/<src>.cu``, by its dtype trait (``cuobjdump -sass`` of the CUDA
+    toolkit); {} where the tool is missing."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(build._lib_path(src))],
+                          capture_output=True, text=True, timeout=300).stdout
+    out = {}
+    for part in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0]
+        m = re.search(kernel + r"I(\d+)", name)
+        if not m:
+            continue
+        trait = name[m.end():m.end() + int(m.group(1))]
+        ops = {}
+        for op, mods in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                                   r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)",
+                                   part):
+            key = "IMAD.MOV" if op == "IMAD" and ".MOV" in mods else op
+            if key in ("VIMNMX", "IMNMX", "IMAD", "ISETP", "SEL", "SHFL",
+                       "BAR", "LDL", "STL"):
+                ops[key] = ops.get(key, 0) + 1
+        out[trait] = ops
+    return out
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def device_ms(fn, iters: int = 20):
@@ -1665,6 +1723,83 @@ def _bitonic_bound(r: int, n: int) -> float:
     return bound(0, 2.0 * r * (pad // 2) * steps, F32_OPS_PER_S)[0]
 
 
+def _oddeven_cases(torch, ck, data, card) -> dict:
+    """Each odd-even case of phase 8 on its own, held bit for bit against
+    the twin: its plan, device time, device launches, the bound at the
+    published peaks (the larger of the call's bytes and two operations an
+    exchange of the rows that take the cycles, at the float32 rate) and
+    the issue floor (ALU instructions a lane a cycle, OE_INT_ALU or
+    OE_NAN_ALU, at 64 lanes a clock on 132 SMs at the highest SM clock).
+    Beside the path's cases, 128 cycles of NaN-free float32 rows (every
+    tile on the integer loop) and of the same rows with a NaN in the
+    middle of every tile (every tile on the NaN loop)."""
+    clock = sm_clock_hz()
+    xs, xf = data["sort_in"]["int"], data["sort_in"]["float"]
+    xl, steps = data["sort_in"]["long"], data["steps"]
+    clean = torch.where(torch.isnan(xf), torch.zeros_like(xf), xf)
+    tile = ck.oddeven_plan(SORT_R, SORT_N, steps).interior
+    nan_tiles = clean.clone()
+    nan_tiles[:, tile // 2::tile] = float("nan")
+    cases = (("long_1024_int32", xl, LONG_SORT_STEPS, OE_INT_ALU),
+             ("bounded_128_int32", xs, steps, OE_INT_ALU),
+             ("bounded_128_float32", xf, steps, OE_INT_ALU),
+             ("full_float32_nan_row", xf, None, OE_NAN_ALU),
+             ("bounded_128_float32_no_nan", clean, steps, OE_INT_ALU),
+             ("bounded_128_float32_nan_every_tile", nan_tiles, steps,
+              OE_NAN_ALU))
+    out = {}
+    for name, x, st, alu in cases:
+        r, n = x.shape
+        cycles = n if st is None else st
+        full = cycles >= n
+        plan = ck.oddeven_plan(r, n, cycles, full=full, elem=x.element_size())
+
+        def call(x=x, st=st):
+            return ck.oddeven_sort(x, st)
+
+        if not torch.equal(_bits(torch, call()),
+                           _bits(torch, ck.oddeven_sort_plain(x, st))):
+            fail(f"oddeven_sort, {name}, disagrees with its twin")
+        ms, src, call_ms = timed(call, 3 if cycles >= 1024 else 20)
+        rows = int(torch.isnan(x).any(-1).sum()) if full else r
+        lane_cycles = rows * n * cycles
+        bound_ms, bound_by = bound(2 * x.numel() * x.element_size(),
+                                   lane_cycles, F32_OPS_PER_S)
+        out[name] = {
+            "shape": [r, n], "dtype": str(x.dtype), "steps": cycles,
+            "plan": plan._asdict(), "ms": ms, "ms_source": src,
+            "call_ms": call_ms, "cycle_rows": rows,
+            "issue_floor_ms": lane_cycles * alu
+            / (SMS * ALU_LANES_PER_CLOCK * clock) * 1e3,
+            "bound_ms": bound_ms, "bound_by": bound_by, "sm_clock_hz": clock,
+            "device_launches": device_launches(call, 3)}
+        print(f"oddeven_sort {name}: {out[name]}; {card}")
+    # what the long rows' time is made of, under their own plan's tiles:
+    # one pass of 0 cycles (the loads and stores alone) and one of a full
+    # pass's cycles, whose difference gives the rate of a cycle against
+    # the ALU's (every warp segment's lanes, its end threads' included)
+    plan = ck.oddeven_plan(CPM_R, CPM_N, LONG_SORT_STEPS)
+    real, t = ck.oddeven_plan, {}
+    try:
+        for cycles in (0, plan.per_pass):
+            one = plan._replace(per_pass=cycles, passes=1)
+            ck.oddeven_plan = lambda *a, one=one, **k: one
+            t[cycles] = timed(lambda c=cycles: ck.oddeven_sort(xl, c), 3)[0]
+    finally:
+        ck.oddeven_plan = real
+    seg = CPM_R * plan.tiles * plan.warps * 32 * ck.OE_K * plan.per_pass
+    rate = seg / ((t[plan.per_pass] - t[0]) * 1e-3)
+    out["long_1024_int32"]["pass_io_ms"] = t[0]
+    out["long_1024_int32"]["pass_ms"] = t[plan.per_pass]
+    out["long_1024_int32"]["cycle_alu_share"] = (
+        rate * OE_INT_ALU / (SMS * ALU_LANES_PER_CLOCK * clock))
+    print(f"oddeven_sort long rows, one pass of their tiles: 0 cycles "
+          f"{t[0]:.4f} ms, {plan.per_pass} cycles {t[plan.per_pass]:.4f} "
+          f"ms; a cycle at {out['long_1024_int32']['cycle_alu_share']:.3f}"
+          f" of the ALU rate; {card}")
+    return out
+
+
 def time_cpm2_kernels(torch, dev, data, errs, card):
     """The five phase-8 kernels at their shapes: device time, twin, bound
     and the PyTorch call that computes the same function (``card``: the
@@ -1779,21 +1914,6 @@ def time_cpm2_kernels(torch, dev, data, errs, card):
             rec["oddeven_network_bound_ms"] = bound(
                 0, 2.0 * SORT_R * SORT_N * -(-SORT_N // 2),
                 F32_OPS_PER_S)[0]
-            xf = data["sort_in"]["float"]
-            rec["float_nan_row"] = {
-                "ms": timed(lambda: ck.oddeven_sort(xf), 5)[0],
-                "device_launches": device_launches(
-                    lambda: ck.oddeven_sort(xf), 2)}
-            rec["bounded"] = {
-                "steps": steps,
-                "ms": timed(lambda: ck.oddeven_sort(xs, steps), 20)[0],
-                "plain_ms": cuda_ms(lambda: ck.oddeven_sort_plain(
-                    xs, steps), iters=1, warmup=0),
-                "bound_ms": bound(2 * xs.numel() * 4, 2.0 * SORT_R * steps
-                                  * -(-SORT_N // 2), F32_OPS_PER_S)[0],
-                "library_ms": None}
-            rec["bounded"]["device_launches"] = device_launches(
-                lambda: ck.oddeven_sort(xs, steps))
             xl = data["sort_in"]["long"]
             rec["long_full"] = {
                 "shape": [CPM_R, CPM_N],
@@ -1806,19 +1926,13 @@ def time_cpm2_kernels(torch, dev, data, errs, card):
                 "network_bound_ms": _bitonic_bound(CPM_R, CPM_N),
                 "device_launches": device_launches(
                     lambda: ck.oddeven_sort(xl), 2)}
-            rec["long"] = {
-                "shape": [CPM_R, CPM_N], "steps": LONG_SORT_STEPS,
-                "ms": timed(lambda: ck.oddeven_sort(xl, LONG_SORT_STEPS),
-                            5)[0],
-                "bound_ms": bound(2 * xl.numel() * 4,
-                                  2.0 * CPM_R * LONG_SORT_STEPS
-                                  * -(-CPM_N // 2), F32_OPS_PER_S)[0]}
+            rec["oddeven_cases"] = _oddeven_cases(torch, ck, data, card)
+            rec["bounded_plain_ms"] = cuda_ms(
+                lambda: ck.oddeven_sort_plain(xs, steps), iters=1, warmup=0)
             rec["full_device_launches"] = device_launches(fn)
             print(f"oddeven_sort full (int32) device launches "
-                  f"{rec['full_device_launches']}; float rows with a "
-                  f"NaN row {rec['float_nan_row']}; bounded "
-                  f"{rec['bounded']}; long full {rec['long_full']}; long "
-                  f"{rec['long']}; {card}")
+                  f"{rec['full_device_launches']}; long full "
+                  f"{rec['long_full']}; {card}")
         else:
             rec["shape"] = [CPM_R, CPM_N]
         if name == "histogram":
@@ -2463,9 +2577,12 @@ def main(argv=None) -> int:
     ptxas = ptxas_report(_build)
     for kern, info in ptxas.items():
         print(f"ptxas {kern}: {info}")
+    sass = sass_counts(_build)
+    print(f"sass oddeven_tiles opcodes by dtype: {sass}")
 
     full = get_config("granite-8b")
     record = {"card": card, "torch": torch.__version__, "ptxas": ptxas,
+              "sass": sass,
               "config": {"n_heads": full.n_heads,
                          "n_kv_heads": full.n_kv_heads,
                          "head_dim": full.dh}}

@@ -49,67 +49,111 @@
 //  * The odd-even route: the cycles themselves, for bounded sorts
 //    (steps < N) and for float rows with a NaN in a full sort, where NaN
 //    spreading makes the result depend on the network (in a full sort the
-//    odd-even blocks of unflagged rows return at entry).  A block holds a
-//    tile of one row, SORT_K consecutive lanes a thread, in registers.  A
-//    cycle whose pairs start at even lanes of the tile (the tile starts at
-//    a lane of the same parity for every thread, SORT_K being even) is
-//    SORT_K / 2 min/max pairs in registers; the other parity also trades
-//    each thread's end lanes with its neighbours through shared memory
-//    (ping-pong buffers, one __syncthreads).  Float keys check each pair
-//    for NaN; integer keys need not.
-// Why one barrier a cross cycle is enough: every thread runs the same
-// cycles (the count is uniform), and at a cross cycle it writes its
-// slots of buffer `use`, waits at the barrier, then reads its
-// neighbours' slots of `use`.  The next write to `use` comes two cross
-// cycles later, after the barrier of the cross cycle between, which no
-// thread passes before every thread has finished its reads of `use`.  So
-// no read sees a stale or a later value, and no write lands under a
-// read.  (A float fast path for tiles without NaN, picked by a
-// block-wide vote between two copies of this loop, gave wrong exchanges
-// across threads when built with -O3 and right ones with -Xptxas -O0;
-// its cause is not established: one loop per dtype is kept, and the
-// bitonic route is chosen per row by a flag in device memory read at a
-// block's entry, never by a vote.)
-// A row of up to SORT_TILE lanes is one tile, and the odd-even route is
-// one launch.  A longer row is cut into tiles of `interior` lanes, each
-// loaded with `halo` lanes more on either side: a cycle moves
-// information one lane, so after h <= halo cycles the interior is exact
-// (the halo lanes, whose partners may lie outside the tile, are not
-// written back).  Such a call runs ceil(steps / halo) passes of at most
-// `halo` cycles, ping-ponging between the output and a scratch row
-// buffer, the parity following the absolute lane index and the global
-// cycle number.  The TPU kernel keeps a whole row in VMEM for all its
-// cycles; the wrapper plans the tiles (kernels/cpm_kernels.py
-// oddeven_plan).
+//    odd-even blocks of unflagged rows skip their tiles).
 //
-// What bounds it on the H100: a sort moves 2 * R * N * elem bytes; the
-// odd-even network adds R * steps * ~N/2 compare-exchanges (8.6e9 for a
-// full sort of (64, 16,384) rows, 0.26 ms at 67e12 operations/s, and a
-// barrier every other cycle), the bitonic one R * P/2 * p(p+1)/2 (55e6
-// there).  At (64, 16,384) int32 the bitonic route is five launches (a
-// tile sort of 4,096-key tiles, two device-memory stride passes, two
-// tile merges) over 4 MB that stay in L2; at (64, 1,048,576) it is
-// sixteen passes for each of 16 groups of 4 rows.  Measured there, the
-// tile passes' shared-memory and shuffle steps take most of the time,
-// not the bytes (PERF.md §6, row 3b).
+// The odd-even route (oddeven_tiles; plan: kernels/cpm_kernels.py
+// oddeven_plan, replayed on the CPU by oddeven_tiled_plain).
+//  * Halo tiles.  A cycle moves information one lane, so lanes that are
+//    exact at the start of c cycles leave, c lanes in from either edge of
+//    their span, lanes that are exact at the end.  A block takes a tile
+//    of `interior` lanes with `halo` lanes more on either side (lanes
+//    outside the row are pads, below) and writes back only the interior,
+//    after at most `halo` cycles.  A row is cut into as many tiles as the
+//    plan chooses, so short rows run many blocks and a long run of cycles
+//    is spread over every tile of its row.
+//  * Warp segments.  A thread holds OE_K = 16 consecutive lanes in
+//    registers; a warp's 32 threads a segment of 512 lanes.  Segments
+//    overlap by two threads: the first and last thread of a warp hold the
+//    16 lanes next to its 480 interior lanes, copies of the neighbouring
+//    warps' end lanes.  A warp runs OE_HALO = 16 cycles (a round) on its
+//    segment with no block barrier: pairs inside a thread in registers,
+//    pairs across two threads through __shfl_up_sync / __shfl_down_sync
+//    (full masks; a warp's end threads pair their outer lane with their
+//    own other end, values that never reach the interior in a round).
+//    Then the second and second-last thread of every warp publish their
+//    lanes to a shared-memory halo buffer, one __syncthreads, and the end
+//    threads copy their neighbours' lanes in.  Two halo buffers are used
+//    in turn, so one barrier a round is enough (a buffer is written again
+//    two rounds later, after the barrier between, which no thread passes
+//    before all have read it).  So a 16-cycle round costs one barrier,
+//    not eight.
+//  * Pads.  A lane left of the row holds the key of -inf (INT_MIN for
+//    integers), a lane right of it the key of +inf (INT_MAX): the row's
+//    end lanes take them as partners and keep their own value, as a lane
+//    without a partner does.  A pad changes only into a NaN that its row
+//    end already holds and keeps (a NaN lane never changes), so a pad
+//    never changes a lane of the row.  The window's own end lanes (and a
+//    segment's, paired with their own thread's other end) go wrong from
+//    their first cycle, and a wrong value reaches at most one lane more a
+//    cycle: never a tile's interior within `halo` cycles, never a
+//    segment's interior within a round.
+//  * Keys in a tile: the key plus kShift, compared unsigned, which puts
+//    every NaN above +inf.  Then max(a, b) of a pair is its NaN where it
+//    has one, and the NaN-aware exchange is two compares, a min, a max
+//    and three selects a pair (NaN lanes keep their own bits).
+//  * The NaN test only where a NaN can be.  A tile whose lanes hold no
+//    NaN key exchanges by integer min and max, which is exact there and
+//    cannot make a NaN; half its pairs take the max as a + b - min (two
+//    IMADs on the FMA pipe), the other half as a max, which shares the
+//    min / max issue between two pipes.  Float rows are first scanned
+//    (nan_chunks: one flag in device memory for every OE_CHUNK lanes).  A
+//    NaN spreads one lane a cycle, so after `done` cycles of the call a
+//    lane can hold one only within `done` lanes of a flagged chunk: every
+//    thread of a block reads the same flags covering its window widened
+//    by `done` and takes the same loop (no vote); both loops are in the
+//    same kernel, behind a branch that is uniform over the block.
+//  * Passes.  More cycles than one halo allows run in passes of at most
+//    `per_pass` cycles, ping-ponging between `out` and `scratch` (the
+//    last pass writes `out`).  A one-pass plan is one plain launch, a
+//    tile a block.  A plan of several passes is one cooperative launch
+//    (cudaLaunchCooperativeKernel: every block resident, or the launch is
+//    refused): the blocks stride over the tiles and meet at a grid-wide
+//    barrier between passes (an arrival count in device memory, zeroed
+//    before the launch; a block that waits about a minute traps instead
+//    of hanging).  Tiles read a pass's input through L2 (__ldcg), so no
+//    block reads a stale L1 line of the previous pass's output.
+//
+// What bounds it on the H100: a compare-exchange is two operations, a min
+// and a max; min and max issue on the ALU pipe (64 lanes a clock per SM).
+// 1,024 cycles of (64, 1,048,576) rows are 6.9e10 min or max, 4.1 ms at
+// that rate and 1.98 GHz; the integer loop moves a quarter of them to the
+// FMA pipe.  The segment halos add 512 / 480 and the tile halos (interior
+// + 2 halo) / interior of work, each pass one more read and write of the
+// rows (a window's loads all in flight at once); the plan weighs them.  A
+// float row with a NaN runs the NaN loop on the tiles the NaN can reach,
+// 3.5 ALU instructions a lane a cycle; a full sort spreads such a row
+// over many blocks and passes (PERF.md §6, row 3).
 
 #include <climits>
 
 #include "cpm_ops.cuh"
 
-#define SORT_THREADS 1024
-#define SORT_K 16                               // lanes a thread holds
-#define SORT_TILE (SORT_THREADS * SORT_K)
+#define OE_K 16                                 // lanes a thread holds
+#define OE_HALO OE_K                            // a segment's lanes of each
+                                                // neighbour
+#define OE_ROUND 16                             // cycles a round, <= OE_HALO
+#define OE_STEP (32 * OE_K - 2 * OE_HALO)       // a segment's interior: 480
+#define OE_MAX_WARPS (512 / OE_K)               // windows of <= 15,360 lanes
+#define OE_VEC (OE_K / 4)                       // 16-byte vectors a thread
+#define OE_CHUNK 1024                           // lanes a NaN flag covers
+#define OE_LOADS OE_K               // window lanes a thread loads: a window
+                                   // of nw warps is 30 nw + 2 <= 32 nw OE_K
+#define OE_FULL 0xffffffffu
 
 namespace {
 
 // Order-preserving int32 keys of each storage type.  MASK flips the
 // magnitude bits of a negative float; INF is the bits of +inf (NaN: a
-// magnitude above it).
+// magnitude above it).  The odd-even route adds kShift to a key, modulo
+// 2^32, so that unsigned order is the key order and every NaN key lies
+// above kTop, the largest non-NaN key (+inf); 0 is the smallest (-inf):
+// integers add 2^31, floats INF + 1 (the NaN keys of negative sign wrap
+// round to just above those of positive sign).
 template <class Tr>
 struct Key {                                    // integers and bool
   using S = typename Tr::S;
   static constexpr bool kFloat = false;
+  static constexpr unsigned kShift = 0x80000000u, kTop = 0xffffffffu;
   static __device__ __forceinline__ int of(S v) { return (int)v; }
   static __device__ __forceinline__ S back(int k) { return (S)k; }
   static __device__ __forceinline__ bool nan(int) { return false; }
@@ -117,6 +161,8 @@ struct Key {                                    // integers and bool
 template <int MASK, int INF>
 struct FloatKey {
   static constexpr bool kFloat = true;
+  static constexpr unsigned kShift = (unsigned)INF + 1u;
+  static constexpr unsigned kTop = 2u * (unsigned)INF + 1u;
   static __device__ __forceinline__ int flip(int b) {
     return b >= 0 ? b : b ^ MASK;               // an involution
   }
@@ -152,14 +198,55 @@ struct Key<BF16T> : FloatKey<0x7fff, 0x7f80> {
   }
 };
 
-// One compare-exchange of the pair (a left, b right): a takes
-// jnp.minimum(a, b), b takes jnp.maximum(b, a).
+// ---------------------------------------------------------------------------
+// the odd-even route
+// ---------------------------------------------------------------------------
+
+// Keys of a tile: Kt's key plus Kt::kShift (unsigned order, NaN above
+// kTop).
 template <class Kt>
-__device__ __forceinline__ void exchange(int& a, int& b) {
-  const int lo = a < b ? a : b, hi = a < b ? b : a;
-  if (Kt::kFloat) {
-    const bool na = Kt::nan(a), nb = Kt::nan(b);
-    const int l = na ? a : (nb ? b : lo), h = nb ? b : (na ? a : hi);
+__device__ __forceinline__ unsigned oe_key(int k) {
+  return (unsigned)k + Kt::kShift;
+}
+template <class Kt>
+__device__ __forceinline__ int oe_unkey(unsigned u) {
+  return (int)(u - Kt::kShift);
+}
+
+// 1 and -1 the compiler cannot see, so that max(a, b) = a + b - min(a, b)
+// (modulo 2^32) is two IMADs on the FMA pipe, off the ALU pipe that takes
+// every min and max: half the pairs of the integer loop take this form
+__constant__ unsigned oe_one = 1u, oe_minus_one = 0xffffffffu;
+
+// The new value of a left lane `a` whose right partner holds `b`
+// (jnp.minimum(a, b)), and of a right lane `b` whose left partner holds
+// `a` (jnp.maximum(b, a)).  WITH_NAN false: keys without NaN.  With NaN
+// keys above every other, max(a, b) is the NaN of a pair with one, so
+// the right lane keeps a NaN of its own or takes the max, and the left
+// lane keeps a NaN of its own, else takes the max where the right one is
+// a NaN, else the min.
+template <bool WITH_NAN, class Kt>
+__device__ __forceinline__ unsigned left_lane(unsigned a, unsigned b) {
+  const unsigned lo = min(a, b);
+  if (!WITH_NAN) return lo;
+  return a > Kt::kTop ? a : (b > Kt::kTop ? b : lo);
+}
+template <bool WITH_NAN, class Kt>
+__device__ __forceinline__ unsigned right_lane(unsigned a, unsigned b) {
+  const unsigned hi = max(a, b);
+  if (!WITH_NAN) return hi;
+  return b > Kt::kTop ? b : hi;
+}
+template <bool WITH_NAN, class Kt>
+__device__ __forceinline__ void pair(unsigned& a, unsigned& b,
+                                     bool sum = false) {
+  const unsigned lo = min(a, b);
+  const unsigned hi = sum && !WITH_NAN
+                          ? lo * oe_minus_one + (a * oe_one + b)
+                          : max(a, b);
+  if (WITH_NAN) {
+    const bool na = a > Kt::kTop, nb = b > Kt::kTop;
+    const unsigned l = na ? a : (nb ? hi : lo), h = nb ? b : hi;
     a = l;
     b = h;
   } else {
@@ -168,112 +255,311 @@ __device__ __forceinline__ void exchange(int& a, int& b) {
   }
 }
 
-template <class Kt>
-__device__ __forceinline__ void cycles_of(int (&v)[SORT_K], int valid,
-                                          int w, int tid, int cycles,
-                                          long long phase,
-                                          int (*first)[SORT_THREADS],
-                                          int (*last)[SORT_THREADS]) {
+// A cycle whose pairs start at a thread's first lane: (0,1), (2,3), ...
+template <bool WITH_NAN, class Kt>
+__device__ __forceinline__ void cycle_in(unsigned (&v)[OE_K]) {
+#pragma unroll
+  for (int j = 0; j < OE_K; j += 2)
+    pair<WITH_NAN, Kt>(v[j], v[j + 1], (j & 2) == 0);
+}
+
+// The other parity: (1,2), ..., (K-3,K-2) in registers, and each end lane
+// with the neighbouring thread's (lane 31 of a warp pairs its last lane
+// with its own first, lane 0 its first with its own last: halo values).
+template <bool WITH_NAN, class Kt>
+__device__ __forceinline__ void cycle_across(unsigned (&v)[OE_K]) {
+  const unsigned right = __shfl_down_sync(OE_FULL, v[0], 1);
+  const unsigned left = __shfl_up_sync(OE_FULL, v[OE_K - 1], 1);
+#pragma unroll
+  for (int j = 1; j + 1 < OE_K; j += 2)
+    pair<WITH_NAN, Kt>(v[j], v[j + 1], (j & 2) == 0);
+  v[OE_K - 1] = left_lane<WITH_NAN, Kt>(v[OE_K - 1], right);
+  v[0] = right_lane<WITH_NAN, Kt>(left, v[0]);
+}
+
+// `cycles` cycles of a warp segment, the first pairing inside a thread
+// when `in`, in rounds of at most OE_ROUND cycles with the end threads
+// refreshed from the neighbouring warps between rounds.  `halo`: two
+// buffers of (warps, 2, OE_K) keys.  The round count is the same for
+// every thread of the block, so every __syncthreads is reached by all.
+template <bool WITH_NAN, class Kt>
+__device__ __forceinline__ void rounds(unsigned (&v)[OE_K], int cycles,
+                                       bool in, unsigned* halo, int w,
+                                       int lane, int nw) {
   int use = 0;
-  const bool right_cross = valid == SORT_K && (tid + 1) * SORT_K < w;
-  const bool left_cross = tid > 0 && valid >= 1;
-  for (int c = 0; c < cycles; ++c) {
-    if (((phase + c) & 1) == 0) {               // pairs (0,1), (2,3), ...
+  for (int done = 0; done < cycles;) {
+    const int s = cycles - done < OE_ROUND ? cycles - done : OE_ROUND;
+    if (s == OE_ROUND) {                        // an even count: `in` stays
+      if (in) {
 #pragma unroll
-      for (int j = 0; j + 1 < SORT_K; j += 2)
-        if (j + 1 < valid) exchange<Kt>(v[j], v[j + 1]);
-    } else {                                    // (1,2), ... and the ends
-      first[use][tid] = v[0];
-      last[use][tid] = v[SORT_K - 1];
-      __syncthreads();
-      int self0 = v[0], selfk = v[SORT_K - 1];
+        for (int c = 0; c < OE_ROUND; c += 2) {
+          cycle_in<WITH_NAN, Kt>(v);
+          cycle_across<WITH_NAN, Kt>(v);
+        }
+      } else {
 #pragma unroll
-      for (int j = 1; j + 1 < SORT_K - 1; j += 2)
-        if (j + 1 < valid) exchange<Kt>(v[j], v[j + 1]);
-      if (left_cross) {
-        int l = last[use][tid - 1];
-        exchange<Kt>(l, self0);
-        v[0] = self0;
+        for (int c = 0; c < OE_ROUND; c += 2) {
+          cycle_across<WITH_NAN, Kt>(v);
+          cycle_in<WITH_NAN, Kt>(v);
+        }
       }
-      if (right_cross) {
-        int rt = first[use][tid + 1];
-        exchange<Kt>(selfk, rt);
-        v[SORT_K - 1] = selfk;
+    } else {
+      for (int c = 0; c < s; ++c) {
+        if (in)
+          cycle_in<WITH_NAN, Kt>(v);
+        else
+          cycle_across<WITH_NAN, Kt>(v);
+        in = !in;
+      }
+    }
+    done += s;
+    if (done < cycles) {
+      unsigned* buf = halo + use * nw * 2 * OE_K;
+      if (lane == 1 || lane == 30) {
+        unsigned* dst = buf + (w * 2 + (lane == 30)) * OE_K;
+#pragma unroll
+        for (int j = 0; j < OE_K; ++j) dst[j] = v[j];
+      }
+      __syncthreads();
+      if ((lane == 0 && w > 0) || (lane == 31 && w + 1 < nw)) {
+        const unsigned* src = lane == 0 ? buf + ((w - 1) * 2 + 1) * OE_K
+                                   : buf + ((w + 1) * 2) * OE_K;
+#pragma unroll
+        for (int j = 0; j < OE_K; ++j) v[j] = src[j];
       }
       use ^= 1;
     }
   }
 }
 
-// One odd-even pass.  `only` (a full sort of float rows) names the rows
-// that take the cycles, those holding a NaN: a block of another row
-// returns at entry, before any barrier; the flag is uniform over the block.
+// The shared-memory word of tile slot i: each thread's OE_K keys are
+// OE_VEC 16-byte vectors, their order rotated by bits of the thread's
+// group b, so the vectors of 8 consecutive threads that a warp reads in
+// one 128-byte phase fall in different banks.
+#define OE_SWZ_SHIFT (OE_VEC >= 8 ? 0 : OE_VEC == 4 ? 1 : 2)
+__device__ __forceinline__ int oe_slot(int i) {
+  const int b = i / OE_K, j = (i % OE_K) >> 2;
+  return b * OE_K + ((j ^ ((b >> OE_SWZ_SHIFT) & (OE_VEC - 1))) << 2) +
+         (i & 3);
+}
+
+// Arrival count `bar` (zeroed before the launch) reaching `target`: the
+// whole grid's blocks have finished the pass.
+__device__ __forceinline__ void grid_barrier(unsigned* bar,
+                                             unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    const long long t0 = clock64();
+    while (*(volatile unsigned*)bar < target) {
+      __nanosleep(64);
+      if (clock64() - t0 > (1LL << 37)) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The tiles of every row, `passes` passes of at most `per_pass` cycles
+// (see above).  A block of nw warps holds a window of nw * OE_STEP lanes
+// (a tile's interior and its halo on either side) plus OE_HALO slots on
+// either side for the end warps' outer threads.  `only` (a full sort of
+// float rows) names the rows that take the cycles; `nanf` holds the NaN
+// flags of each row's OE_CHUNK-lane chunks (float dtypes).
 template <class Tr>
-__global__ void __launch_bounds__(SORT_THREADS)
-oddeven_pass(const typename Tr::S* __restrict__ src,
-             typename Tr::S* __restrict__ dst, long long n,
-             long long interior, long long halo, int tiles, int cycles,
-             long long cycle0, const int* __restrict__ only) {
+__global__ void __launch_bounds__(OE_MAX_WARPS * 32)
+oddeven_tiles(const typename Tr::S* __restrict__ x,
+              typename Tr::S* __restrict__ out,
+              typename Tr::S* __restrict__ scratch,
+              const int* __restrict__ only,
+              const unsigned char* __restrict__ nanf, unsigned* bar,
+              long long n, int rows, int interior, int halo, int tiles,
+              int steps, int per_pass, int passes, int chunks) {
   using Kt = Key<Tr>;
-  __shared__ int first[2][SORT_THREADS], last[2][SORT_THREADS];
-  const long long r = blockIdx.x / tiles, t = blockIdx.x % tiles;
-  if (only != nullptr && only[r] == 0) return;
-  const long long i0 = t * interior;                 // first interior lane
-  const long long i1 = i0 + interior < n ? i0 + interior : n;
-  const long long lo = i0 - halo > 0 ? i0 - halo : 0;
-  const long long hi = i1 + halo < n ? i1 + halo : n;
-  const int w = (int)(hi - lo);
-  const int tid = threadIdx.x;
-  const int own = w - tid * SORT_K;
-  const int valid = own < 0 ? 0 : (own > SORT_K ? SORT_K : own);
-  const long long base = lo + (long long)tid * SORT_K;
-  const typename Tr::S* row = src + r * n;
-  int v[SORT_K];
+  using S = typename Tr::S;
+  extern __shared__ int4 oe_smem[];
+  unsigned* tile = reinterpret_cast<unsigned*>(oe_smem);
+  const int nw = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wt = nw * OE_STEP + 2 * OE_HALO;    // tile slots
+  unsigned* hbuf = tile + wt;
+  const int items = rows * tiles;              // < 2^31 (run)
+  const int first = w * OE_STEP + lane * OE_K;  // slot of v[0]
+  if (only != nullptr) {             // no row flagged: the whole grid
+    int any = 0;                     // returns here, before any barrier
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) any |= only[i];
+    if (!__syncthreads_or(any)) return;
+  }
+  const S* src = x;
+  int done = 0;
+  for (int p = 0; p < passes; ++p) {
+    S* dst = ((passes - 1 - p) & 1) == 0 ? out : scratch;
+    const int cycles = steps - done < per_pass ? steps - done : per_pass;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int r = it / tiles, t = it % tiles;
+      if (only != nullptr && only[r] == 0) continue;
+      const long long i0 = (long long)t * interior;
+      const long long base = i0 - halo - OE_HALO;   // lane of slot 0
+      bool with_nan = false;
+      if (Kt::kFloat) {             // flags of the window widened by `done`
+        const long long a = base - done > 0 ? base - done : 0;
+        const long long b = base + wt + done < n ? base + wt + done : n;
+        for (long long c = a / OE_CHUNK; a < b && c <= (b - 1) / OE_CHUNK;
+             ++c)
+          with_nan = with_nan || nanf[(long long)r * chunks + c] != 0;
+      }
+      __syncthreads();              // the last tile's reads of `tile` done
+      // the window: OE_LOADS lanes a thread (wt <= 16 * 32 * nw), every
+      // load in flight at once (a clamped lane, so none waits on a branch)
+      const S* row = src + (long long)r * n;
+      unsigned raw[OE_LOADS];
 #pragma unroll
-  for (int k = 0; k < SORT_K; ++k)
-    v[k] = k < valid ? Kt::of(row[base + k]) : 0;
-  // pairs of cycle c start at lanes of parity (cycle0 + c) % 2: at even
-  // register slots when that equals lo's parity
-  cycles_of<Kt>(v, valid, w, tid, cycles, cycle0 + (lo & 1), first, last);
-  typename Tr::S* out = dst + r * n;
+      for (int q = 0; q < OE_LOADS; ++q) {
+        const long long g = base + threadIdx.x + q * blockDim.x;
+        const long long c = g < 0 ? 0 : (g < n ? g : n - 1);
+        const unsigned k = oe_key<Kt>(Kt::of(__ldcg(row + c)));
+        raw[q] = g < 0 ? 0u : (g < n ? k : Kt::kTop);
+      }
 #pragma unroll
-  for (int k = 0; k < SORT_K; ++k) {
-    const long long g = base + k;
-    if (k < valid && g >= i0 && g < i1) out[g] = Kt::back(v[k]);
+      for (int q = 0; q < OE_LOADS; ++q) {
+        const int i = threadIdx.x + q * blockDim.x;
+        if (i < wt) tile[oe_slot(i)] = raw[q];
+      }
+      __syncthreads();
+      unsigned v[OE_K];
+#pragma unroll
+      for (int q = 0; q < OE_VEC; ++q) {
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            tile + oe_slot(first + 4 * q));
+        v[4 * q] = u.x;
+        v[4 * q + 1] = u.y;
+        v[4 * q + 2] = u.z;
+        v[4 * q + 3] = u.w;
+      }
+      // cycle `done` pairs lanes from the parity of `done`; a thread's
+      // first lane has the parity of `base` (OE_K and OE_STEP are even)
+      const bool in = ((done ^ base) & 1) == 0;
+      if (with_nan)
+        rounds<true, Kt>(v, cycles, in, hbuf, w, lane, nw);
+      else
+        rounds<false, Kt>(v, cycles, in, hbuf, w, lane, nw);
+      __syncthreads();              // every segment and halo read is done
+      if (lane >= 1 && lane < 31) {
+#pragma unroll
+        for (int q = 0; q < OE_VEC; ++q)
+          *reinterpret_cast<uint4*>(tile + oe_slot(first + 4 * q)) =
+              make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+      }
+      __syncthreads();
+      S* orow = dst + (long long)r * n + i0;
+      const int m = n - i0 < interior ? (int)(n - i0) : interior;
+      for (int i = threadIdx.x; i < m; i += blockDim.x)
+        orow[i] = Kt::back(oe_unkey<Kt>(tile[oe_slot(OE_HALO + halo + i)]));
+    }
+    done += cycles;
+    if (p + 1 < passes) grid_barrier(bar, (unsigned)(p + 1) * gridDim.x);
+    src = dst;
   }
 }
 
+// nanf[r * chunks + c] = 1 where lanes [c, c + 1) * OE_CHUNK of row r hold
+// a NaN key, else 0 (a block a chunk).
 template <class Tr>
-int run(const void* x, void* out, void* scratch, int R, long long n,
-        long long steps, long long interior, long long halo, int passes,
+__global__ void __launch_bounds__(256)
+nan_chunks(const typename Tr::S* __restrict__ x,
+           unsigned char* __restrict__ nanf, long long n, long long chunks) {
+  using Kt = Key<Tr>;
+  const long long r = blockIdx.x / chunks, c = blockIdx.x % chunks;
+  const long long lo = c * OE_CHUNK;
+  const long long hi = lo + OE_CHUNK < n ? lo + OE_CHUNK : n;
+  const typename Tr::S* row = x + r * n;
+  bool any = false;
+  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x)
+    any = any || oe_key<Kt>(Kt::of(row[i])) > Kt::kTop;
+  const int found = __syncthreads_or(any);
+  if (threadIdx.x == 0) nanf[blockIdx.x] = (unsigned char)(found != 0);
+}
+
+// The odd-even route of a call (kernels/cpm_kernels.py oddeven_plan):
+// `warps` warps a block, tiles of `interior` lanes and `halo` more on
+// either side, `passes` passes of at most `per_pass` cycles.
+template <class Tr>
+int run(const void* x, void* out, void* scratch, unsigned char* nanf,
+        unsigned* bar, int R, long long n, long long steps, int warps,
+        long long interior, long long halo, long long per_pass, int passes,
         const int* only, cudaStream_t s) {
   using S = typename Tr::S;
-  if (interior < 1 || halo < 0 || passes < 1 ||
-      (passes == 1 && interior < n && halo < steps) ||
-      (passes > 1 && (halo < 1 || scratch == nullptr)))
+  using Kt = Key<Tr>;
+  if (warps < 1 || warps > OE_MAX_WARPS || interior < 1 || halo < 0 ||
+      interior + 2 * halo > (long long)warps * OE_STEP || passes < 1 ||
+      per_pass < 0 || per_pass > steps ||
+      (steps == 0 ? passes != 1
+                  : ((long long)(passes - 1) * per_pass >= steps ||
+                     (long long)passes * per_pass < steps)) ||
+      (passes > 1 && (scratch == nullptr || bar == nullptr)) ||
+      (Kt::kFloat && nanf == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long tiles = (n + interior - 1) / interior;
-  const long long wmax = interior + 2 * halo < n ? interior + 2 * halo : n;
-  if (wmax > SORT_TILE || (long long)R * tiles > 0x7fffffffLL)
+  if (tiles > 1 && per_pass > halo) return (int)cudaErrorInvalidValue;
+  const long long items = (long long)R * tiles;
+  const long long chunks = (n + OE_CHUNK - 1) / OE_CHUNK;
+  if (items > 0x7fffffffLL || (long long)R * chunks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  int threads = (int)((wmax + SORT_K - 1) / SORT_K);
-  threads = (threads + 31) / 32 * 32;
-  const S* src = static_cast<const S*>(x);
-  long long done = 0;
-  for (int p = 0; p < passes; ++p) {
-    // the last pass writes `out`; the ones before alternate with scratch
-    S* dst = static_cast<S*>((passes - 1 - p) % 2 == 0 ? out : scratch);
-    const long long left = steps - done;
-    const int cycles = (int)(passes == 1 ? left : (left < halo ? left
-                                                               : halo));
-    oddeven_pass<Tr><<<(unsigned)((long long)R * tiles), threads, 0, s>>>(
-        src, dst, n, interior, halo, (int)tiles, cycles, done, only);
+  const int threads = warps * 32;
+  const size_t smem =
+      (size_t)(warps * OE_STEP + 2 * OE_HALO + 4 * warps * OE_K) * sizeof(int);
+  auto kern = oddeven_tiles<Tr>;
+  static bool smem_set = false;                 // once per instantiation
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (OE_MAX_WARPS * OE_STEP + 2 * OE_HALO + 4 * OE_MAX_WARPS * OE_K) *
+            (int)sizeof(int));
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const S* xs = static_cast<const S*>(x);
+  if (Kt::kFloat) {
+    nan_chunks<Tr><<<(unsigned)(R * chunks), 256, 0, s>>>(xs, nanf, n,
+                                                          chunks);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    done += cycles;
-    src = dst;
   }
-  return done == steps ? 0 : (int)cudaErrorInvalidValue;
+  S* o = static_cast<S*>(out);
+  S* sc = static_cast<S*>(scratch);
+  int in_ = (int)interior, h_ = (int)halo, t_ = (int)tiles, st_ = (int)steps,
+      pp_ = (int)per_pass, ch_ = (int)chunks;
+  if (passes == 1) {
+    kern<<<(unsigned)items, threads, smem, s>>>(xs, o, sc, only, nanf, bar,
+                                                n, R, in_, h_, t_, st_, pp_,
+                                                passes, ch_);
+    return (int)cudaGetLastError();
+  }
+  // several passes: one cooperative launch, every block resident
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // at most 16 warps an SM (one block of more): enough to fill the ALU
+  // pipes, and few blocks at each barrier
+  int cap = 16 / warps > 1 ? 16 / warps : 1;
+  if (per_sm < cap) cap = per_sm;
+  long long grid = (long long)cap * sms;
+  if (grid > items) grid = items;
+  e = cudaMemsetAsync(bar, 0, sizeof(unsigned), s);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {(void*)&xs, (void*)&o, (void*)&sc, (void*)&only,
+                  (void*)&nanf, (void*)&bar, (void*)&n, (void*)&R,
+                  (void*)&in_, (void*)&h_, (void*)&t_, (void*)&st_,
+                  (void*)&pp_, (void*)&passes, (void*)&ch_};
+  e = cudaLaunchCooperativeKernel((const void*)kern, dim3((unsigned)grid),
+                                  dim3(threads), args, smem, s);
+  return (int)e;
 }
 
 // ---------------------------------------------------------------------------
@@ -517,8 +803,9 @@ int run_bitonic(const void* x, void* out, int* keys, const int* skip, int R,
 // A full sort: the bitonic route for every row, or (float dtypes) for the
 // rows nan_rows leaves unflagged and the odd-even cycles for the others.
 template <class Tr>
-int run_full(const void* x, void* out, void* scratch, int R, long long n,
-             long long steps, long long interior, long long halo,
+int run_full(const void* x, void* out, void* scratch, unsigned char* nanf,
+             unsigned* bar, int R, long long n, long long steps, int warps,
+             long long interior, long long halo, long long per_pass,
              int passes, int* keys, int* flag, long long P, int T, int G,
              int nplan, const long long* plan, cudaStream_t s) {
   using Kt = Key<Tr>;
@@ -538,8 +825,8 @@ int run_full(const void* x, void* out, void* scratch, int R, long long n,
   int rc = run_bitonic<Tr>(x, out, keys, flag, R, n, P, T, G, nplan, plan,
                            s);
   if (rc != 0) return rc;
-  return run<Tr>(x, out, scratch, R, n, steps, interior, halo, passes, flag,
-                 s);
+  return run<Tr>(x, out, scratch, nanf, bar, R, n, steps, warps, interior,
+                 halo, per_pass, passes, flag, s);
 }
 
 }  // namespace
@@ -551,11 +838,12 @@ const char* repro_error_string(int e) {
 }
 
 // x, out: (R, n) rows of dtype code `dtype`; scratch: (R, n) of the same,
-// used only when passes > 1.  The odd-even cycles: one pass (passes == 1)
-// is one tile per row (interior == n, halo == 0) running all `steps`
-// cycles, or tiles whose halo covers all `steps`; otherwise
-// ceil(steps / halo) == passes passes of at most `halo` cycles each.  A
-// tile is at most SORT_TILE lanes.
+// used only when passes > 1, and then `bar` one unsigned word.  The
+// odd-even cycles (kernels/cpm_kernels.py oddeven_plan): blocks of
+// `warps` warps, tiles of `interior` lanes and `halo` lanes more on
+// either side, `passes` passes of at most `per_pass` cycles (at most
+// `halo` where a row has more than one tile); float dtypes scan for NaN
+// into `nanf` ((R, ceil(n / 1024)) bytes) first.
 // nplan == 0: every row takes the cycles (a bounded sort, steps < n).
 // nplan > 0 (steps >= n): the bitonic route's `plan` (nplan passes of 4
 // numbers, host memory) over rows padded to P lanes in tiles of T keys,
@@ -563,20 +851,23 @@ const char* repro_error_string(int e) {
 // float dtypes first flag their NaN rows in `flag` ((R,) int32), which
 // then take the cycles.
 int oddeven_sort_launch(const void* x, void* out, void* scratch, int R,
-                        long long n, long long steps, long long interior,
-                        long long halo, int passes, int* keys, int* flag,
-                        long long P, int T, int G, int nplan,
-                        const long long* plan, int dtype, void* stream) {
+                        long long n, long long steps, int warps,
+                        long long interior, long long halo,
+                        long long per_pass, int passes, unsigned char* nanf,
+                        unsigned* bar, int* keys, int* flag, long long P,
+                        int T, int G, int nplan, const long long* plan,
+                        int dtype, void* stream) {
   if (R <= 0 || n <= 0 || steps < 0 || steps > 0x7fffffffLL ||
       nplan < 0 || (nplan > 0 && (steps < n || plan == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CPM_DISPATCH_DTYPE(dtype, {
     if (nplan > 0)
-      return run_full<Tr>(x, out, scratch, R, n, steps, interior, halo,
-                          passes, keys, flag, P, T, G, nplan, plan, s);
-    return run<Tr>(x, out, scratch, R, n, steps, interior, halo, passes,
-                   nullptr, s);
+      return run_full<Tr>(x, out, scratch, nanf, bar, R, n, steps, warps,
+                          interior, halo, per_pass, passes, keys, flag, P, T,
+                          G, nplan, plan, s);
+    return run<Tr>(x, out, scratch, nanf, bar, R, n, steps, warps, interior,
+                   halo, per_pass, passes, nullptr, s);
   });
   return 0;
 }

@@ -44,6 +44,8 @@ uses.  Every TPU kernel of the JAX package now has its Hopper kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -1166,24 +1168,228 @@ def super_limit(x, section: int = 1024, mode: str = "max"):
 super_limit.launches = 0
 
 
-#: lanes of a row one block of the sort holds (16 a thread in registers,
-#: 1024 threads): SORT_TILE of csrc/oddeven_sort.cu
-SORT_TILE = 16384
+#: the odd-even route's blocks (csrc/oddeven_sort.cu): OE_K lanes a thread
+#: in registers, a warp's segment of 32 OE_K lanes holding OE_HALO lanes of
+#: each neighbouring warp (OE_STEP interior lanes), rounds of OE_ROUND
+#: cycles, windows of at most 15,360 lanes (OE_MAX_WARPS warps), a NaN
+#: flag every OE_CHUNK lanes of a float row
+OE_K, OE_ROUND, OE_CHUNK = 16, 16, 1024
+OE_HALO = OE_K
+OE_STEP = 32 * OE_K - 2 * OE_HALO
+OE_MAX_WARPS = 512 // OE_K
+#: the block widths the plan chooses from: windows of 1,920 to 15,360
+#: lanes
+OE_WARPS = tuple(OE_MAX_WARPS >> k for k in (3, 2, 1, 0))
+#: the plan's model of the H100, in clocks: 132 SMs of 64 ALU lanes a
+#: clock (one min or max a lane a cycle), a warp's OE_K lanes 2 OE_K clocks
+#: a cycle on each of the SM's four schedulers, 1,900 bytes a clock from
+#: device memory (3.35 TB/s at 1.755 GHz), 2,000 clocks a pass (a launch
+#: or a grid barrier); a full sort's odd-even route runs only the rows with
+#: a NaN, priced as one row at 3x the integer exchange
+_OE_SMS, _OE_ALU = 132, 64
+_OE_BYTES, _OE_PASS, _OE_NAN_COST = 1900, 2000, 3
 
 
-def oddeven_plan(n: int, steps: int,
-                 tile: int = SORT_TILE) -> tuple[int, int, int]:
-    """``(interior, halo, passes)`` of :func:`oddeven_sort`'s tiles: a row
-    of at most ``tile`` lanes is one tile for all ``steps``; a longer row
-    takes tiles of ``interior`` lanes with ``halo`` lanes more on each
-    side (at most a quarter of the tile), in ``passes`` passes of at most
-    ``halo`` cycles."""
-    if n <= tile:
-        return n, 0, 1
-    if steps == 0:
-        return tile, 0, 1
-    halo = min(steps, tile // 4)
-    return tile - 2 * halo, halo, -(-steps // halo)
+class OddEvenPlan(NamedTuple):
+    """The odd-even route of one call: blocks of ``warps`` warps, tiles of
+    ``interior`` lanes read with ``halo`` lanes more on either side
+    (``tiles`` a row), ``passes`` passes of at most ``per_pass`` cycles."""
+
+    warps: int
+    interior: int
+    halo: int
+    per_pass: int
+    passes: int
+    tiles: int
+
+
+def oddeven_candidate(n: int, steps: int, warps: int, halo: int):
+    """The :class:`OddEvenPlan` of blocks of ``warps`` warps and tiles read
+    with ``halo`` lanes on either side, or None where it cannot run: a row
+    of one tile (``n`` lanes fit the block) takes every cycle in one pass,
+    a row of several tiles at most ``halo`` cycles a pass."""
+    interior = warps * OE_STEP - 2 * halo
+    if interior < 1:
+        return None
+    tiles = -(-n // interior)
+    if tiles == 1 or steps == 0:
+        return OddEvenPlan(warps, interior, halo, steps, 1, tiles)
+    if halo < 1:
+        return None
+    per_pass = min(steps, halo)
+    return OddEvenPlan(warps, interior, halo, per_pass,
+                       -(-steps // per_pass), tiles)
+
+
+def _oe_cost(plan: OddEvenPlan, r: int, n: int, steps: int, elem: int,
+             full: bool) -> float:
+    """Clocks of ``plan`` in the model above (the larger of the ALU work,
+    halos included, and one block's cycles, then each pass's bytes and
+    fixed cost)."""
+    rows, f = (1, _OE_NAN_COST) if full else (r, 1)
+    # every warp's whole segment, its end threads' lanes included
+    lanes = plan.warps * 32 * OE_K * rows * plan.tiles * f / (_OE_SMS
+                                                              * _OE_ALU)
+    block = 2 * OE_K * -(-plan.warps // 4) * f
+    fixed = 2 * rows * n * elem / _OE_BYTES + _OE_PASS
+
+    def one(cycles):
+        return max(lanes * cycles, block * cycles) + fixed
+
+    last = steps - (plan.passes - 1) * plan.per_pass
+    return (plan.passes - 1) * one(plan.per_pass) + one(last)
+
+
+@functools.lru_cache(maxsize=256)
+def oddeven_plan(r: int, n: int, steps: int, *, full: bool = False,
+                 elem: int = 4) -> OddEvenPlan:
+    """The odd-even route's :class:`OddEvenPlan` for ``steps`` cycles over
+    ``r`` rows of ``n`` lanes of ``elem`` bytes (``full``: a full sort,
+    whose cycles run only its float rows with a NaN): the cheapest
+    :func:`oddeven_candidate` in the model above over the block widths
+    :data:`OE_WARPS` and halos of ``16 * 2^k`` lanes and ``steps`` itself
+    (0 where a row is one tile)."""
+    best, best_cost = None, None
+    for w in OE_WARPS:
+        top = (w * OE_STEP - 1) // 2           # leaves an interior lane
+        halos = {0, *(min(steps, 16 << k) for k in range(20)
+                      if 16 << k <= top)}
+        if steps <= top:
+            halos.add(steps)
+        for h in sorted(halos):
+            plan = oddeven_candidate(n, steps, w, h)
+            if plan is None:
+                continue
+            cost = _oe_cost(plan, r, n, steps, elem, full)
+            if best is None or cost < best_cost:
+                best, best_cost = plan, cost
+    return best
+
+
+def oddeven_smem(warps: int) -> int:
+    """Bytes of shared memory a block of ``warps`` warps takes: its tile
+    of keys (the window and the end threads' outer lanes) and two halo
+    buffers of (warps, 2, OE_K) keys."""
+    return 4 * (warps * OE_STEP + 2 * OE_HALO + 4 * warps * OE_K)
+
+
+_INT32_MIN = -2 ** 31
+#: the +inf key of each float dtype (NaN keys lie beyond it)
+_FLOAT_INF_KEY = {torch.float32: 0x7F800000, torch.float16: 0x7C00,
+                  torch.bfloat16: 0x7F80}
+
+
+def _oe_pair(a, b, with_nan, inf):
+    """The new left and right lanes of the pairs ``(a, b)`` (int32 keys):
+    integer min and max, or where ``with_nan`` the NaN-aware exchange
+    (``jnp.minimum`` / ``jnp.maximum`` on the keys)."""
+    lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+    if inf is None:
+        return lo, hi
+    na, nb = (a ^ (a >> 31)) > inf, (b ^ (b >> 31)) > inf
+    left = torch.where(na, a, torch.where(nb, b, lo))
+    right = torch.where(nb, b, torch.where(na, a, hi))
+    return torch.where(with_nan, left, lo), torch.where(with_nan, right, hi)
+
+
+def _oe_cycle(v, inside: bool, with_nan, inf):
+    """One cycle of every warp segment ``v`` ``(..., 32, OE_K)``:
+    ``inside`` pairs (0,1), (2,3), ... of each thread; otherwise (1,2),
+    ... and each thread's end lanes with its neighbours' (thread 31's last
+    lane with its own first, thread 0's first with its own last, as the
+    kernel's shuffles return)."""
+    v = v.clone()
+    if inside:
+        a, b = _oe_pair(v[..., 0::2], v[..., 1::2], with_nan, inf)
+        v[..., 0::2], v[..., 1::2] = a, b
+        return v
+    first, last = v[..., 0], v[..., OE_K - 1]
+    right = torch.cat([first[..., 1:], first[..., -1:]], dim=-1)
+    left = torch.cat([last[..., :1], last[..., :-1]], dim=-1)
+    a, b = _oe_pair(v[..., 1:OE_K - 2:2], v[..., 2:OE_K - 1:2],
+                    with_nan, inf)
+    v[..., 1:OE_K - 2:2], v[..., 2:OE_K - 1:2] = a, b
+    v[..., OE_K - 1] = _oe_pair(last, right, with_nan[..., 0], inf)[0]
+    v[..., 0] = _oe_pair(left, first, with_nan[..., 0], inf)[1]
+    return v
+
+
+def _oe_widen(done: int) -> int:
+    """Lanes a NaN can have spread in ``done`` cycles: one a cycle."""
+    return done
+
+
+def oddeven_tiled_plain(x, steps: int | None = None,
+                        plan: OddEvenPlan | None = None):
+    """The kernel's odd-even route in PyTorch, for the CPU tests: ``steps``
+    (default N) cycles over ``(R, N)`` rows as ``plan`` (default
+    :func:`oddeven_plan`'s) runs them.  Each pass cuts every row into
+    its tiles (lanes outside the row are the key of -inf / +inf, INT_MIN /
+    INT_MAX for integers), each tile into its warps' overlapping segments
+    of 32 threads of OE_K lanes; rounds of OE_ROUND cycles, each thread's
+    end lanes paired across threads (the segment's ends with their own
+    thread), then the end threads refreshed from the neighbouring warps;
+    the cycle parity from the call's cycle count and the lane; the integer
+    exchange on a tile whose window, widened by the cycles already run,
+    meets no flagged NaN chunk of the input, the NaN-aware one elsewhere;
+    the interiors written back.  Bit for bit :func:`oddeven_sort_plain`
+    (the twin that defines the function): the tests hold the plan's halos,
+    pads, parity and loop choice to it."""
+    r, n = x.shape
+    steps = n if steps is None else int(steps)
+    if plan is None:
+        plan = oddeven_plan(r, n, steps, full=steps >= n,
+                            elem=x.element_size())
+    inf = _FLOAT_INF_KEY.get(x.dtype)
+    lo_pad, hi_pad = (_INT32_MIN, _INT32_MAX) if inf is None else (~inf, inf)
+    dev = x.device
+    wb = plan.warps * OE_STEP
+    wt = wb + 2 * OE_HALO
+    base = torch.arange(plan.tiles, device=dev) * plan.interior \
+        - plan.halo - OE_HALO                       # lane of slot 0
+    lanes = base[:, None] + torch.arange(wt, device=dev)
+    seg = (torch.arange(plan.warps, device=dev)[:, None] * OE_STEP
+           + torch.arange(32 * OE_K, device=dev)).reshape(-1)
+    if inf is not None:
+        chunks = -(-n // OE_CHUNK)
+        flagged = torch.nn.functional.pad(
+            torch.isnan(x), (0, chunks * OE_CHUNK - n)).reshape(
+                r, chunks, OE_CHUNK).any(-1)
+        cidx = torch.arange(chunks, device=dev)
+    src, done = sort_keys(x), 0
+    for _ in range(plan.passes):
+        cycles = min(plan.per_pass, steps - done)
+        win = src[:, lanes.clamp(0, n - 1)]
+        win = torch.where(lanes < 0, lo_pad, torch.where(lanes >= n, hi_pad,
+                                                         win))
+        with_nan = torch.zeros((r, plan.tiles), dtype=torch.bool, device=dev)
+        if inf is not None:
+            w = _oe_widen(done)
+            a, b = (base - w).clamp(min=0), (base + wt + w).clamp(max=n)
+            near = (cidx >= a[:, None] // OE_CHUNK) \
+                & (cidx <= (b[:, None] - 1) // OE_CHUNK) & (a < b)[:, None]
+            with_nan = (flagged[:, None, :] & near[None]).any(-1)
+        v = win[..., seg].reshape(r, plan.tiles, plan.warps, 32, OE_K)
+        m = with_nan[:, :, None, None, None]
+        inside = (done - int(base[0])) % 2 == 0
+        ran = 0
+        while ran < cycles:
+            s = min(OE_ROUND, cycles - ran)
+            for _ in range(s):
+                v = _oe_cycle(v, inside, m, inf)
+                inside = not inside
+            ran += s
+            if ran < cycles:
+                fresh = v.clone()
+                fresh[:, :, 1:, 0] = v[:, :, :-1, 30]
+                fresh[:, :, :-1, 31] = v[:, :, 1:, 1]
+                v = fresh
+        win[..., OE_HALO:OE_HALO + wb] = v[..., 1:31, :].reshape(
+            r, plan.tiles, wb)
+        start = OE_HALO + plan.halo
+        src = win[..., start:start + plan.interior].reshape(r, -1)[:, :n]
+        done += cycles
+    return sort_values(src.contiguous(), x.dtype)
 
 
 #: the bitonic route's tiles (csrc/oddeven_sort.cu): at most 64 KB of int32
@@ -1309,12 +1515,12 @@ def oddeven_sort(x, steps: int | None = None):
     row -> ``(R, N)`` of ``x.dtype``, bit for bit the twin's: one
     ``csrc/oddeven_sort.cu`` call for CUDA tensors, counted once in
     ``oddeven_sort.launches``, the plain twin for CPU tensors.  A bounded
-    sort (``steps < N``) runs the cycles (one device launch a pass; rows
-    longer than :data:`SORT_TILE` lanes take ``oddeven_plan``'s halo
-    passes).  A full sort runs :func:`bitonic_plan`'s passes for the rows
-    of :func:`bitonic_rows`, chosen on the device (float rows: a NaN flag
-    pass first, then the cycles for the flagged rows), so its launches
-    depend on shape, dtype and ``steps`` only."""
+    sort (``steps < N``) runs the cycles in :func:`oddeven_plan`'s tiles
+    (float rows: a NaN scan first; one launch, cooperative where the plan
+    has several passes).  A full sort runs :func:`bitonic_plan`'s passes
+    for the rows of :func:`bitonic_rows`, chosen on the device (float
+    rows: a NaN flag pass first, then the cycles for the flagged rows), so
+    its launches depend on shape, dtype and ``steps`` only."""
     if not _on_card("oddeven_sort", x):
         return oddeven_sort_plain(x, steps)
     if x.ndim != 2:
@@ -1332,30 +1538,40 @@ def oddeven_sort(x, steps: int | None = None):
     if r >= 2 ** 31:
         raise ValueError("oddeven_sort: more than 2**31 rows")
     full = steps >= n
-    cycles = not full or x.dtype.is_floating_point
-    interior, halo, passes = oddeven_plan(n, steps)
-    scratch = torch.empty_like(x) if cycles and passes > 1 else None
-    keys = flag = plan = None
+    floating = x.dtype.is_floating_point
+    plan = oddeven_plan(r, n, steps, full=full, elem=x.element_size())
+    cycles = not full or floating
+    scratch = bar = nanf = None
+    if cycles and plan.passes > 1:
+        scratch = torch.empty_like(x)
+        bar = torch.empty(1, dtype=torch.int32, device=x.device)
+    if cycles and floating:
+        nanf = torch.empty((r, -(-n // OE_CHUNK)), dtype=torch.uint8,
+                           device=x.device)
+    keys = flag = bitonic = None
     p = t = g = nplan = 0
     if full:
-        p, t, g, bitonic = bitonic_plan(r, n)
-        nplan = len(bitonic)
-        plan = (ctypes.c_longlong * (4 * nplan))(*[
-            v for kind, a, b, *rest in bitonic
+        p, t, g, passes = bitonic_plan(r, n)
+        nplan = len(passes)
+        bitonic = (ctypes.c_longlong * (4 * nplan))(*[
+            v for kind, a, b, *rest in passes
             for v in ((0, a, b, 0) if kind == "tile" else (1, a, b, *rest))])
         if p > t:
             keys = torch.empty((r, p), dtype=torch.int32, device=x.device)
-        if x.dtype.is_floating_point:
+        if floating:
             flag = torch.empty(r, dtype=torch.int32, device=x.device)
+
+    def ptr(buf):
+        return None if buf is None else buf.data_ptr()
+
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     _build.launch("oddeven_sort", "oddeven_sort_launch",
-                  [P, P, P, I, L, L, L, L, I, P, P, L, I, I, I, P, I],
-                  x.device, x.data_ptr(), out.data_ptr(),
-                  None if scratch is None else scratch.data_ptr(), r, n,
-                  steps, interior, halo, passes,
-                  None if keys is None else keys.data_ptr(),
-                  None if flag is None else flag.data_ptr(), p, t, g,
-                  nplan, plan, code)
+                  [P, P, P, I, L, L, I, L, L, L, I, P, P, P, P, L, I, I, I,
+                   P, I],
+                  x.device, x.data_ptr(), out.data_ptr(), ptr(scratch), r, n,
+                  steps, plan.warps, plan.interior, plan.halo, plan.per_pass,
+                  plan.passes, ptr(nanf), ptr(bar), ptr(keys), ptr(flag), p,
+                  t, g, nplan, bitonic, code)
     oddeven_sort.launches += 1
     return out
 

@@ -498,49 +498,32 @@ class TestTwinsAgainstPallas:
 
 
 class TestOddEvenPlan:
-    """The kernel's tiles for rows longer than a block's shared memory:
-    a tile computes ``halo`` cycles of its interior exactly.  The tiling
-    is replayed here in NumPy, pass by pass, with the plan's numbers."""
-
-    @staticmethod
-    def _tiled(x, steps, interior, halo, passes):
-        n = x.shape[-1]
-        src, done = x.copy(), 0
-        for _ in range(passes):
-            cycles = steps if passes == 1 else min(halo, steps - done)
-            dst = np.empty_like(src)
-            for i0 in range(0, n, interior):
-                i1 = min(n, i0 + interior)
-                lo, hi = max(0, i0 - halo), min(n, i1 + halo)
-                v = src[..., lo:hi].copy()
-                for c in range(cycles):
-                    a0 = (((done + c) & 1) - lo) & 1
-                    for a in range(a0, hi - lo - 1, 2):
-                        left, right = v[..., a].copy(), v[..., a + 1].copy()
-                        v[..., a] = np.minimum(left, right)
-                        v[..., a + 1] = np.maximum(right, left)
-                dst[..., i0:i1] = v[..., i0 - lo:i1 - lo]
-            src, done = dst, done + cycles
-        assert done == steps
-        return src
+    """The kernel's odd-even route cuts rows into tiles that compute
+    ``halo`` cycles of their interior exactly, in warp segments whose end
+    threads trade lanes between rounds.  The tiling is replayed here in
+    PyTorch (``oddeven_tiled_plain``), pass by pass, with the plan's
+    numbers; ``tests/test_torch_oddeven_tiles.py`` holds it against JAX."""
 
     @pytest.mark.parametrize("n,steps", [(64, 64), (200, 7), (200, 16),
                                          (200, 40), (333, 333), (130, 0)])
     def test_halo_tiles_equal_the_whole_row(self, n, steps):
-        interior, halo, passes = TK.oddeven_plan(n, steps, tile=64)
-        if n > 64:
-            assert interior + 2 * halo <= 64 and halo <= 16
-            assert passes * max(halo, 1) >= steps
+        p = TK.oddeven_candidate(n, steps, 1, 200)
+        assert p.interior == 80 and p.tiles == -(-n // 80)
+        if steps:
+            assert p.per_pass == min(steps, 200) and p.passes * 200 >= steps
         x = _ints((2, n), seed=n + steps)
-        got = self._tiled(x, steps, interior, halo, passes)
+        got = TK.oddeven_tiled_plain(_t(x), steps, p)
         _same(got, computable.odd_even_sort(_t(x), steps))
 
     def test_plan_at_the_card_shapes(self):
-        assert TK.oddeven_plan(16384, 16384) == (16384, 0, 1)
-        assert TK.oddeven_plan(16385, 10) == (16384 - 20, 10, 1)
-        interior, halo, passes = TK.oddeven_plan(1 << 20, 1024)
-        assert (halo, passes) == (1024, 1) and interior == 16384 - 2048
-        assert TK.oddeven_plan(1 << 20, 1 << 20)[2] == 256
+        P = TK.OddEvenPlan
+        assert TK.oddeven_plan(64, 16384, 16384, full=True) == P(
+            4, 896, 512, 512, 32, 19)
+        assert TK.oddeven_plan(2, 16385, 10) == P(4, 1900, 10, 10, 1, 9)
+        assert TK.oddeven_plan(64, 1 << 20, 1024) == P(32, 14336, 512, 512,
+                                                       2, 74)
+        assert TK.oddeven_plan(64, 1 << 20, 1 << 20, full=True).passes \
+            == 4096
 
 
 # ---------------------------------------------------------------------------
