@@ -20,7 +20,14 @@ Phases, in order; any failure exits non-zero:
      the kernels it ran; ``index_select`` for
      ``gather_rows``, ``index_copy_`` on a clone for ``scatter_rows``):
      device time from ``torch.profiler`` (CUDA events when it records
-     none) and per-call time with events;
+     none) and per-call time with events.  ``fused_stream`` is held
+     against its twin at the serving commit (4, 320), on nine-op streams
+     (7, 300) and on the cost model's probe stream over (64, 16,384) and
+     (64, 1,048,576) rows, and each of the commit and the two probes is
+     timed under its plan (tiles, halos, passes; a row held in one tile,
+     as the commit's, runs the resident-row kernel) beside the eager
+     plan's summed device time, in the same process; an empty kernel
+     (built here from ``EMPTY_KERNEL``) is timed as the launch floor;
   3. check the port end to end on a small input: the smoke config on the
      card (kernels) against the same weights on the CPU (plain twins);
   4. build granite-8b at full width from a seeded ``torch.Generator`` on
@@ -109,7 +116,9 @@ Phases, in order; any failure exits non-zero:
      with the kernels' plain twins run in their place and with the
      reference backend (the stencil within 1e-5 relative); ``insert``
      and ``delete`` on the per-row lengths through ``CPMProgram.run``
-     (one ``shift_range`` launch each over all 64 rows, per-row bounds).
+     (one ``fused_stream`` launch over the long rows' tiles where the
+     program's plan fuses them, else one ``shift_range`` launch each over
+     all 64 rows, per-row bounds).
      Then the cost model calibrates on the card into
      ``build/chip_smoke/`` (its four coefficients printed with the card),
      its probe stream runs forced fused and forced eager on (64, 16,384)
@@ -125,11 +134,13 @@ Phases, in order; any failure exits non-zero:
      ``gather_rows``, ``fused_stream`` and ``scatter_rows`` once, with no
      cost decision.  The four kernels are timed at these shapes
      (``conv1d`` beside the stencil; ``template_match`` at 4, 16 and 64
-     items, each with its bytes, operation and float32 issue bounds).
+     items, each with its bytes, operation and float32 issue bounds;
+     ``activate`` with its bounds by value, as phase 9 calls it, beside
+     the same from device tensors).
 
-The lines before the last are the card (``nvidia-smi`` name and power
-limit) and one JSON object with every kernel's launches, error and
-times; the last line is ``{"ok": true, "device": {...}}``.  Without a
+The lines before the last are the launch floor beside the kernels that
+run at it, the card (``nvidia-smi`` name and power limit) and one JSON
+object with every kernel's launches, error and times; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repo's ``src/repro_torch`` beside it, it
 prints no result and exits non-zero.  The full record is also written to
 ``artifacts/chip_smoke.json``.
@@ -139,6 +150,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -195,8 +207,8 @@ SMS, ALU_LANES_PER_CLOCK = 132, 64
 OE_INT_ALU, OE_NAN_ALU = 0.75, 3.5
 # phase 9: the paper benchmark's T6 template lengths (benchmarks/run.py:151)
 # on phase 7's rows, a five-tap stencil with zero taps, and the cost
-# model's probe stream on rows of the allocator's longest length (two
-# resident rows fit fused_stream)
+# model's probe stream on rows of the allocator's longest length (phase 2
+# also runs it on phase 7's row length)
 STREAM_TEMPLATES = (4, 16, 64)
 STENCIL5 = (0.5, 0.0, 1.0, 0.0, -0.25)
 #: the 63-tap stencil timed in phase 9: every tap nonzero, so each lane
@@ -291,7 +303,8 @@ _WORDS = {"h": "u8", "t": "u16", "j": "u32", "m": "u64"}
 
 def ptxas_report(build, names=("oddeven_sort", "flash_attention",
                                "shift_range", "stencil", "histogram",
-                               "template_match")):
+                               "template_match", "fused_stream",
+                               "activate")):
     """Registers, static shared memory and spills of every kernel of the
     named sources, from their ``-Xptxas -v`` build logs: one entry a
     kernel instantiation (its mangled name cut to the kernel's name and
@@ -308,7 +321,9 @@ def ptxas_report(build, names=("oddeven_sort", "flash_attention",
                                  r"nan_rows|"
                                  r"shift_range_kernel|stencil_kernel|"
                                  r"hist_count|hist_finish|"
-                                 r"template_match_kernel)",
+                                 r"template_match_kernel|"
+                                 r"fused_tiles_kernel|"
+                                 r"fused_resident_kernel|activate_kernel)",
                                  mangled)
                 name = base.group(1) if base else mangled[:40]
                 rest = mangled[base.end():] if base else ""
@@ -561,63 +576,175 @@ def _bitwise_err(torch, got, want):
     return max(errs + [float("inf")])
 
 
-def check_fused_stream(torch, np, dev):
+def _lowered(torch, arr, prog):
+    """The fused kernel's arguments for the whole of ``prog`` on ``arr``,
+    as the executor lowers a fused group."""
+    from repro_torch.cpm._tensor import asarray
+    from repro_torch.cpm.program import executors
+
+    lead, n = arr.batch_shape, arr.n
+    r = math.prod(lead)
+    descs, operands = [], []
+    for instr in prog.instructions:
+        (op, st), opnds, _ = executors._lower(instr, arr.dtype, lead, r,
+                                              arr.device)
+        descs.append((op, st, len(opnds)))
+        operands.extend(opnds)
+    ul = asarray(arr.used_len, torch.int32, arr.device).expand(lead)
+    return (arr.data.reshape(r, n).contiguous(),
+            ul.reshape(r).contiguous(), tuple(descs), tuple(operands))
+
+
+def _device_split(fn, iters: int):
+    """(kernel ms, all device ms, {name: ms}) per call of ``fn``: the
+    kernels alone, and with the copies and memsets the call puts on the
+    card (``torch.profiler``; CUDA events for both where it has no
+    window)."""
+    by = kernel_ms(fn, iters)
+    if not by:
+        t = cuda_ms(fn, iters=iters)
+        return t, t, {}
+    kern = sum(t for k, t in by.items()
+               if not k.startswith(("Memcpy", "Memset")))
+    return kern, sum(by.values()), by
+
+
+def _fused_cases(torch, dev):
+    """Phase 2's three ``fused_stream`` cases, each with its rows, the
+    kernel's arguments and the program the executor runs fused or eager:
+    the serving commit (insert -> truncate on (4, 320) int32 rows, as
+    ``serve/program_paths.py`` records it) and the cost model's probe
+    stream (``costmodel._probe_program``) on (64, 16,384) and (64,
+    1,048,576) int32 rows from a seeded generator."""
+    from repro_torch.cpm import CPMProgram, cpm_array
+    from repro_torch.cpm.program.costmodel import _probe_program
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(5)
+    r, n = BATCH, PROMPT_LEN + MAX_NEW
+    buf = torch.randint(0, 49152, (r, n), generator=g, device=dev,
+                        dtype=torch.int32)
+    used = torch.randint(PROMPT_LEN, n - SPEC, (r,), generator=g,
+                         device=dev, dtype=torch.int32)
+    preds = torch.randint(0, 49152, (r, SPEC), generator=g, device=dev,
+                          dtype=torch.int32)
+    emit = torch.randint(0, SPEC + 1, (r,), generator=g, device=dev,
+                         dtype=torch.int32)
+    prog = (CPMProgram().append("insert", pos=used, values=preds)
+            .append("truncate", new_len=used + emit))
+    out["commit"] = (cpm_array(buf, used, backend="cuda"), prog)
+    for tag, pn in (("probe16k", PROBE_N), ("probe1m", CPM_N)):
+        x = torch.randint(0, 4096, (CPM_R, pn), generator=g, device=dev,
+                          dtype=torch.int32)
+        ul = torch.randint(pn // 2, pn + 1, (CPM_R,), generator=g,
+                           device=dev, dtype=torch.int32)
+        out[tag] = (cpm_array(x, ul, backend="cuda"), _probe_program(pn))
+    return out
+
+
+def _one_group(prog, kind: str):
+    """``prog`` as one group of ``kind`` (``"fused"``: one launch)."""
+    from repro_torch.cpm.program import FusionGroup, FusionPlan
+
+    return FusionPlan(prog, (FusionGroup(
+        kind, tuple(range(len(prog.instructions))),
+        tuple(prog.instructions)),))
+
+
+def check_fused_stream(torch, np, dev, card, empty):
+    """The kernel against its twin at the commit, nine-op, probe and
+    long-row shapes (rows held in one tile run its resident-row form, the
+    others its tiles); then each of the three cases timed with its plan
+    beside the eager plan, in the same process; and ``empty`` (an empty
+    kernel's launch), the launch floor."""
+    from repro_torch.cpm.program import run_plan
+    from repro_torch.cpm.program.costmodel import _eager_plan
     from repro_torch.kernels import cpm_kernels as ck
 
     def on_dev(x, ul, instrs, ops):
         return (torch.from_numpy(x).to(dev), torch.from_numpy(ul).to(dev),
                 instrs, tuple(torch.from_numpy(o).to(dev) for o in ops))
 
-    # the commit stream at the main path's shapes: insert -> truncate
-    r, n = BATCH, PROMPT_LEN + MAX_NEW
-    rng = np.random.default_rng(5)
-    buf = rng.integers(0, 49152, (r, n)).astype(np.int32)
-    used = rng.integers(PROMPT_LEN, n - SPEC, (r,)).astype(np.int32)
-    preds = rng.integers(0, 49152, (r, SPEC)).astype(np.int32)
-    emit = rng.integers(0, SPEC + 1, (r,)).astype(np.int32)
-    commit = on_dev(buf, used, (("insert", (("k", SPEC),), 2),
-                                ("truncate", (), 1)),
-                    [used[:, None].copy(), preds,
-                     (used + emit)[:, None].copy()])
-    got = ck.fused_stream(*commit)
-    torch.cuda.synchronize()
-    commit_err = _bitwise_err(torch, got, ck.fused_stream_plain(*commit))
-    print(f"fused_stream commit insert->truncate (R={r} N={n} k={SPEC}): "
-          f"max_abs_err={commit_err} tol=0 (bit-identical) "
-          f"{'ok' if commit_err == 0 else 'MISMATCH'}")
-    if commit_err != 0:
-        fail("fused_stream commit stream disagrees with its plain twin")
+    def hold(args, what, **kw):
+        got = ck.fused_stream(*args, **kw)
+        torch.cuda.synchronize()
+        err = _bitwise_err(torch, got, ck.fused_stream_plain(*args, **kw))
+        print(f"fused_stream {what}: max_abs_err={err} tol=0 "
+              f"(bit-identical) {'ok' if err == 0 else 'MISMATCH'}")
+        if err != 0:
+            fail(f"fused_stream {what} disagrees with its plain twin")
+        return err
 
+    cases = _fused_cases(torch, dev)
+    args = {tag: _lowered(torch, arr, prog)
+            for tag, (arr, prog) in cases.items()}
+    commit_err = hold(args["commit"], f"commit insert->truncate "
+                      f"(R={BATCH} N={PROMPT_LEN + MAX_NEW} k={SPEC})")
     for dtype in (np.int32, np.float32):
         for per_row in (False, True):
-            args = on_dev(*_nine_op_stream(np, 7, 300, dtype, per_row, 2))
-            got = ck.fused_stream(*args, block_r=3)
-            torch.cuda.synchronize()
-            err = _bitwise_err(torch, got,
-                               ck.fused_stream_plain(*args, block_r=3))
-            name = dtype.__name__
-            print(f"fused_stream nine ops {name} "
-                  f"{'per-row' if per_row else 'broadcast'} operands "
-                  f"(R=7 N=300 block_r=3): max_abs_err={err} tol=0 "
-                  f"(bit-identical) {'ok' if err == 0 else 'MISMATCH'}")
-            if err != 0:
-                fail(f"fused_stream nine-op stream ({name}, per_row="
-                     f"{per_row}) disagrees with its plain twin")
+            hold(on_dev(*_nine_op_stream(np, 7, 300, dtype, per_row, 2)),
+                 f"nine ops {dtype.__name__} "
+                 f"{'per-row' if per_row else 'broadcast'} operands "
+                 f"(R=7 N=300 block_r=3)", block_r=3)
+    for tag in ("probe16k", "probe1m"):
+        hold(args[tag], f"probe stream shift->compare->activate->stencil "
+             f"{tuple(args[tag][0].shape)}")
 
-    ms, src, call_ms = timed(lambda: ck.fused_stream(*commit), 200)
+    floor_ms, _, _ = _device_split(lambda: empty(dev), 200)
+    print(f"launch floor: an empty kernel, {floor_ms:.4f} ms of device "
+          f"time; {card}")
+    timings = {}
+    for tag, (arr, prog) in cases.items():
+        x, ul, descs, opnds = args[tag]
+        r, n = x.shape
+        plan = ck.fused_plan(r, n, tuple((op, st) for op, st, _ in descs))
+        iters = 200 if tag == "commit" else 20
+        ms, _, by = _device_split(lambda a=args[tag]: ck.fused_stream(*a),
+                                  iters)
+        rec = {"shape": [r, n], "ms": ms, "kernels": by,
+               "plan": plan._asdict() | {"window": plan.window}}
+        fused, eager = _one_group(prog, "fused"), _eager_plan(prog)
+        rec["fused_plan_ms"], rec["fused_plan_device_ms"], \
+            rec["fused_plan_kernels"] = _device_split(
+                lambda: run_plan(fused, arr), iters)
+        rec["eager_plan_ms"], rec["eager_plan_device_ms"], \
+            rec["eager_kernels"] = _device_split(lambda: run_plan(eager,
+                                                                  arr), iters)
+        prods = [ck.FUSED_PRODUCERS[op].itemsize for op, _, _ in descs
+                 if op in ck.FUSED_PRODUCERS]
+        nbytes = (2 * (x.numel() * 4 + ul.numel() * 4) + x.numel()
+                  * sum(prods) + sum(o.numel() * 4 for o in opnds))
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes)
+        rec["call_ms"] = cuda_ms(lambda a=args[tag]: ck.fused_stream(*a),
+                                 iters=iters)
+        timings[tag] = rec
+        kernel = "resident-row" if plan.tiles == 1 else "tiled"
+        rec["kernel"] = kernel
+        print(f"fused_stream {tag} {tuple(x.shape)}: {kernel} kernel "
+              f"{ms:.4f} ms (tile {plan.tile}, halos {plan.halo_l}/"
+              f"{plan.halo_r}, "
+              f"{plan.tiles} tiles a row, {len(plan.passes)} pass), eager "
+              f"plan {rec['eager_plan_ms']:.4f} ms of kernels "
+              f"({rec['eager_plan_device_ms']:.4f} device, "
+              f"{sorted(rec['eager_kernels'])}), fused plan "
+              f"{rec['fused_plan_ms']:.4f} of kernels "
+              f"({rec['fused_plan_device_ms']:.4f} device, "
+              f"{sorted(rec['fused_plan_kernels'])}); bound "
+              f"{rec['bound_ms']:.6f} ms by {rec['bound_by']}; floor "
+              f"{floor_ms:.4f}; {card}")
+
+    commit = timings["commit"]
     plain_ms, _, plain_call = timed(
-        lambda: ck.fused_stream_plain(*commit), 20)
-    x, ul, _, ops = commit
-    nbytes = (2 * (x.numel() * 4 + ul.numel() * 4)
-              + sum(o.numel() * 4 for o in ops))
-    bound_ms, by = bound(nbytes)
+        lambda: ck.fused_stream_plain(*args["commit"]), 20)
     return {"name": "fused_stream", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_stream.cu",
             "replaces": "src/repro/kernels/cpm_kernels.py:809",
             "launches": None, "max_abs_err": commit_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": None, "ms_source": src,
-            "call_ms": call_ms, "plain_call_ms": plain_call}
+            "ms": commit["ms"], "plain_ms": plain_ms,
+            "bound_ms": commit["bound_ms"], "bound_by": commit["bound_by"],
+            "library_ms": None, "ms_source": "profiler",
+            "call_ms": commit["call_ms"], "plain_call_ms": plain_call,
+            "floor_ms": floor_ms, "cases": timings}
 
 
 # ---------------------------------------------------------------------------
@@ -1996,6 +2123,7 @@ def check_streams(torch, np, dev, data):
     """Phase 9, part 1 (see the module docstring).  Returns the launch
     counts of the counted runs, per-kernel errors and timing inputs."""
     from repro_torch.cpm import CPMProgram, cpm_array
+    from repro_torch.cpm.program import schedule
     from repro_torch.kernels import cpm_kernels as ck
     from repro_torch.kernels import ops
 
@@ -2063,31 +2191,34 @@ def check_streams(torch, np, dev, data):
             fail(f"template_match M={m}: no exact zero where the template "
                  f"was cut from the row")
 
-    # per-row lengths through the executor: each move is one launch over
-    # every row's own bounds
+    # per-row lengths through the executor: one launch over every row's
+    # own bounds
     prog = (CPMProgram().append("insert", pos=CPM_N // 4, values=[7, 8])
             .append("delete", pos=CPM_N // 8, k=2, fill=-1))
+    kinds = [g.kind for g in schedule(prog).groups]
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = prog.run(cpm_array(xi, ul, backend="cuda"))[0]
     torch.cuda.synchronize()
     rows_s = time.perf_counter() - t0
     rows_counts = ops.launch_counts()
-    want = {name: 0 for name in rows_counts}
-    want["shift_range"] = 2
-    if rows_counts != want:
-        fail(f"the per-row-length insert and delete launched "
-             f"{rows_counts}, want {want} (one shift_range a move over "
-             f"the rows' own bounds)")
+    # the group fuses on the long int32 rows: one fused_stream launch over
+    # their tiles (the per-move shift_range launch over every row's own
+    # bounds is pinned on int8 rows by the card tests)
+    want = {name: 0 for name in rows_counts} | {"fused_stream": 1}
+    if kinds != ["fused"] or rows_counts != want:
+        fail(f"the per-row-length insert and delete ({kinds}, want "
+             f"['fused']) launched {rows_counts}, want {want}")
     ref_out = prog.run(cpm_array(xi, ul, backend="reference"))[0]
-    hold("shift_range", torch.equal(out.data, ref_out.data)
+    hold("fused_stream", torch.equal(out.data, ref_out.data)
          and torch.equal(out.used_len, ref_out.used_len), 0.0,
-         f"insert and delete on per-row lengths through CPMProgram.run: "
-         f"one launch each over {CPM_R} rows, equal to the reference "
-         f"backend's row replay")
+         f"insert and delete on per-row lengths through CPMProgram.run "
+         f"({kinds}) over {CPM_R} rows, equal to the reference backend's "
+         f"row replay")
     print(f"per-row-length insert + delete through CPMProgram.run: "
-          f"{rows_s:.3f}s, {rows_counts['shift_range']} shift_range "
-          f"launches ({CPM_R} rows each, per-row bounds)")
+          f"{rows_s:.3f}s, launches "
+          f"{ {k: v for k, v in rows_counts.items() if v} } ({kinds}, "
+          f"{CPM_R} rows, per-row bounds)")
     return ({"streams": counts, "rows": rows_counts}, errs,
             {"templates": templates, "used": used, "path_s": path_s,
              "rows_s": rows_s})
@@ -2428,10 +2559,10 @@ def time_stream_kernels(torch, dev, data, sdata, errs):
         return F.conv1d(xf[:, None, :], conv_w, padding=1)[:, 0]
 
     cases = (
-        ("activate", ":89", lambda: ck.activate(CPM_N, p[0], p[1], p[2],
-                                               device=dev),
-         lambda: ck.activate_plain(CPM_N, p[0], p[1], p[2], device=dev),
-         None, bound(CPM_N + 12)),
+        # phase 9's call: bounds as Python ints, passed by value
+        ("activate", ":89", lambda: ck.activate(CPM_N, q, h, 4, device=dev),
+         lambda: ck.activate_plain(CPM_N, q, h, 4, device=dev),
+         None, bound(CPM_N)),
         ("shift_range", ":133", lambda: ck.shift_range(xi, p[0], p[1], 1),
          lambda: ck.shift_range_plain(xi, p[0], p[1], 1), None,
          bound(2 * nel * 4 + 8)),
@@ -2456,6 +2587,15 @@ def time_stream_kernels(torch, dev, data, sdata, errs):
                "call_ms": call_ms, "plain_call_ms": plain_call,
                "device_launches": launches,
                "shape": [CPM_N] if name == "activate" else [CPM_R, CPM_N]}
+        if name == "activate":
+            # bounds read on the device, as from an earlier kernel
+            def tensor_bounds():
+                return ck.activate(CPM_N, p[0], p[1], p[2])
+
+            if not torch.equal(tensor_bounds(), fn()):
+                fail("activate from device tensors disagrees with its "
+                     "bounds by value")
+            rec["tensor_bounds_ms"] = timed(tensor_bounds, 20)[0]
         if name == "shift_range":
             # per-row bounds: each row's own live end, as a batched
             # device's moves take them
@@ -2534,6 +2674,50 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: the launch floor: an empty kernel behind a C entry point that takes the
+#: stream, launched through ctypes as the package's kernels are
+EMPTY_KERNEL = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_empty_kernel(build):
+    """Start nvcc on EMPTY_KERNEL under ``build/chip_smoke`` with the
+    package's flags (``build``: ``repro_torch.kernels._build``); returns
+    what :func:`load_empty_kernel` waits for."""
+    out = ROOT / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib = out / "empty.cu", out / "empty.so"
+    src.write_text(EMPTY_KERNEL)
+    cmd = [build.nvcc_path(), *build._COMMON, "-o", str(lib), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def load_empty_kernel(started):
+    """Wait for :func:`start_empty_kernel`'s nvcc; returns a function that
+    launches the empty kernel on a device's current stream."""
+    import torch
+
+    proc, lib = started
+    log = proc.communicate()[0]
+    if proc.returncode:
+        fail(f"nvcc failed for the empty kernel:\n{log}")
+    fn = ctypes.CDLL(str(lib)).empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch(dev):
+        if fn(torch.cuda.current_stream(dev).cuda_stream):
+            fail("the empty kernel did not launch")
+
+    return launch
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="on-card smoke of repro_torch")
     ap.add_argument("--layers", type=int, default=0,
@@ -2571,8 +2755,12 @@ def main(argv=None) -> int:
     os.environ["REPRO_TORCH_CPM_CALIBRATE"] = "0"
 
     t0 = time.perf_counter()
-    built = _build.build_all()
-    print(f"built {built} with nvcc for sm_90a in "
+    empty_build = start_empty_kernel(_build)
+    try:
+        built = _build.build_all()
+    finally:                    # no nvcc left running
+        empty = load_empty_kernel(empty_build)
+    print(f"built {built} and the empty kernel with nvcc for sm_90a in "
           f"{time.perf_counter() - t0:.1f}s")
     ptxas = ptxas_report(_build)
     for kern, info in ptxas.items():
@@ -2587,7 +2775,7 @@ def main(argv=None) -> int:
                          "n_kv_heads": full.n_kv_heads,
                          "head_dim": full.dh}}
     kernels = [check_flash(torch, dev, record),
-               check_fused_stream(torch, np, dev),
+               check_fused_stream(torch, np, dev, card, empty),
                *check_rows(torch, np, dev)]
     check_small_model(torch, dev)
     gen_counts, cfg, params, gen = serve_granite(torch, dev, args.layers,
@@ -2650,6 +2838,14 @@ def main(argv=None) -> int:
               f"{k['bound_ms']:.6f} ms by {k['bound_by']}, library "
               f"{k['library_ms']} ms; {k['launches_by_path']} launches "
               f"on the main paths; {card}")
+    ms = {k["name"]: k["ms"] for k in kernels}
+    floor = next(k for k in kernels if k["name"] == "fused_stream")[
+        "floor_ms"]
+    record["launch_floor_ms"] = floor
+    print(f"launch floor (an empty kernel) {floor:.4f} ms beside "
+          + ", ".join(f"{k} {ms[k]:.4f}" for k in (
+              "activate", "gather_rows", "scatter_rows", "fused_stream"))
+          + f" ms of device time; {card}")
     record["kernels"] = kernels
     out_dir = ROOT / "artifacts"
     out_dir.mkdir(exist_ok=True)

@@ -8,13 +8,14 @@ One contract, bit-identical results:
     (and the move ops, whose lowerings read a scalar ``used_len``) replay
     row by row, where the JAX package ``vmap``\\ s over rows.
   * ``cuda``      — each *fused* group lowers to ONE ``fused_stream``
-    kernel launch: the row block loads once and every instruction of the
-    group reads and writes it in shared memory, ``block_r`` rows a block
-    (autotuned per stream signature, shape, dtype and backend key).  On
-    CPU rows the same lowering runs the kernel's plain twin.  *Eager*
-    groups (fusable runs the cost model priced slower fused) and
-    *boundary* groups replay per op on the per-op kernels — and so does a
-    fused group whose CUDA rows the kernel cannot hold resident (see
+    kernel launch: each tile of the rows (with the halos the group
+    reaches) loads once and every instruction of the group reads and
+    writes it in shared memory, ``block_r`` rows a block (autotuned per
+    stream signature, shape, dtype and backend key).  On CPU rows the same
+    lowering runs the kernel's plain twin.  *Eager* groups (fusable runs
+    the cost model priced slower fused) and *boundary* groups replay per
+    op on the per-op kernels — and so does a fused group whose CUDA rows
+    the kernel does not take (a dtype other than int32 / float32, see
     :func:`fits_fused_stream`).
 
 Operand layout is described once (``_RANKS``): scalars are rank 0,
@@ -32,7 +33,6 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels import cpm_kernels as K
 from repro_torch.kernels.cpm_kernels import FUSED_PRODUCERS
 
 from .. import backends as B
@@ -216,12 +216,11 @@ def _apply_rows(a, instr: ir.Instruction):
 
 def fits_fused_stream(arr) -> bool:
     """Whether the ``fused_stream`` kernel takes ``arr``'s rows: any rows
-    on the CPU (the plain twin), on the card int32 or float32 rows whose
-    two resident copies fit a block's shared memory (29,056 lanes)."""
+    on the CPU (the plain twin), on the card int32 or float32 rows of any
+    length (the kernel tiles them)."""
     if not arr.data.is_cuda:
         return True
-    return (arr.dtype in (torch.int32, torch.float32)
-            and 2 * arr.n * 4 <= K.MAX_SMEM_BYTES)
+    return arr.dtype in (torch.int32, torch.float32)
 
 
 def run_plan(plan, arr, backend: str | None = None):
@@ -231,7 +230,7 @@ def run_plan(plan, arr, backend: str | None = None):
     path; ``eager`` groups (fusable runs the cost model rejected) and
     ``boundary`` groups replay per op — same instructions, bit-identical
     results, another launch structure.  A fused group whose rows the
-    kernel cannot hold (:func:`fits_fused_stream`) replays per op too.
+    kernel does not take (:func:`fits_fused_stream`) replays per op too.
     ``"auto"`` resolves once per plan by ``backends.auto_backend_name``,
     the rule per-op dispatch uses: rows shorter than the crossover run on
     the reference, as in JAX."""

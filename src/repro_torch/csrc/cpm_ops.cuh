@@ -8,7 +8,8 @@
 //    identical (ROADMAP, "Shared bodies").
 //  * The lane rules of the JAX value bodies that the per-op kernels share
 //    with fused_stream.cu, so fused and eager groups stay bit identical:
-//    cpm_activate (_activate_vals), cpm_shift_src (_shift_vals),
+//    cpm_activate (_activate_vals) and its stepped run over adjacent
+//    lanes, cpm_activate_lanes, cpm_shift_src (_shift_vals),
 //    cpm_sad (_sad_vals) and cpm_stencil (_stencil_vals, through
 //    cpm_stencil_lanes and cpm_stencil_lane, which stencil.cu's staged
 //    tiles use).
@@ -33,9 +34,12 @@
 //  * Block-wide reduction and exclusive scan in a fixed order: a warp
 //    shuffle tree, then warp 0 over the warp totals.  No atomics, so a
 //    float result is the same on every run.
+//  * cpm_grid_barrier: the barrier between the passes of a cooperative
+//    launch (oddeven_sort.cu, fused_stream.cu).
 
 #pragma once
 
+#include <climits>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +74,38 @@ __device__ __forceinline__ bool cpm_activate(int i, int start, int end,
                                              int carry) {
   return i >= start && i <= end &&
          cpm_fmod_floor(cpm_wsub(i, start), max(carry, 1)) == 0;
+}
+
+// cpm_activate over the M <= 32 adjacent lanes i0 .. i0 + M - 1: bit m of
+// the result is cpm_activate(i0 + m, ...).  A run wholly outside [start,
+// end] is 0, and one wholly inside with carry <= 1 all ones; otherwise
+// the floor modulo is taken once, for lane i0, and stepped lane by lane.
+// Where the int32 difference i - start wraps inside the run (start near
+// INT_MIN), each lane takes cpm_activate itself.
+template <int M>
+__device__ __forceinline__ uint32_t cpm_activate_lanes(int i0, int start,
+                                                       int end, int carry) {
+  static_assert(M >= 1 && M <= 32, "a run is at most 32 lanes");
+  const long long a = i0, b = (long long)i0 + M - 1;
+  if (b < start || a > end) return 0u;
+  const uint32_t all = M == 32 ? 0xffffffffu : (1u << M) - 1u;
+  const int c = max(carry, 1);
+  if (c == 1 && a >= start && b <= end) return all;
+  const int d0 = cpm_wsub(i0, start);
+  uint32_t bits = 0u;
+  if ((long long)d0 + (M - 1) > INT_MAX) {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      if (cpm_activate((int)(a + m), start, end, carry)) bits |= 1u << m;
+    return bits;
+  }
+  int r = cpm_fmod_floor(d0, c);
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    if (r == 0 && a + m >= start && a + m <= end) bits |= 1u << m;
+    r = r + 1 == c ? 0 : r + 1;
+  }
+  return bits;
 }
 
 // §4.1 _shift_vals at lane i of an n-lane row whose lanes [start, end]
@@ -351,4 +387,24 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* red,
   *total = red[32];
   __syncthreads();                   // `red` may be reused
   return before + inc - v;
+}
+
+// Arrival count `bar` (zeroed before the launch) reaching `target`: the
+// whole grid's blocks have finished the pass.  Every block of the launch
+// must be resident (a cooperative launch); a block that waits about a
+// minute traps instead of hanging.
+__device__ __forceinline__ void cpm_grid_barrier(unsigned* bar,
+                                                 unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    const long long t0 = clock64();
+    while (*(volatile unsigned*)bar < target) {
+      __nanosleep(64);
+      if (clock64() - t0 > (1LL << 37)) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
 }

@@ -343,24 +343,6 @@ __device__ __forceinline__ int oe_slot(int i) {
          (i & 3);
 }
 
-// Arrival count `bar` (zeroed before the launch) reaching `target`: the
-// whole grid's blocks have finished the pass.
-__device__ __forceinline__ void grid_barrier(unsigned* bar,
-                                             unsigned target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    const long long t0 = clock64();
-    while (*(volatile unsigned*)bar < target) {
-      __nanosleep(64);
-      if (clock64() - t0 > (1LL << 37)) __trap();
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 // The tiles of every row, `passes` passes of at most `per_pass` cycles
 // (see above).  A block of nw warps holds a window of nw * OE_STEP lanes
 // (a tile's interior and its halo on either side) plus OE_HALO slots on
@@ -457,7 +439,7 @@ oddeven_tiles(const typename Tr::S* __restrict__ x,
         orow[i] = Kt::back(oe_unkey<Kt>(tile[oe_slot(OE_HALO + halo + i)]));
     }
     done += cycles;
-    if (p + 1 < passes) grid_barrier(bar, (unsigned)(p + 1) * gridDim.x);
+    if (p + 1 < passes) cpm_grid_barrier(bar, (unsigned)(p + 1) * gridDim.x);
     src = dst;
   }
 }

@@ -32,14 +32,14 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: per-source extra flags: the float stencils (fused_stream's producer,
 #: the per-op stencil) must round every product and sum like the plain
 #: version, so no FMA contraction there; the sort, flash attention,
-#: shift_range, stencil, histogram and template_match report each
-#: kernel's registers, shared memory and spills (``-v``), kept in the
-#: build log beside the library (:func:`build_log`)
-_EXTRA = {"fused_stream": ["-fmad=false"],
+#: shift_range, stencil, histogram, template_match, fused_stream and
+#: activate report each kernel's registers, shared memory and spills
+#: (``-v``), kept in the build log beside the library (:func:`build_log`)
+_EXTRA = {"fused_stream": ["-fmad=false", "-Xptxas=-v"],
           "stencil": ["-fmad=false", "-Xptxas=-v"],
           "oddeven_sort": ["-Xptxas=-v"], "flash_attention": ["-Xptxas=-v"],
           "shift_range": ["-Xptxas=-v"], "histogram": ["-Xptxas=-v"],
-          "template_match": ["-Xptxas=-v"]}
+          "template_match": ["-Xptxas=-v"], "activate": ["-Xptxas=-v"]}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -14,8 +14,10 @@ The value bodies shared with the standalone kernels (``_activate_vals``,
 ``_stencil_vals``) and ``_fused_apply`` repeat the JAX bodies op for op,
 so :func:`fused_stream_plain` is bit-identical to the TPU kernel run in
 interpret mode.  :func:`fused_stream` launches ``csrc/fused_stream.cu``
-for CUDA tensors (counted in ``fused_stream.launches``) and runs the
-plain twin for CPU tensors.
+for CUDA tensors (counted in ``fused_stream.launches``), which runs rows
+of any length in tiles with halos as :func:`fused_plan` lays them out
+(:func:`fused_stream_tiled_plain` replays that plan on the CPU), and runs
+the plain twin for CPU tensors.
 
 :func:`gather_rows` and :func:`scatter_rows` replace ``:670`` and
 ``:698`` of the same JAX file: the sub-page moves of the session pool's
@@ -249,10 +251,10 @@ def fused_stream_plain(x, used_len, instrs, operands, *, block_r: int = 1):
 # the CUDA kernel: descriptors and launch
 # ---------------------------------------------------------------------------
 
-#: must equal FS_MAX_INSTR / FS_MAX_TAPS / FS_THREADS in csrc/fused_stream.cu
+#: must equal FS_MAX_INSTR / FS_MAX_TAPS in csrc/fused_stream.cu
 MAX_INSTR = 16
 MAX_TAPS = 64
-#: shared memory a block may use on the H100 (two resident row buffers)
+#: shared memory a block may use on the H100
 MAX_SMEM_BYTES = 232448
 
 _OPCODE = {op: i for i, op in enumerate(
@@ -264,6 +266,336 @@ _F_FILL, _F_MASK, _F_START, _F_TAIL, _F_WRAP, _F_CTF = 1, 2, 4, 8, 16, 32
 _DT = {torch.int32: 0, torch.float32: 1}
 
 
+# ---------------------------------------------------------------------------
+# the kernel's tiles, halos and passes, and their CPU twin
+# ---------------------------------------------------------------------------
+
+#: csrc/fused_stream.cu's blocks write outputs FS_GROUP lanes a thread at
+#: once (16-byte stores); a window's two buffers are padded by FS_PAD lanes
+#: on either side and rounded up to 32-word blocks
+FS_GROUP, FS_PAD = 16, 16
+#: tiles of at most FS_TILE interior lanes, halved (not under FS_MIN_TILE)
+#: while the rows' tiles would not give each of the H100's 132 SMs a block,
+#: and at least four times the halos, so that they add at most a quarter
+#: (wider tiles ran faster on the probe stream, PERF.md §6)
+FS_TILE, FS_MIN_TILE, FS_TARGET_BLOCKS = 8192, 1024, 132
+#: the most halo a pass takes on either side: an instruction that would
+#: need more leads a pass of its own, which reads device memory
+FS_HALO_CAP = 2048
+#: the longest window whose two padded buffers fit a block's shared memory
+FS_MAX_WINDOW = MAX_SMEM_BYTES // 8 - 2 * FS_PAD
+
+
+class FusedPlan(NamedTuple):
+    """How ``csrc/fused_stream.cu`` runs one stream over ``(R, N)`` rows:
+    every row cut into ``tiles`` tiles of ``tile`` interior lanes, each
+    staged with ``halo_l`` lanes before it and ``halo_r`` after it (its
+    window, lanes taken modulo N); ``passes`` the ``(first, end, lead)``
+    instruction ranges that run between two trips of the rows through
+    device memory, ``lead`` where the range's first instruction reads
+    device memory rather than the window."""
+
+    tile: int
+    halo_l: int
+    halo_r: int
+    tiles: int
+    passes: tuple
+
+    @property
+    def window(self) -> int:
+        """Slots a window holds: the tile, its halos and up to 3 lanes that
+        align its first slot to 16 bytes of the row, rounded up to 4."""
+        return (self.halo_l + self.tile + self.halo_r + 6) // 4 * 4
+
+    def smem(self) -> int:
+        """Bytes of shared memory a block takes: two buffers of the window
+        padded by FS_PAD slots either side, in whole 32-word blocks
+        (``fs_buffer`` of the kernel)."""
+        return 8 * ((self.window + 2 * FS_PAD + 31) // 32 * 32)
+
+
+def fused_reach(op: str, statics, n: int) -> tuple[str, int, int]:
+    """``(kind, left, right)`` of one instruction on ``n``-lane rows: a
+    ``"move"`` makes lane i from lane i - left or i + right (shift by
+    ``|shift|``, insert by k from the left, delete by k from the right;
+    nothing moves where that is N or more); a ``"producer"`` reads lanes up
+    to ``left`` before and ``right`` after the lane it writes
+    (substring_match m - 1 before its end or after its start, both
+    inside the row; template_match m - 1 after, wrapping; a stencil of T
+    taps T - 1 - T // 2 before and T // 2 after, wrapping or not);
+    ``"none"`` reads no other lane."""
+    s = dict(statics)
+    if op in ("shift", "insert", "delete"):
+        sh = int(s["shift"]) if op == "shift" else \
+            int(s["k"]) * (1 if op == "insert" else -1)
+        if abs(sh) >= n:
+            sh = 0
+        return "move", max(sh, 0), max(-sh, 0)
+    if op == "substring_match":
+        m = int(s["m"])
+        reach = m - 1 if 1 <= m <= n else 0
+        return ("producer", reach, 0) if s["where"] == "end" else \
+            ("producer", 0, reach)
+    if op == "template_match":
+        return "producer", 0, max(int(s["m"]) - 1, 0)
+    if op == "stencil":
+        nt = len(s["taps"])
+        return "producer", max(nt - 1 - nt // 2, 0), nt // 2
+    return "none", 0, 0
+
+
+@functools.lru_cache(maxsize=256)
+def fused_plan(r: int, n: int, statics, *, tile: int | None = None,
+               cap: int = FS_HALO_CAP) -> FusedPlan:
+    """The :class:`FusedPlan` of the stream ``statics`` (its ``(op,
+    statics)`` pairs) over ``r`` rows of ``n`` lanes; reads nothing on the
+    device.  A pass's halos on either side are the larger of its moves'
+    summed reach and, for each producer, its own reach plus the reach of
+    the moves before it in the pass.  Instructions join the open pass
+    while its halos stay within ``cap``; one that would take more leads a
+    new pass, reading device memory (a move or producer of any reach).
+    The halos are the largest of any pass.  ``tile``: see the FS_*
+    constants (default), or as given."""
+    passes, first, lead = [], 0, False
+    ml = mr = hl = hr = 0               # the open pass's reach and halos
+    halo_l = halo_r = 0
+    for s, (op, st) in enumerate(statics):
+        kind, a, b = fused_reach(op, st, n)
+        if kind == "none":
+            continue
+        if kind == "move":
+            nml, nmr = ml + a, mr + b
+            nhl, nhr = max(hl, nml), max(hr, nmr)
+        else:
+            nml, nmr = ml, mr
+            nhl, nhr = max(hl, ml + a), max(hr, mr + b)
+        if nhl <= cap and nhr <= cap:
+            ml, mr, hl, hr = nml, nmr, nhl, nhr
+            continue
+        if s > first:
+            passes.append((first, s, lead))
+            halo_l, halo_r = max(halo_l, hl), max(halo_r, hr)
+        first, lead = s, True
+        ml = mr = hl = hr = 0
+    passes.append((first, len(statics), lead))
+    halo_l, halo_r = max(halo_l, hl), max(halo_r, hr)
+    n16 = -(-max(n, 1) // FS_GROUP) * FS_GROUP
+    if tile is None:
+        tile = min(FS_TILE, n16)
+        while tile > FS_MIN_TILE and r * -(-n // tile) < FS_TARGET_BLOCKS:
+            tile = max(FS_MIN_TILE, tile // 2 // FS_GROUP * FS_GROUP)
+        tile = max(tile, min(n16, -(-4 * (halo_l + halo_r) // FS_GROUP)
+                             * FS_GROUP))
+        tile = min(tile, (FS_MAX_WINDOW - halo_l - halo_r - 6)
+                   // FS_GROUP * FS_GROUP)
+    if tile < 1:
+        raise ValueError(f"fused_plan: halos of {halo_l} + {halo_r} lanes "
+                         f"leave no tile")
+    return FusedPlan(int(tile), halo_l, halo_r, -(-n // tile),
+                     tuple(passes))
+
+
+def _wrap32(v):
+    """int64 tensor values wrapped to int32, as the kernel's int32 adds."""
+    return ((v + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31
+
+
+def _tile_move(op, s, refs, q, n: int, ul, read):
+    """One move at the window lanes ``q`` (int64, (R, tiles, W)): the word
+    each lane holds afterwards.  ``read(src)`` returns the words at the
+    source lanes ``src`` (a lane's own or its move source); a (R, 1, 1)
+    per-row ``ul`` is the length register before the move."""
+    if op == "shift":
+        st, en = refs[0][:, 0, None, None], refs[0][:, 1, None, None]
+        hf = bool(s["has_fill"])
+        src = shift_src_plain(q, n, st, en, int(s["shift"]), hf)
+        out = read(src.clamp(min=0))
+        if hf:
+            out = torch.where(src < 0, refs[1][:, 0, None, None], out)
+        return out
+    k = int(s["k"])
+    pos = refs[0][:, 0, None, None].to(torch.int64)
+    ul64 = ul.to(torch.int64)
+    if op == "insert":
+        src = shift_src_plain(q, n, pos, _wrap32(ul64 - 1), k, False)
+        out = read(src)
+        d = (q - pos) & 0xFFFFFFFF                   # v[i - pos], i - pos < k
+        hit = d < k
+        v = refs[1].unsqueeze(1).expand(-1, q.shape[1], -1)
+        vals = v.gather(-1, torch.where(hit, d, 0))
+        return torch.where(hit, vals, out)
+    src = shift_src_plain(q, n, _wrap32(pos + k), _wrap32(ul64 - 1), -k,
+                          False)
+    out = read(src)
+    dead = (q >= _wrap32(ul64 - k)) & (q < ul64)
+    return torch.where(dead, refs[1][:, 0, None, None], out)
+
+
+def _tile_produce(op, s, refs, i, n: int, ul, read, real, taps):
+    """One producer's outputs at the interior lanes ``i`` (int64, (R,
+    tiles, T)).  ``read(d, where)`` returns the words at lanes ``i + d``
+    (taken modulo N), asserting they were staged where ``where`` holds."""
+    if op == "activate":
+        p = refs[0][:, :, None, None]
+        return _activate_vals(i.to(torch.int32), p[:, 0], p[:, 1],
+                              p[:, 2]).to(torch.int8)
+    live = i < ul
+    if op == "compare":
+        v, d = read(0, real), refs[0][:, 0, None, None]
+        if s["has_mask"]:
+            m = refs[1][:, 0, None, None]
+            a, b = v & m, d & m
+        else:
+            a, b = v.to(getattr(torch, s["ct"])), d
+        return (_CMP[s["op"]](a, b) & live).to(torch.int8)
+    if op == "substring_match":
+        m = int(s["m"])
+        nee = refs[0]
+        if s["where"] == "end":
+            ok, off = (i >= m - 1) & live, -(m - 1)
+        else:
+            ok, off = (i <= n - m) & (i + m - 1 < ul), 0
+        ok = ok & (m >= 1)
+        for t in range(m):
+            ok = ok & (read(off + t, real & ok)
+                       == nee[:, t, None, None])
+        return ok.to(torch.int8)
+    if op == "template_match":
+        m = int(s["m"])
+        t = refs[0].to(torch.float32)
+        acc = torch.zeros(i.shape, dtype=torch.float32, device=i.device)
+        for j in range(m):
+            acc = acc + (read(j, real).to(torch.float32)
+                         - t[:, j, None, None]).abs()
+        if s["mask_tail"]:
+            acc = torch.where(i + m <= ul, acc, float("inf"))
+        return acc
+    c = len(taps) // 2
+    acc = torch.zeros(i.shape, dtype=torch.float32, device=i.device)
+    for k, w in enumerate(taps):
+        v = read(c - k, real).to(torch.float32)
+        if w == 0:
+            continue
+        if not s["wrap"]:
+            p = i + (c - k)
+            v = torch.where((p >= 0) & (p < n) & (p < ul), v, 0.0)
+        acc = acc + w * v
+    return acc
+
+
+def fused_stream_tiled_plain(x, used_len, instrs, operands, *,
+                             plan: FusedPlan | None = None):
+    """The kernel's tiled run in PyTorch, for the CPU tests: ``plan``
+    (default :func:`fused_plan`'s) over ``(R, N)`` rows.  Each pass stages
+    every tile's window, slot s holding lane ``(base + s) mod N`` with
+    ``base`` the tile's first lane less ``halo_l`` and the lanes that align
+    the slot to 16 bytes of the row; runs its lead instruction against the
+    pass's input rows (a move while staging, a producer at the interior
+    lanes), then the other instructions on the windows (a move at slot s
+    reads slot s and the slot its source lane lies in, which is valid only
+    while both were; producers read the slots of the lanes they read); and
+    writes the interiors.  Every read a real lane makes is checked against
+    the valid slots, so a halo too small raises.  The length register is
+    a per-row value every tile computes alike.  (The kernel's ``block_r``
+    only groups rows into blocks.)  Bit for bit
+    :func:`fused_stream_plain`."""
+    r, n = x.shape
+    counts = _counts(instrs, operands)
+    if r == 0 or n == 0:
+        return fused_stream_plain(x, used_len, instrs, operands)
+    statics = tuple((op, st) for op, st, _ in instrs)
+    if plan is None:
+        plan = fused_plan(r, n, statics)
+    dev = x.device
+    refs, pos = [], 0
+    for c in counts:
+        refs.append([a.expand(r, -1) for a in operands[pos:pos + c]])
+        pos += c
+    w = plan.window
+    t0 = torch.arange(plan.tiles, device=dev) * plan.tile
+    rowoff = torch.arange(r, device=dev)[:, None] * n
+    align = (rowoff + t0 - plan.halo_l) % 4                     # (R, tiles)
+    base = t0 - plan.halo_l - align
+    q = stencil_lane_plain(base[..., None] + torch.arange(w, device=dev),
+                           n, True)                          # slot lanes
+    i = (t0[:, None] + torch.arange(plan.tile, device=dev))[None]
+    i = i.expand(r, -1, -1)                                  # interior
+    real = i < n
+    islot = i - base[..., None]
+    rows_ix = torch.arange(r, device=dev)[:, None, None]
+    ul = used_len.reshape(r, 1, 1).to(torch.int32)
+    rows = x
+    prods = []
+
+    def produce(s_, read):
+        op, st, _ = instrs[s_]
+        taps = tuple(float(t) for t in dict(st).get("taps", ()))
+        vals = _tile_produce(op, dict(st), refs[s_], i, n, ul, read, real,
+                             taps)
+        out = torch.empty((r, n), dtype=FUSED_PRODUCERS[op], device=dev)
+        out[rows_ix.expand_as(i)[real], i[real]] = vals[real]
+        prods.append(out)
+
+    for first, end, lead in plan.passes:
+        src_rows = rows
+
+        def global_read(d, where, src_rows=src_rows):
+            lanes = stencil_lane_plain(i + d, n, True)
+            return src_rows[rows_ix, lanes]
+
+        win = src_rows[rows_ix, q]
+        # the valid slots: the tile and its halos (not the aligning lanes
+        # and the rounding, which the kernel stages too), shrinking by each
+        # move's reach
+        lo = align[..., None]
+        hi = lo + plan.halo_l + plan.tile + plan.halo_r
+        for s_ in range(first, end):
+            op, st, _ = instrs[s_]
+            kind, a, b = fused_reach(op, st, n)
+            moves = op in ("shift", "insert", "delete")
+            if lead and s_ == first:                # against device memory
+                if moves:
+                    win = _tile_move(op, dict(st), refs[s_], q, n, ul,
+                                     lambda src, g=src_rows: g[rows_ix, src])
+                else:
+                    produce(s_, global_read)
+            elif moves:
+                slot = torch.arange(w, device=dev)
+
+                def window_read(src, win=win):
+                    return win.gather(-1, (slot + (src - q)).clamp(0, w - 1))
+
+                win = _tile_move(op, dict(st), refs[s_], q, n, ul,
+                                 window_read)
+                lo, hi = lo + a, hi - b
+            elif op in FUSED_PRODUCERS:
+
+                def window_read(d, where, win=win, lo=lo, hi=hi, op=op):
+                    sl = islot + d
+                    if not bool(((sl >= lo) & (sl < hi))[where].all()):
+                        raise AssertionError(
+                            f"fused tile: {op} reads outside the valid "
+                            f"slots (halo too small)")
+                    return win.gather(-1, sl.clamp(0, w - 1))
+
+                produce(s_, window_read)
+            k = dict(st).get("k", 0)
+            if op == "insert":
+                ul = torch.clamp(ul + k, max=n)
+            elif op == "delete":
+                ul = torch.clamp(ul - k, min=0)
+            elif op == "truncate":
+                ul = torch.minimum(ul, refs[s_][0][:, 0, None, None])
+        if not bool(((islot >= lo) & (islot < hi))[real].all()):
+            raise AssertionError("fused tile: the interior lies outside "
+                                 "the valid slots (halo too small)")
+        out = torch.empty_like(x)
+        out[rows_ix.expand_as(i)[real], i[real]] = \
+            win.gather(-1, islot.clamp(0, w - 1))[real]
+        rows = out
+    return rows, ul.reshape(r), prods
+
+
 class _Instr(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_int) for f in
                  ("op", "k", "shift", "m", "flags", "cmp", "ntaps",
@@ -273,9 +605,12 @@ class _Instr(ctypes.Structure):
 
 
 class _Program(ctypes.Structure):
-    _fields_ = [("n_instr", ctypes.c_int), ("x_float", ctypes.c_int),
-                ("ins", _Instr * MAX_INSTR),
-                ("taps", ctypes.c_float * MAX_TAPS)]
+    _fields_ = ([(f, ctypes.c_int) for f in
+                 ("n_instr", "x_float", "tile", "halo_l", "halo_r",
+                  "n_pass", "lead_mask")]
+                + [("pass_end", ctypes.c_int * MAX_INSTR),
+                   ("ins", _Instr * MAX_INSTR),
+                   ("taps", ctypes.c_float * MAX_TAPS)])
 
 
 def _want(op, i, a, dtypes, cols, r):
@@ -289,13 +624,19 @@ def _want(op, i, a, dtypes, cols, r):
         raise ValueError(f"fused {op}: operand {i} is not contiguous")
 
 
-def _describe(instrs, operands, x, prods):
-    """Pack the static stream into the kernel's by-value descriptor."""
+def _describe(instrs, operands, x, prods, plan: FusedPlan):
+    """Pack the static stream and its ``plan`` into the kernel's by-value
+    descriptor."""
     r, n = x.shape
     prog = _Program()
     if len(instrs) > MAX_INSTR:
         raise ValueError(f"{len(instrs)} instructions > {MAX_INSTR}")
     prog.n_instr, prog.x_float = len(instrs), int(x.dtype == torch.float32)
+    prog.tile, prog.halo_l, prog.halo_r = plan.tile, plan.halo_l, plan.halo_r
+    prog.n_pass = len(plan.passes)
+    for j, (_, end, lead) in enumerate(plan.passes):
+        prog.pass_end[j] = end
+        prog.lead_mask |= int(lead) << j
     counts = _counts(instrs, operands)
     i32, xdt = (torch.int32,), (x.dtype,)
     pos, pi, ntap = 0, 0, 0
@@ -379,14 +720,37 @@ def _describe(instrs, operands, x, prods):
     return prog
 
 
+def _fused_args(x, used_len, instrs):
+    """Check the rows the kernel takes; returns (rows, lengths, outputs)."""
+    if x.dtype not in _DT:
+        raise TypeError(f"fused_stream kernel takes int32 or float32 rows, "
+                        f"got {x.dtype} (other dtypes: ROADMAP Queue 1)")
+    if x.ndim != 2 or not x.is_contiguous():
+        raise ValueError("fused_stream kernel needs contiguous (R, N) rows")
+    r, n = x.shape
+    if n >= 2 ** 31 - 2 * FS_MAX_WINDOW:
+        raise ValueError(f"fused_stream: rows of {n} lanes overflow the "
+                         f"kernel's int32 lane index")
+    if used_len.shape != (r,) or used_len.dtype != torch.int32 \
+            or used_len.device != x.device:
+        raise ValueError(f"used_len must be ({r},) int32 on {x.device}")
+    prods = [torch.empty((r, n), dtype=FUSED_PRODUCERS[op], device=x.device)
+             for op, _, _ in instrs if op in FUSED_PRODUCERS]
+    return used_len.contiguous(), prods
+
+
 def fused_stream(x, used_len, instrs, operands, *, block_r: int = 1):
     """Execute a fused instruction group in one kernel launch.
 
-    ``x``: (R, N) int32 or float32 rows; ``used_len``: (R,) int32;
+    ``x``: (R, N) int32 or float32 rows, any N; ``used_len``: (R,) int32;
     ``instrs``: static ``(op, statics, n_operands)`` descriptors in stream
     order; ``operands``: the matching (R, k) per-row or (1, k) broadcast
-    int32/float32 tensors.  ``block_r`` rows per CUDA block (any value is
-    bit-identical to 1).  Returns ``(rows, used_lens, producer_outputs)``.
+    int32/float32 tensors.  The kernel runs :func:`fused_plan`'s tiles
+    (its passes in one cooperative launch where there are several), or,
+    where the plan holds a row in one tile, each row resident in shared
+    memory;
+    ``block_r`` rows per CUDA block (any value is bit-identical to 1).
+    Returns ``(rows, used_lens, producer_outputs)``.
     """
     if x.device.type == "cpu":
         return fused_stream_plain(x, used_len, instrs, operands,
@@ -394,30 +758,30 @@ def fused_stream(x, used_len, instrs, operands, *, block_r: int = 1):
     if x.device.type != "cuda":
         raise ValueError(f"fused_stream takes CPU or CUDA rows, got "
                          f"{x.device}")
-    if x.dtype not in _DT:
-        raise TypeError(f"fused_stream kernel takes int32 or float32 rows, "
-                        f"got {x.dtype} (other dtypes: ROADMAP Queue 1)")
-    if x.ndim != 2 or not x.is_contiguous():
-        raise ValueError("fused_stream kernel needs contiguous (R, N) rows")
+    used_len, prods = _fused_args(x, used_len, instrs)
     r, n = x.shape
-    if used_len.shape != (r,) or used_len.dtype != torch.int32 \
-            or used_len.device != x.device:
-        raise ValueError(f"used_len must be ({r},) int32 on {x.device}")
-    if 2 * n * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"row length {n} does not fit two resident rows "
-                         f"in shared memory (ROADMAP Queue 1)")
-    used_len = used_len.contiguous()
-    prods = [torch.empty((r, n), dtype=FUSED_PRODUCERS[op], device=x.device)
-             for op, _, _ in instrs if op in FUSED_PRODUCERS]
-    prog = _describe(instrs, operands, x, prods)
+    plan = fused_plan(r, n, tuple((op, st) for op, st, _ in instrs))
+    if plan.smem() > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_stream: a window of {plan.window} lanes "
+                         f"does not fit a block's shared memory")
+    prog = _describe(instrs, operands, x, prods, plan)
     out_x = torch.empty_like(x)
     out_ul = torch.empty_like(used_len)
+    scratch = bar = None
+    if len(plan.passes) > 1:
+        scratch = torch.empty_like(x)
+        bar = torch.empty(1, dtype=torch.int32, device=x.device)
     br = max(1, min(int(block_r), r))
     P, I = ctypes.c_void_p, ctypes.c_int
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     _build.launch("fused_stream", "fused_stream_launch",
-                  [P, P, P, P, I, I, I, ctypes.POINTER(_Program)], x.device,
-                  x.data_ptr(), out_x.data_ptr(), used_len.data_ptr(),
-                  out_ul.data_ptr(), r, n, br, ctypes.byref(prog))
+                  [P, P, P, P, P, P, I, I, I, ctypes.POINTER(_Program)],
+                  x.device, x.data_ptr(), out_x.data_ptr(), ptr(scratch),
+                  used_len.data_ptr(), out_ul.data_ptr(), ptr(bar), r, n, br,
+                  ctypes.byref(prog))
     fused_stream.launches += 1
     return out_x, out_ul, prods
 
@@ -1622,12 +1986,46 @@ def activate_plain(n: int, start, end, carry=1, *, device=None):
         .to(torch.bool)
 
 
+#: lanes a thread of csrc/activate.cu (and of fused_stream.cu's activate
+#: branch) writes at once: one 16-byte store
+ACTIVATE_LANES = 16
+
+
+def activate_stepped_plain(n: int, start: int, end: int, carry: int = 1,
+                           lanes: int = ACTIVATE_LANES):
+    """``cpm_activate_lanes`` of ``csrc/cpm_ops.cuh`` over runs of
+    ``lanes`` lanes of an ``n``-lane mask, in PyTorch, for the CPU tests:
+    a run wholly outside ``[start, end]`` is 0, with ``carry <= 1`` a run
+    wholly inside is 1; otherwise the floor modulo of the int32 difference
+    is taken for the run's first lane and stepped (lane m of the run has
+    phase ``(r0 + m) mod carry``), except in a run where that difference
+    wraps past INT_MAX, where each lane takes the predicate itself.  Bit
+    for bit :func:`activate_plain`."""
+    c = max(int(carry), 1)
+    g = torch.arange(-(-n // lanes) * lanes, dtype=torch.int64)
+    i0 = g - g % lanes                               # each lane's run
+    m = g - i0
+    out = (g >= start) & (g <= end)
+    d0 = _wrap32(i0 - start)
+    stepped = ((d0 % c) + m) % c == 0
+    wraps = d0 + lanes - 1 > 2 ** 31 - 1
+    each = _wrap32(g - start) % c == 0
+    out &= torch.where(wraps, each, stepped)
+    outside = (i0 + lanes - 1 < start) | (i0 > end)
+    inside = (c == 1) & (i0 >= start) & (i0 + lanes - 1 <= end)
+    out = torch.where(outside, False, torch.where(inside, True, out))
+    return out[:n]
+
+
 def activate(n: int, start, end, carry=1, *, device=None):
     """Rule-4 activation mask of length ``n`` -> ``(n,)`` bool on
     ``device`` (default: where a tensor scalar lies, else the card, as
     every entry point: ``repro_torch.resolve_device``, which raises
     without one): one ``csrc/activate.cu`` launch for a CUDA device
-    (counted in ``activate.launches``), the plain twin on the CPU."""
+    (counted in ``activate.launches``), the plain twin on the CPU.  Where
+    ``start``, ``end`` and ``carry`` are all Python ints the kernel takes
+    them by value; otherwise they are stacked on the device and read
+    there, so a call never waits for the host."""
     if device is None and not any(isinstance(v, torch.Tensor)
                                   for v in (start, end, carry)):
         from repro_torch import resolve_device
@@ -1641,11 +2039,20 @@ def activate(n: int, start, end, carry=1, *, device=None):
     n = int(n)
     if not 0 <= n < 2 ** 31:
         raise ValueError(f"activate: n must be in [0, 2**31), got {n}")
-    p = _scalars(dev, start, end, carry)
+    vals = (start, end, carry)
+    if all(isinstance(v, int) for v in vals):
+        from repro_torch.cpm._tensor import _check_python_ints
+
+        for v in vals:
+            _check_python_ints(v, v, torch.int32)
+        p, by_value = None, [int(v) for v in vals]
+    else:
+        p, by_value = _scalars(dev, *vals), [0, 0, 0]
     out = torch.empty((n,), dtype=torch.bool, device=dev)
-    P = ctypes.c_void_p
-    _build.launch("activate", "activate_launch", [P, P, ctypes.c_int], dev,
-                  p.data_ptr(), out.data_ptr(), n)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch("activate", "activate_launch", [P, I, I, I, P, I], dev,
+                  None if p is None else p.data_ptr(), *by_value,
+                  out.data_ptr(), n)
     activate.launches += 1
     return out
 

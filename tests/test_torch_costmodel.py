@@ -317,13 +317,13 @@ class TestCostAwareSchedule:
         assert not costmodel.decide(commit, 4, 320, 4, params)["fuse"]
 
     @pytest.mark.parametrize("n,dtype,fits", [
-        (29056, torch.int32, True), (29057, torch.int32, False),
+        (29056, torch.int32, True), (1048576, torch.int32, True),
         (64, torch.int8, False), (64, torch.float32, True)])
     def test_long_cuda_rows_replay_per_op(self, n, dtype, fits):
-        """A fused group whose rows the kernel cannot hold on the card
-        (two resident copies over 232,448 bytes: more than 29,056 int32
-        lanes; or a dtype other than int32 / float32) replays per op; on
-        the CPU the twin takes any rows."""
+        """The kernel takes int32 and float32 rows of any length on the
+        card (it tiles them: 1,048,576 lanes fuse as 29,056 do); a fused
+        group on rows of another dtype replays per op; on the CPU the twin
+        takes any rows."""
         arr = cpm_array(torch.zeros(n, dtype=dtype), n, device="cpu")
         assert executors.fits_fused_stream(arr)
         card = type("OnCard", (), {"data": type("T", (), {"is_cuda": True})(),

@@ -492,12 +492,13 @@ class TestKernelsOnCard:
 
     def test_moves_on_per_row_lengths_launch_once(self, cuda_device):
         """Per-row lengths through the executor, on rows the fused kernel
-        cannot hold: each move is one ``shift_range`` launch over all
+        does not take: each move is one ``shift_range`` launch over all
         rows, equal to the reference backend's row replay."""
-        # rows longer than fused_stream holds (29,056 int32 lanes), so the
+        # int8 rows: fused_stream takes int32 / float32 rows only, so the
         # program replays per op
-        x = torch.arange(4 * 30000, dtype=torch.int32,
-                         device=cuda_device).reshape(4, 30000) % 97
+        x = (torch.arange(4 * 30000, dtype=torch.int32,
+                          device=cuda_device).reshape(4, 30000) % 97
+             ).to(torch.int8)
         ul = torch.tensor([30000, 29990, 17, 0], dtype=torch.int32,
                           device=cuda_device)
         prog = (CPMProgram().append("insert", pos=700, values=[7, 8])

@@ -330,6 +330,11 @@ class TestFusedStreamPlain:
         assert ops.launch_counts()["fused_stream"] == 0
 
 
+def _plan_of(instrs, x):
+    """The kernel's plan for the stream ``instrs`` over the rows ``x``."""
+    return TK.fused_plan(*x.shape, tuple((op, st) for op, st, _ in instrs))
+
+
 class TestFusedStreamDescriptor:
     """The by-value kernel descriptor is packed in Python: check it here,
     where the kernel cannot run."""
@@ -340,7 +345,7 @@ class TestFusedStreamDescriptor:
         tops = tuple(torch.from_numpy(o) for o in operands)
         prods = [torch.empty(5, 41, dtype=TK.FUSED_PRODUCERS[op])
                  for op, _, _ in instrs if op in TK.FUSED_PRODUCERS]
-        prog = TK._describe(instrs, tops, tx, prods)
+        prog = TK._describe(instrs, tops, tx, prods, _plan_of(instrs, tx))
         assert prog.n_instr == len(instrs) and prog.x_float == 1
         assert [prog.ins[i].op for i in range(len(instrs))] == \
             [TK._OPCODE[op] for op, _, _ in instrs]
@@ -359,28 +364,31 @@ class TestFusedStreamDescriptor:
 
     def test_broadcast_operands_get_zero_row_stride(self):
         x, ul, instrs, operands = _stream(np.int32, 5, 41, False, seed=3)
+        tx = torch.from_numpy(x)
         prog = TK._describe(instrs, tuple(torch.from_numpy(o)
-                                          for o in operands),
-                            torch.from_numpy(x),
+                                          for o in operands), tx,
                             [torch.empty(5, 41, dtype=TK.FUSED_PRODUCERS[op])
                              for op, _, _ in instrs
-                             if op in TK.FUSED_PRODUCERS])
+                             if op in TK.FUSED_PRODUCERS],
+                            _plan_of(instrs, tx))
         assert all(prog.ins[i].ostride0 == 0 for i in range(len(instrs))
                    if instrs[i][2])
 
     def test_rejects_what_the_kernel_does_not_take(self):
         x = torch.zeros(2, 8, dtype=torch.int32)
         bad_dtype = (torch.zeros(2, 1, dtype=torch.int64),)
+        trunc = (("truncate", (), 1),)
         with pytest.raises(TypeError):
-            TK._describe((("truncate", (), 1),), bad_dtype, x, [])
+            TK._describe(trunc, bad_dtype, x, [], _plan_of(trunc, x))
+        insert = (("insert", (("k", 3),), 2),)
         with pytest.raises(ValueError):
-            TK._describe((("insert", (("k", 3),), 2),),
-                         (torch.zeros(2, 1, dtype=torch.int32),
-                          torch.zeros(2, 2, dtype=torch.int32)), x, [])
+            TK._describe(insert, (torch.zeros(2, 1, dtype=torch.int32),
+                                  torch.zeros(2, 2, dtype=torch.int32)), x,
+                         [], _plan_of(insert, x))
+        many = trunc * (TK.MAX_INSTR + 1)
         with pytest.raises(ValueError):
-            TK._describe((("truncate", (), 1),) * (TK.MAX_INSTR + 1),
-                         (torch.zeros(1, 1, dtype=torch.int32),)
-                         * (TK.MAX_INSTR + 1), x, [])
+            TK._describe(many, (torch.zeros(1, 1, dtype=torch.int32),)
+                         * (TK.MAX_INSTR + 1), x, [], _plan_of(many, x))
 
 
 class TestBuild:
