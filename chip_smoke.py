@@ -28,6 +28,11 @@ Phases, in order; any failure exits non-zero:
      as the commit's, runs the resident-row kernel) beside the eager
      plan's summed device time, in the same process; an empty kernel
      (built here from ``EMPTY_KERNEL``) is timed as the launch floor;
+     flash attention again at head dim 256 (recurrentgemma-9b's B = 2,
+     H = 16, KVH = 1, S = 2,304; bf16 and float32, causal with no window,
+     window 2,048 and window 100, strided and packed), the bf16
+     window-2,048 case timed beside its bound and SDPA with the window
+     as a mask;
   3. check the port end to end on a small input: the smoke config on the
      card (kernels) against the same weights on the CPU (plain twins);
   4. build granite-8b at full width from a seeded ``torch.Generator`` on
@@ -136,7 +141,28 @@ Phases, in order; any failure exits non-zero:
      (``conv1d`` beside the stencil; ``template_match`` at 4, 16 and 64
      items, each with its bytes, operation and float32 issue bounds;
      ``activate`` with its bounds by value, as phase 9 calls it, beside
-     the same from device tensors).
+     the same from device tensors);
+ 10. with granite-8b's weights freed, recurrentgemma-9b at full width and
+     depth (38 layers: 12 units of (rglru, rglru, attn_local) and two
+     rglru; 8.5B float32 parameters from a seeded generator) through
+     ``Engine.generate`` at batch 2 with 2,304-token prompts (past the
+     2,048-key window, so every ring wraps) and 32 new tokens, scan then
+     speculative (draft 4), counters set to 0 before each: the tokens
+     equal, 12 ``flash_attention`` launches a prefill (head dim 256, one
+     kv head), the commit's launches as in phase 5, one host sync a round
+     and none in a commit; then phase 6's gateway traffic over the paged
+     pool on these weights (rings and recurrent states parked and
+     restored), with phase 6's checks;
+ 11. granite-moe-1b-a400m at full width (24 layers, top 8 of 32
+     experts): the last prefill logits of a small input on the card
+     against the port's CPU run of the same weights, both in float32
+     compute, within phase 3's tolerance (2e-2 x max(1, |logit|); the
+     bf16 difference is printed beside it: random weights make 24 bf16
+     layers amplify one rounding apart into O(1) logits), then
+     ``Engine.generate`` scan and speculative with tokens/s and
+     acceptance (speculative tokens are not held to scan tokens: a verify
+     round routes b x (draft + 1) tokens at once, so capacity drops
+     differ, as in JAX).
 
 The lines before the last are the launch floor beside the kernels that
 run at it, the card (``nvidia-smi`` name and power limit) and one JSON
@@ -174,6 +200,14 @@ POOL = dict(slots=8, n_banks=2, chunk=4, page_size=32, pages_per_bank=24)
 POOL_MAX_LEN = 384
 #: (gateway tick, requests, prompt tokens, budget)
 POOL_TRAFFIC = ((0, 4, 128, 32), (2, 4, 64, 8), (3, 4, 256, 8))
+# phase 10: recurrentgemma-9b at full width and depth (38 layers, 12 of
+# them local attention over a 2,048-key window): prompts longer than the
+# window, so every ring wraps
+HYB_BATCH, HYB_PROMPT, HYB_NEW, HYB_SPEC = 2, 2304, 32, 4
+# phase 11: granite-moe-1b-a400m at full width: a small input card against
+# CPU, then Engine.generate
+MOE_SMALL = (2, 32)
+MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_SPEC = 4, 256, 32, 4
 NEAR_TIE = 2e-2
 # phase 7: the CPM surface at the paper benchmark's row length, and the
 # allocator at a pool's size (16,384 pages of 32 tokens: about what the
@@ -507,6 +541,89 @@ def check_flash(torch, dev, record):
             "library_flash_pinned_kernels": flash_lib_kernels,
             "device_launches": device_launches(
                 lambda: fa.flash_attention(q, k, v, causal=True))}
+
+
+def _window_tiles(s: int, window: int, tile: int = 64) -> int:
+    """64 x 64 (query, key) tiles of a causal window-``window`` mask over
+    S = Sq = Skv that hold a live pair (the tiles the kernel computes)."""
+    n = -(-s // tile)
+    return sum(min(i + 1, n) - max(0, (i * tile - window + 1) // tile)
+               for i in range(n))
+
+
+def check_flash_d256(torch, dev, rec):
+    """Phase 2, head dim 256 (recurrentgemma-9b's attn_local layers: 16 q
+    heads over one kv head, window 2,048): the kernel against its plain
+    twin in bf16 and float32, causal with no window, window 2,048 and
+    window 100, on the main path's strided (B, S, H, D) views and on
+    packed tensors; the bf16 window-2,048 case timed with its bound and
+    SDPA's time on the same inputs (the window as a boolean mask).  Adds
+    ``d256_*`` keys to phase 2's flash_attention record ``rec``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, kvh, s, d, w = HYB_BATCH, 16, 1, HYB_PROMPT, 256, 2048
+    g = torch.Generator(device=dev).manual_seed(12)
+    layouts = {
+        "strided": [torch.randn((b, s, n, d), generator=g,
+                                device=dev).transpose(1, 2)
+                    for n in (h, kvh, kvh)],
+        "contiguous": [torch.randn((b, n, s, d), generator=g, device=dev)
+                       for n in (h, kvh, kvh)]}
+    worst = {}
+    for layout, base in layouts.items():
+        for dt in ("bfloat16", "float32"):
+            for window in (None, w, 100):
+                q, k, v = (t.to(getattr(torch, dt)) for t in base)
+                got = fa.flash_attention(q, k, v, causal=True, window=window)
+                torch.cuda.synchronize()
+                want = fa.flash_attention_plain(q, k, v, causal=True,
+                                                window=window)
+                err = float((got.float() - want.float()).abs().max())
+                tol = FLASH_TOL[dt]
+                ok = torch.allclose(got.float(), want.float(), rtol=tol,
+                                    atol=tol)
+                print(f"flash_attention D=256 {dt} causal window={window} "
+                      f"{layout} (B={b} H={h} KVH={kvh} S={s}): "
+                      f"max_abs_err={err:.3e} tol={tol} "
+                      f"{'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"flash_attention D=256 {dt} window={window} "
+                         f"{layout} disagrees with its plain twin "
+                         f"(max abs err {err})")
+                worst[dt] = max(err, worst.get(dt, 0.0))
+    q, k, v = (t.to(torch.bfloat16) for t in layouts["strided"])
+    ms, src, call_ms = timed(
+        lambda: fa.flash_attention(q, k, v, causal=True, window=w), 20)
+    plain_ms, _, _ = timed(
+        lambda: fa.flash_attention_plain(q, k, v, causal=True, window=w), 3)
+    i = torch.arange(s, device=dev)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms, _, _ = timed(lambda: sdpa(q, k, v, attn_mask=mask,
+                                      enable_gqa=True), 20)
+    tiles = _window_tiles(s, w)
+    flops = 4.0 * d * 64 * 64 * tiles * b * h
+    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())   # q, k, v, out
+    bound_ms, by = bound(nbytes, flops)
+    qf, kf, vf = (t.float() for t in layouts["strided"])
+    f32_ms, f32_src, _ = timed(
+        lambda: fa.flash_attention(qf, kf, vf, causal=True, window=w), 3)
+    rec.update({"d256_shape": [b, h, kvh, s, d], "d256_window": w,
+                "d256_max_abs_err": worst["bfloat16"],
+                "d256_f32_max_abs_err": worst["float32"],
+                "d256_ms": ms, "d256_ms_source": src,
+                "d256_call_ms": call_ms, "d256_plain_ms": plain_ms,
+                "d256_bound_ms": bound_ms, "d256_bound_by": by,
+                "d256_tiles": tiles * b * h,
+                "d256_library_ms": lib_ms,
+                "d256_library_call": "scaled_dot_product_attention("
+                                     "attn_mask=window, enable_gqa=True)",
+                "d256_f32_ms": f32_ms, "d256_f32_ms_source": f32_src})
+    print(f"flash_attention D=256 bf16 causal window {w} (B={b} H={h} "
+          f"KVH={kvh} S={s}, strided): {ms:.4f} ms ({src}; {call_ms:.4f} "
+          f"a call), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {by} "
+          f"({tiles * b * h} live 64x64 tiles), SDPA with the window mask "
+          f"{lib_ms:.4f} ms; float32 {f32_ms:.4f} ms")
 
 
 def _nine_op_stream(np, r, n, dtype, per_row, seed):
@@ -992,9 +1109,10 @@ def _solo_gaps(torch, engine, prompt, seq):
     return (lg.amax(-1) - picked).cpu(), tol, other
 
 
-def serve_pool(torch, dev, cfg, params, record):
-    """Phase 6 (see the module docstring).  Returns the launch counts of
-    the gateway run."""
+def serve_pool(torch, dev, cfg, params, record, tag="pool"):
+    """Phase 6 (see the module docstring) on ``cfg`` / ``params``, its
+    record in ``record[tag]``.  Returns the launch counts of the gateway
+    run."""
     import warnings
 
     from repro_torch.kernels import ops
@@ -1069,7 +1187,7 @@ def serve_pool(torch, dev, cfg, params, record):
             fail(f"request {rid}: a pool token lies {float(gaps.max())} "
                  f"below the solo path's max logit (tol {tol})")
     t_solo = time.perf_counter() - t0
-    print(f"pool tokens vs solo Engine.generate: {identical}/{len(rids)} "
+    print(f"{tag} tokens vs solo Engine.generate: {identical}/{len(rids)} "
           f"requests identical; in the others {tie_steps} steps took a "
           f"token other than the solo path's choice on the same prefix, "
           f"each a near-tie (largest gap {worst:.3e}, its tol {worst_tol} "
@@ -1137,8 +1255,9 @@ def serve_pool(torch, dev, cfg, params, record):
         fail("pages leaked after the steady-step drain")
 
     pool_rec = {
-        **POOL, "max_len": POOL_MAX_LEN, "layers": cfg.n_layers,
-        "requests": len(rids), "traffic": POOL_TRAFFIC,
+        **POOL, "model": cfg.name, "max_len": POOL_MAX_LEN,
+        "layers": cfg.n_layers, "requests": len(rids),
+        "traffic": POOL_TRAFFIC,
         "ticks": st["ticks"], "run_s": t_run,
         "tokens_out": sum(b for _, _, b in rids),
         "run_tok_s": sum(b for _, _, b in rids) / t_run,
@@ -1161,35 +1280,41 @@ def serve_pool(torch, dev, cfg, params, record):
             "emitted", "chunk_wall_s", "wall_s", "active", "waiting",
             "parked", "pages_free")} for r in reports],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    record["pool"] = pool_rec
-    print(f"pool: {len(rids)} requests in {st['ticks']} ticks, "
+    record[tag] = pool_rec
+    print(f"{tag} ({cfg.name}): {len(rids)} requests in {st['ticks']} ticks, "
           f"{t_run:.2f}s ({pool_rec['run_tok_s']:.1f} new tok/s incl. "
           f"prefill); prefill launches {st['prefill_launches']} for "
           f"{st['admits']} admits; preemptions {st['preemptions']}, "
           f"restores {st['restores']}, page stalls {st['page_stalls']}")
-    print(f"pool steady step ({POOL['slots']} rows x chunk "
+    print(f"{tag} steady step ({POOL['slots']} rows x chunk "
           f"{POOL['chunk']}): {step_s * 1e3:.1f} ms synchronized, "
           f"{ev0.elapsed_time(ev1):.1f} ms between events, chunk dispatch "
           f"{dispatch_s * 1e3:.1f} ms; {chunk_tokens / step_s:.1f} "
           f"decode tok/s; launches {steady}; host syncs in the chunk 0")
-    print(f"pool steady step under torch.profiler: device busy "
+    print(f"{tag} steady step under torch.profiler: device busy "
           f"{busy_ms:.1f} ms of the {step_s * 1e3:.1f} ms unprofiled step "
           f"(idle share {1.0 - busy_ms / (step_s * 1e3):.3f}); top kernels "
           f"(ms, calls): {top}")
-    print(f"launches on the pool path: {counts}")
+    print(f"launches on the {tag} path: {counts}")
     return counts
 
 
 def steady_profile(torch, pool):
-    """One more steady ``pool.step()`` under ``torch.profiler``: the summed
-    device time of its kernels and copies (ms), and the eight largest by
-    device time as ``[name, ms, calls]``."""
+    """One more steady ``pool.step()`` under ``torch.profiler``: see
+    :func:`profile_top`."""
+    return profile_top(torch, pool.step)
+
+
+def profile_top(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: the summed device time
+    of its kernels and copies (ms), and the eight largest by device time
+    as ``[name, ms, calls]``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pool.step()
+        fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
            if str(e.device_type).endswith("CUDA")
@@ -1198,6 +1323,255 @@ def steady_profile(torch, pool):
     busy = sum(e.self_device_time_total for e in dev) / 1e3
     return busy, [[e.key[:60], round(e.self_device_time_total / 1e3, 3),
                    e.count] for e in dev[:8]]
+
+
+# ---------------------------------------------------------------------------
+# phase 10: recurrentgemma-9b at full width and depth
+# ---------------------------------------------------------------------------
+
+def _init_full(torch, dev, name, seed):
+    """A config's full-width random parameters on the card, timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed), dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in torch.utils._pytree.tree_flatten(params)[0])
+    init_s = time.perf_counter() - t0
+    print(f"{name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n / 1e9:.3f}B float32 params (config count "
+          f"{cfg.param_count() / 1e9:.3f}B), init {init_s:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    return cfg, params, {"params": n, "init_s": init_s}
+
+
+def serve_recurrentgemma(torch, dev, record, card):
+    """Phase 10: recurrentgemma-9b through ``Engine.generate`` at batch 2
+    with 2,304-token prompts (past the 2,048-key window: every ring
+    wraps), 32 new tokens, greedy scan then speculative (draft 4) with
+    the launch counters set to 0 before each run: tokens equal, 12
+    ``flash_attention`` launches a prefill (one per attn_local layer),
+    the commit's launches as its verdict implies, one host sync a round
+    and none in a commit; then phase 6's gateway over the paged pool on
+    these weights.  Returns (generate counts, pool counts)."""
+    from repro_torch.launch.serve import repeated_prompts
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, GenConfig
+
+    cfg, params, init = _init_full(torch, dev, "recurrentgemma-9b", 0)
+    n_local = sum(k == "attn_local" for k in cfg.layer_kinds())
+    engine = Engine(cfg, params,
+                    max_len=HYB_PROMPT + HYB_NEW + HYB_SPEC + 8,
+                    cpm_backend="cuda")
+    prompt = repeated_prompts(HYB_BATCH, HYB_PROMPT, cfg.vocab_size, 3,
+                              device=dev)
+    scan_cfg = GenConfig(max_new_tokens=HYB_NEW)
+    spec_cfg = GenConfig(max_new_tokens=HYB_NEW, ngram_spec=HYB_SPEC)
+    # the commit's verdict at this shape first: a calibrated model settles
+    # it by timing the group once, outside the counted runs
+    kind, decision = _commit_verdict(torch, dev, HYB_BATCH,
+                                     HYB_PROMPT + HYB_NEW, HYB_SPEC)
+
+    ops.reset_launch_counts()                      # the scan path, counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan, _ = engine.generate({"tokens": prompt}, scan_cfg)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    scan_counts = ops.launch_counts()
+    gen = {"engine": engine, "prompt": prompt, "spec": spec_cfg}
+    spec, stats, counts, syncs, t_spec = _generate_counted(torch, gen)
+    in_commit, in_prefill, rounds_syncs = syncs
+
+    if tuple(scan.shape) != (HYB_BATCH, HYB_PROMPT + HYB_NEW) or not bool(
+            ((scan >= 0) & (scan < cfg.vocab_size)).all()):
+        fail(f"recurrentgemma scan output {tuple(scan.shape)} or tokens "
+             f"outside the vocabulary")
+    if not torch.equal(scan, spec):
+        fail("recurrentgemma: speculative tokens differ from scan tokens")
+    for path, c in (("scan", scan_counts), ("speculative", counts)):
+        if c["flash_attention"] != n_local:
+            fail(f"recurrentgemma {path}: flash_attention launched "
+                 f"{c['flash_attention']} times, want {n_local} (one "
+                 f"prefill)")
+    if scan_counts["fused_stream"] or scan_counts["shift_range"]:
+        fail(f"the recurrentgemma scan path launched a commit kernel: "
+             f"{scan_counts}")
+    commit_launch_check(counts, kind, stats["rounds"],
+                        "recurrentgemma generate")
+    if in_commit:
+        fail(f"a recurrentgemma commit synchronized with the host: "
+             f"{in_commit[:3]}")
+    if len(rounds_syncs) != stats["rounds"]:
+        fail(f"recurrentgemma: {len(rounds_syncs)} host syncs over "
+             f"{stats['rounds']} rounds outside the prefill, want one a "
+             f"round: {rounds_syncs[:3]}")
+
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(params, cfg, {"tokens": prompt},
+                                max_len=engine.max_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(logits[..., :cfg.vocab_size].float()).all()):
+        fail("recurrentgemma: non-finite prefill logits")
+    ring = caches["blocks"][2]["attn"]["k"]
+    if ring.shape[-2] != cfg.window:
+        fail(f"recurrentgemma ring of {ring.shape[-2]} slots, want "
+             f"{cfg.window}")
+    del logits, caches
+    busy_ms, top = profile_top(torch, lambda: lm.prefill(
+        params, cfg, {"tokens": prompt}, max_len=engine.max_len))
+    print(f"recurrentgemma-9b prefill under torch.profiler: device busy "
+          f"{busy_ms:.1f} ms; top kernels (ms, calls): {top}")
+    new = HYB_BATCH * HYB_NEW
+    rec = {**init, "layers": cfg.n_layers, "attn_local_layers": n_local,
+           "batch": HYB_BATCH, "prompt_len": HYB_PROMPT, "max_new": HYB_NEW,
+           "spec": HYB_SPEC, "window": cfg.window, "prefill_ms": prefill_ms,
+           "prefill_device_busy_ms": busy_ms, "prefill_top_kernels": top,
+           "scan_s": t_scan, "scan_tok_s": new / t_scan,
+           "spec_s": t_spec, "spec_tok_s": new / t_spec,
+           "rounds": stats["rounds"], "accepted": stats["accepted"],
+           "proposed": stats["proposed"],
+           "acceptance_rate": stats["acceptance_rate"],
+           "launches_scan": scan_counts, "launches": counts,
+           "commit_verdict": kind, "commit_decision": decision,
+           "host_syncs_rounds": len(rounds_syncs),
+           "host_syncs_commits": len(in_commit),
+           "host_syncs_prefill": len(in_prefill),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    record["hybrid"] = rec
+    print(f"recurrentgemma-9b serve: prefill {prefill_ms:.1f} ms (B="
+          f"{HYB_BATCH} x {HYB_PROMPT}, window {cfg.window}); scan "
+          f"{t_scan:.2f}s = {new / t_scan:.1f} tok/s; spec {t_spec:.2f}s = "
+          f"{new / t_spec:.1f} tok/s, {stats['rounds']} rounds, acceptance "
+          f"{stats['acceptance_rate']:.3f}; spec == scan; flash_attention "
+          f"{counts['flash_attention']} a prefill; commit {kind}: "
+          f"fused_stream {counts['fused_stream']}, shift_range "
+          f"{counts['shift_range']}; host syncs {len(rounds_syncs)} in "
+          f"{stats['rounds']} rounds, 0 in commits, {len(in_prefill)} in "
+          f"the prefill; {card}")
+    pool_counts = serve_pool(torch, dev, cfg, params, record,
+                             tag="hybrid_pool")
+    return counts, pool_counts
+
+
+# ---------------------------------------------------------------------------
+# phase 11: granite-moe-1b-a400m at full width
+# ---------------------------------------------------------------------------
+
+def serve_moe(torch, dev, record, card):
+    """Phase 11: granite-moe-1b-a400m (24 layers, 32 experts, top 8) at full
+    width: the last position's prefill logits on the card against the
+    port's CPU run of the same weights at a small input, both computing
+    in float32, within phase 3's tolerance (2e-2 x max(1, |logit|)), and
+    the same in bf16 reported beside them; then ``Engine.generate``, scan and
+    speculative, counted, with tokens/s and acceptance.  The speculative
+    tokens are not held to the scan tokens: ``decode_multi`` routes
+    b x (draft + 1) tokens at once, so capacity drops differ, as in JAX.
+    Returns the generate path's launch counts."""
+    from repro_torch.launch.serve import repeated_prompts
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, GenConfig
+
+    cfg, params, init = _init_full(torch, dev, "granite-moe-1b-a400m", 5)
+    b, s = MOE_SMALL
+    small = repeated_prompts(b, s, cfg.vocab_size, 6)
+    cpu_p = lm._tree_map(lambda t: t.cpu(), params)
+
+    def last_logits(dtype):
+        """The small input's last prefill logits, CPU and card, with the
+        model computing in ``dtype`` (the port's ``COMPUTE_DTYPE``)."""
+        saved = L.COMPUTE_DTYPE
+        L.COMPUTE_DTYPE = dtype
+        try:
+            want, _ = lm.prefill(cpu_p, cfg, {"tokens": small})
+            got, _ = lm.prefill(params, cfg, {"tokens": small.to(dev)})
+        finally:
+            L.COMPUTE_DTYPE = saved
+        want = want[..., :cfg.vocab_size].float()
+        got = got[..., :cfg.vocab_size].float().cpu()
+        return (float((got - want).abs().max()),
+                2e-2 * max(1.0, float(want.abs().max())),
+                float((got.argmax(-1) == want.argmax(-1)).float().mean()))
+
+    err, tol, same_top = last_logits(torch.float32)
+    err16, tol16, same16 = last_logits(torch.bfloat16)
+    del cpu_p
+    print(f"granite-moe-1b-a400m small input ({b} x {s}), card vs CPU, last "
+          f"logits: float32 compute max |diff| {err:.3e} (tol {tol:.3e}), "
+          f"argmax equal {same_top:.3f}; bf16 compute max |diff| "
+          f"{err16:.3e} ({tol16:.3e} would be the tolerance), argmax "
+          f"equal {same16:.3f} (not gated: with these random weights the "
+          f"residual stream grows to ~85 after the first MoE layer and "
+          f"24 bf16 layers amplify one rounding apart into O(1) logits; "
+          f"the first layer agrees to one bf16 ulp)")
+    if not err <= tol:
+        fail(f"granite-moe card logits (float32 compute) differ from the "
+             f"CPU run by {err} (tol {tol})")
+
+    engine = Engine(cfg, params,
+                    max_len=MOE_PROMPT + MOE_NEW + MOE_SPEC + 8,
+                    cpm_backend="cuda")
+    prompt = repeated_prompts(MOE_BATCH, MOE_PROMPT, cfg.vocab_size, 7,
+                              device=dev)
+    kind, _ = _commit_verdict(torch, dev, MOE_BATCH, MOE_PROMPT + MOE_NEW,
+                              MOE_SPEC)                # settled uncounted
+    ops.reset_launch_counts()                      # the generate path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan, _ = engine.generate({"tokens": prompt},
+                              GenConfig(max_new_tokens=MOE_NEW))
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec, stats = engine.generate({"tokens": prompt},
+                                  GenConfig(max_new_tokens=MOE_NEW,
+                                            ngram_spec=MOE_SPEC))
+    torch.cuda.synchronize()
+    t_spec = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for name, out in (("scan", scan), ("spec", spec)):
+        if tuple(out.shape) != (MOE_BATCH, MOE_PROMPT + MOE_NEW) or not \
+                bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+            fail(f"granite-moe {name} output {tuple(out.shape)} or tokens "
+                 f"outside the vocabulary")
+    if counts["flash_attention"] != 2 * cfg.n_layers:
+        fail(f"granite-moe: flash_attention launched "
+             f"{counts['flash_attention']} times for two prefills of "
+             f"{cfg.n_layers} layers")
+    commit_launch_check(counts, kind, stats["rounds"], "granite-moe generate")
+    t0 = time.perf_counter()
+    lm.prefill(params, cfg, {"tokens": prompt}, max_len=engine.max_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    new = MOE_BATCH * MOE_NEW
+    agree = float((scan == spec).float().mean())
+    record["moe"] = {**init, "small_input": [b, s], "small_max_abs_err": err,
+                     "small_tol": tol, "small_argmax_equal": same_top,
+                     "small_bf16_max_abs_err": err16,
+                     "small_bf16_argmax_equal": same16,
+                     "batch": MOE_BATCH, "prompt_len": MOE_PROMPT,
+                     "max_new": MOE_NEW, "spec": MOE_SPEC,
+                     "prefill_ms": prefill_ms, "scan_tok_s": new / t_scan,
+                     "spec_tok_s": new / t_spec, "rounds": stats["rounds"],
+                     "acceptance_rate": stats["acceptance_rate"],
+                     "spec_scan_token_agreement": agree,
+                     "commit_verdict": kind, "launches": counts}
+    print(f"granite-moe-1b-a400m serve: prefill {prefill_ms:.1f} ms (B="
+          f"{MOE_BATCH} x {MOE_PROMPT}); scan {new / t_scan:.1f} tok/s; spec "
+          f"{new / t_spec:.1f} tok/s, {stats['rounds']} rounds, acceptance "
+          f"{stats['acceptance_rate']:.3f}, tokens equal to scan's "
+          f"{agree:.3f} (not gated: capacity drops differ); launches "
+          f"{counts}; {card}")
+    del params, engine
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2777,6 +3151,7 @@ def main(argv=None) -> int:
     kernels = [check_flash(torch, dev, record),
                check_fused_stream(torch, np, dev, card, empty),
                *check_rows(torch, np, dev)]
+    check_flash_d256(torch, dev, kernels[0])
     check_small_model(torch, dev)
     gen_counts, cfg, params, gen = serve_granite(torch, dev, args.layers,
                                                 record)
@@ -2810,6 +3185,13 @@ def main(argv=None) -> int:
     pool2_counts = check_pool_by_cost(torch, dev, gen)
     del gen, params
     torch.cuda.empty_cache()
+
+    # phases 10 and 11: the other decoder families, granite-8b's weights
+    # freed first
+    hyb_counts, hyb_pool_counts = serve_recurrentgemma(torch, dev, record,
+                                                       card)
+    torch.cuda.empty_cache()
+    moe_counts = serve_moe(torch, dev, record, card)
     kernels += time_stream_kernels(torch, dev, data, data3, errs3)
     del data
     record["streams"] = {"shape": [CPM_R, CPM_N], "used_len": data3["used"],
@@ -2821,7 +3203,9 @@ def main(argv=None) -> int:
              "generate_by_cost": by_cost["calibrated"],
              "generate_fused": by_cost["fused"],
              "generate_eager": by_cost["eager"],
-             "pool_by_cost": pool2_counts}
+             "pool_by_cost": pool2_counts,
+             "hybrid_generate": hyb_counts, "hybrid_pool": hyb_pool_counts,
+             "moe_generate": moe_counts}
     for k in kernels:
         # each kernel's count on the newest path that runs it (the pool for
         # the serving kernels, phase 7, 8 or 9 for the per-op ones)

@@ -140,13 +140,12 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    from . import granite_8b  # noqa: F401  (populates the registry)
+    from . import archs  # noqa: F401  (populates the registry)
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; the port has {sorted(_REGISTRY)} "
-                       "(other archs: ROADMAP Queue 1 item 5)")
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def all_configs() -> dict[str, ModelConfig]:
-    from . import granite_8b  # noqa: F401
+    from . import archs  # noqa: F401
     return dict(_REGISTRY)

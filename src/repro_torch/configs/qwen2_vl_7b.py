@@ -1,0 +1,10 @@
+"""A copy of the JAX package's config of the same name (source in archs.py)."""
+
+from .base import ModelConfig, MoEConfig, register
+
+CONFIG = QWEN2_VL_7B = register(ModelConfig(
+    name="qwen2-vl-7b", family="vlm",
+    n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4, d_ff=18944,
+    vocab_size=152064, qkv_bias=True, rope_theta=1e6,
+    mrope_sections=(16, 24, 24),
+))

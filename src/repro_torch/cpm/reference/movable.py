@@ -41,13 +41,13 @@ def shift_range(x: torch.Tensor, start, end, shift: int = 1,
 
 
 def write_window(x: torch.Tensor, pos, values: torch.Tensor) -> torch.Tensor:
-    """Broadcast-write ``values`` into [pos, pos+k): the write phase of
-    insertion."""
+    """Broadcast-write ``values`` (``(k,)``, or one ``(..., k)`` row per
+    row of ``x``) into [pos, pos+k): the write phase of insertion."""
     k = values.shape[-1]
     idx = torch.arange(x.shape[-1], dtype=torch.int32, device=x.device)
     pos = asarray(pos, device=x.device)
     in_window = (idx >= pos) & (idx < pos + k)
-    vals = values[torch.clamp(idx - pos, 0, k - 1).long()]
+    vals = values[..., torch.clamp(idx - pos, 0, k - 1).long()]
     return torch.where(in_window, vals, x)
 
 

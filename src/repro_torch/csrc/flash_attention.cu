@@ -25,12 +25,13 @@
 //    q, k, v and o cross device memory once per block.
 //  * Each kv tile (64 keys) is staged once in shared memory and reused by
 //    every query row of the block (of every head, in the wgmma kernel).
-//  * bf16 inputs with D = 64 or 128 (the serving path: granite-8b's
-//    D = 128) run on Hopper's warpgroup products: wgmma m64n64k16 with
-//    float32 accumulation, S = Q K^T from shared memory and O += P V with
-//    P from registers, fed by TMA tile loads that a producer warp keeps
-//    one K/V tile ahead on mbarriers, a block serving two q heads of a
-//    GQA group where H / KVH is even (flash_fwd_wgmma_kernel below).
+//  * bf16 inputs with D = 64, 128 or 256 (the serving paths: granite-8b's
+//    D = 128, recurrentgemma-9b's 256) run on Hopper's warpgroup
+//    products: wgmma m64n64k16 with float32 accumulation, S = Q K^T from
+//    shared memory and O += P V with P from registers, fed by TMA tile
+//    loads that a producer warp keeps one K/V tile ahead on mbarriers, a
+//    block serving two q heads of a GQA group where H / KVH is even (one
+//    at D = 256; flash_fwd_wgmma_kernel below).
 //    Products of bf16 values are exact in float32, so S is the TPU
 //    kernel's float32 dot up to summation order; P stays near float32 by
 //    entering the P V product as two bf16 halves (hi + lo), two products
@@ -44,11 +45,30 @@
 //  * float32 inputs run on the FP32 pipes (67 TFLOP/s; TF32 would drop
 //    the float32 contract): one warp per row at a time, lane j scoring
 //    keys j and j+32, K rows padded to D+1 floats for distinct banks.
+//  * D = 256 (recurrentgemma-9b: H = 16 q heads over one kv head) doubles
+//    what a query row carries.  In bf16 it runs the same wgmma kernel with
+//    one consumer warpgroup a block (HPB = 1): its 64 x 256 float32 O
+//    accumulator is 128 registers a thread, Q is four 64-column boxes
+//    (32 KB) and each K or V tile four more (32 KB), double-buffered: 160
+//    KB of the 227 KB of shared memory.  Two heads a block would take 193
+//    KB and cap 288 threads at 227 registers each.  In float32 it
+//    runs the FP32 kernel, whose 64-key tile at D = 256 takes 138 KB.
 //  * Causal tiles that lie wholly after the q tile, and window tiles that
 //    lie wholly before it, are skipped: their contributions are exactly
 //    zero (exp(-1e30 - m) == 0, alpha == 1; or erased by alpha == 0)
 //    whenever every row of the tile sees an unmasked key, which the skip
-//    condition checks.  Work follows the mask, not Skv.
+//    condition checks.  Work follows the mask, not Skv.  Two traps:
+//     - the window mask cols > rows - window is on absolute indices (as
+//       in the TPU kernel), not aligned to the end of the keys: with
+//       Sq = Skv = 2,304 and window 2,048, rows 0 .. 2,047 keep every
+//       causal key and rows from 2,048 on lose their first keys (row r
+//       keeps r - 2,047 .. r);
+//     - the first tile kept is the one holding key q0 - window + 1, the
+//       earliest key any row of the q tile keeps; every row keeps its own
+//       diagonal key (window >= 1), so no row's only live tile is
+//       skipped, and a row whose first kept tile is all masked for it
+//       (p = exp(0) on -1e30 scores) has that erased by the live tile
+//       after it (alpha = exp(-1e30 - m) == 0), as on the TPU.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -422,7 +442,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // K-major for Q and K (S = Q K^T, both operands in shared memory), and
 // MN-major for V (O += P V, the B operand's transpose bit), with P from
 // registers as the A operand (the m16n8k16 fragment each warp's 16 rows
-// of the S accumulator already hold).  D = 128 is two 64-column boxes.
+// of the S accumulator already hold).  D = 128 is two 64-column boxes,
+// D = 256 four.
 // TMA's 4-D maps (D, S, heads, B) take the strided views of the main
 // path as they are (byte strides multiples of 16) and zero-fill rows past
 // Sq / Skv; keys past Skv are masked to -inf as in the mma.sync kernel.
@@ -856,7 +877,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, Args a,
 }
 
 // dtype 0: float32 (FP32 kernel); 1: bfloat16: the wgmma + TMA kernel for
-// D = 64 and 128, the mma.sync one for D = 16 and 32 (a route by shape:
+// D = 64, 128 and 256, the mma.sync one for D = 16 and 32 (a route by shape:
 // a 32- or 64-byte row is below the 128-byte swizzled box the wgmma
 // kernel's TMA loads and descriptors are built on)
 template <int D>
@@ -864,7 +885,9 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            Args a, cudaStream_t s) {
   if (dtype == 0) return launch_f32<D>(q, k, v, o, a, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if constexpr (D >= 64) {
+  if constexpr (D == 256) {
+    return launch_wgmma<D, 1>(q, k, v, o, a, s);   // see the header
+  } else if constexpr (D >= 64) {
     return (a.H / a.KVH) % 2 == 0 ? launch_wgmma<D, 2>(q, k, v, o, a, s)
                                   : launch_wgmma<D, 1>(q, k, v, o, a, s);
   } else {
@@ -879,6 +902,7 @@ int dispatch(int D, int dtype, const void* q, const void* k, const void* v,
     case 32: return launch<32>(dtype, q, k, v, o, a, s);
     case 64: return launch<64>(dtype, q, k, v, o, a, s);
     case 128: return launch<128>(dtype, q, k, v, o, a, s);
+    case 256: return launch<256>(dtype, q, k, v, o, a, s);
   }
   return (int)cudaErrorInvalidValue;
 }

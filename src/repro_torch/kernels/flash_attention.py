@@ -11,9 +11,14 @@ to ``q.dtype``.
 
 :func:`flash_attention` launches ``csrc/flash_attention.cu`` for CUDA
 tensors and counts the launch in ``flash_attention.launches``: bf16 with
-D = 64 or 128 on the wgmma kernel fed by TMA loads (whose 16-byte rule on
-bases and strides it checks), bf16 with D = 16 or 32 on the ``mma.sync``
-kernel, float32 on the FP32 kernel.  For CPU tensors it runs
+D = 64, 128 or 256 on the wgmma kernel fed by TMA loads (whose 16-byte
+rule on bases and strides it checks; D = 256, recurrentgemma-9b's, with
+one q head a block), bf16 with D = 16 or 32 on the ``mma.sync`` kernel,
+float32 on the FP32 kernel.
+
+The window keeps ``cols > rows - window`` on absolute indices: with
+Sq = Skv = 2,304 and window 2,048, rows up to 2,047 keep every causal
+key and rows from 2,048 on lose their first keys.  For CPU tensors it runs
 :func:`flash_attention_plain`, which repeats the TPU kernel's arithmetic
 tile by tile in PyTorch.
 """
@@ -30,9 +35,9 @@ NEG_INF = -1e30
 
 #: rows of q handled by one CUDA block at most (the wrapper's contract)
 MAX_BLOCK_Q = 128
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 #: bf16 head dims of the wgmma + TMA kernel (the others take mma.sync)
-_TMA_HEAD_DIMS = (64, 128)
+_TMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

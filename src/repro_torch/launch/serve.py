@@ -3,7 +3,12 @@ decoding, on the card by default.
 
     python -m repro_torch.launch.serve --arch granite-8b --batch 4 \\
         --prompt-len 256 --max-new 64 --spec 4
-    python -m repro_torch.launch.serve --arch granite-8b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --smoke \\
+        --device cpu
+
+``--arch`` takes every decoder-only config of ``repro_torch.configs``
+(dense, MoE, the recurrentgemma hybrid, the qwen2-vl text path); the
+xLSTM and encoder-decoder configs raise until ROADMAP Queue 1 item 3.
 
 Weights are random, drawn from ``--seed``; prompts repeat a seeded n-gram
 so that prompt-lookup drafts find matches.
@@ -17,7 +22,7 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import all_configs, get_config
 from repro_torch.models import lm
 from repro_torch.serve import Engine, GenConfig
 
@@ -40,7 +45,7 @@ def _sync(dev: torch.device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=sorted(all_configs()))
     ap.add_argument("--smoke", action="store_true",
                     help="tiny same-family config (cfg.smoke())")
     ap.add_argument("--device", default=None,

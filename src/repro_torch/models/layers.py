@@ -1,5 +1,7 @@
-"""Dense-decoder layers (a port of the attention / norm / rope / dense-FFN
-part of ``repro.models.layers``).
+"""Decoder layers (a port of ``repro.models.layers``): GQA attention
+(global and local-window), RMS / layer norm, RoPE and M-RoPE, the
+SwiGLU / GELU / ReLU FFNs, MoE with comparable-memory top-k routing and
+the RG-LRU recurrent block (Griffin / RecurrentGemma).
 
 Pure functions on tensors: ``init_*`` builds parameter dicts that mirror
 the JAX pytree one to one, ``apply_*`` / ``*_fwd`` / ``*_step`` consume
@@ -7,8 +9,8 @@ them.  Parameters stay float32 and are cast to ``COMPUTE_DTYPE``
 (bfloat16) where they are used, at the JAX package's casting points
 (``compute_view`` casts every >=2-D float32 weight per block).  The
 sharding constraints of the JAX package are dropped (distribution is
-ROADMAP Queue 1 item 10).  The other mixers (RG-LRU, mLSTM, sLSTM, cross
-attention) and FFNs (MoE, GELU/ReLU) wait for ROADMAP Queue 1 item 5.
+ROADMAP Queue 1 item 5).  The xLSTM mixers (mLSTM, sLSTM) and cross
+attention wait for ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -19,12 +21,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.cpm.reference import comparable
 from repro_torch.kernels import ops
 
 Params = dict
 COMPUTE_DTYPE = torch.bfloat16
 
-_LATER = "waits for ROADMAP Queue 1 item 5 (other mixers and FFNs)"
 
 
 def _dense_init(shape, generator: torch.Generator, device, scale=None,
@@ -40,9 +42,12 @@ def _dense_init(shape, generator: torch.Generator, device, scale=None,
     return w.mul_(scale)
 
 
-def compute_view(p, dtype=COMPUTE_DTYPE):
-    """Cast every >=2-D float32 weight of a param tree to ``dtype`` (the
-    JAX ``compute_view`` without its sharding constraints)."""
+def compute_view(p, dtype=None):
+    """Cast every >=2-D float32 weight of a param tree to ``dtype``
+    (default ``COMPUTE_DTYPE``, read at the call as the JAX callers pass
+    ``L.COMPUTE_DTYPE``; the JAX ``compute_view`` without its sharding
+    constraints)."""
+    dtype = COMPUTE_DTYPE if dtype is None else dtype
     if isinstance(p, dict):
         return {k: compute_view(v, dtype) for k, v in p.items()}
     if isinstance(p, (list, tuple)):
@@ -96,11 +101,21 @@ def _rope_angles(positions: torch.Tensor, dh: int, theta: float):
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections=None):
-    """x: (B, S, H, dh); positions: (B, S).  Angles in float32, the
-    rotation in the stream dtype."""
-    if mrope_sections is not None:
-        raise NotImplementedError(f"M-RoPE {_LATER}")
-    cos, sin = _rope_angles(positions, x.shape[-1], theta)
+    """x: (B, S, H, dh); positions: (B, S), or (3, B, S) for M-RoPE (the
+    three position axes each rotate their own section of the dh/2
+    frequencies).  Angles in float32, the rotation in the stream dtype."""
+    dh = x.shape[-1]
+    if mrope_sections is None:
+        cos, sin = _rope_angles(positions, dh, theta)    # (B, S, dh/2)
+    else:
+        cos3, sin3 = _rope_angles(positions, dh, theta)  # (3, B, S, dh/2)
+        parts_c, parts_s, off = [], [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts_c.append(cos3[i, ..., off:off + sec])
+            parts_s.append(sin3[i, ..., off:off + sec])
+            off += sec
+        cos = torch.cat(parts_c, -1)
+        sin = torch.cat(parts_s, -1)
     cos = cos[:, :, None, :].to(x.dtype)
     sin = sin[:, :, None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
@@ -108,7 +123,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA, global causal; local windows wait for Queue 1 item 5)
+# attention (GQA; global causal or local window)
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg: ModelConfig, generator, device,
@@ -145,8 +160,9 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 
 def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
-                  *, causal=True, with_cache=False):
-    """Full-sequence global self-attention.  Returns y or (y, cache)."""
+                  *, causal=True, window=None, with_cache=False):
+    """Full-sequence self-attention (``window``: local, keys within
+    ``window`` positions of the query).  Returns y or (y, cache)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -154,7 +170,7 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
     q = q.transpose(1, 2)                                # (B, H, S, dh)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
-    o = ops.attention(q, k, v, causal=causal)
+    o = ops.attention(q, k, v, causal=causal, window=window)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.dh)
     y = o @ p["wo"].to(x.dtype)
     if not with_cache:
@@ -165,9 +181,11 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
-                    dtype=COMPUTE_DTYPE) -> Params:
-    """Global-attention decode cache of ``max_len`` slots."""
-    slots = max_len
+                    dtype=COMPUTE_DTYPE, window: int | None = None) -> Params:
+    """Decode cache of ``max_len`` slots; a local-window layer keeps a ring
+    of ``min(window, max_len)`` slots, its oldest entry overwritten in
+    place (``attention_step``)."""
+    slots = min(window, max_len) if window else max_len
     kvh, dh = cfg.n_kv_heads, cfg.dh
     return {
         "k": torch.zeros((batch, kvh, slots, dh), dtype=dtype, device=device),
@@ -177,19 +195,22 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
-                   cfg: ModelConfig, pos):
-    """One-token global-attention decode.  x_t: (B, 1, d); pos: scalar or
-    (B,) int32.
+                   cfg: ModelConfig, pos, *, window=None):
+    """One-token decode.  x_t: (B, 1, d); pos: scalar or (B,) int32.
 
-    The new k/v are written into ``cache["k"]`` / ``cache["v"]`` in place
-    (the JAX version returns updated copies); the returned cache holds the
-    same storage with ``len = pos + 1``."""
+    The new k/v are written into ``cache["k"]`` / ``cache["v"]`` at slot
+    ``pos % slots`` in place (the JAX version returns updated copies); a
+    ring's live slots are ``min(pos + 1, slots)``, in any order, since
+    softmax does not care.  The returned cache holds the same storage
+    with ``len = pos + 1``."""
     b = x_t.shape[0]
     dh, h = cfg.dh, cfg.n_heads
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x_t.device)
     per_row = pos.ndim == 1
     posb = pos[:, None] if per_row else pos.expand(b, 1)
     q, k, v = _project_qkv(p, x_t, cfg)
+    if cfg.mrope_sections is not None:
+        posb = posb.expand(3, b, 1)
     q = apply_rope(q, posb, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, posb, cfg.rope_theta, cfg.mrope_sections)
     q = q.transpose(1, 2)                                # (B, H, 1, dh)
@@ -197,33 +218,223 @@ def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
     v = v.transpose(1, 2)
     ck, cv = cache["k"], cache["v"]
     slots = ck.shape[2]
-    slot = (pos % slots).long()
+    slot = (pos % slots).long()                          # the ring write
     rows = torch.arange(b, device=x_t.device)
     slot_b = slot if per_row else slot.expand(b)
     ck[rows, :, slot_b] = k[:, :, 0].to(ck.dtype)
     cv[rows, :, slot_b] = v[:, :, 0].to(cv.dtype)
-    o = ops.decode_attention(q, ck, cv, cache_len=pos + 1)
+    live = pos + 1 if window is None else torch.clamp(pos + 1, max=slots)
+    o = ops.decode_attention(q, ck, cv, cache_len=live)
     o = o.transpose(1, 2).reshape(b, 1, h * dh)
     y = o @ p["wo"].to(x_t.dtype)
     return y, {"k": ck, "v": cv, "len": pos + 1}
 
 
 # ---------------------------------------------------------------------------
-# dense FFN
+# dense FFNs
 # ---------------------------------------------------------------------------
 
 def init_ffn(cfg: ModelConfig, generator, device, reps=None) -> Params:
     d, f = cfg.d_model, cfg.d_ff
-    if cfg.ffn != "swiglu":
-        raise NotImplementedError(f"ffn={cfg.ffn!r} {_LATER}")
-    return {"w_gate": _dense_init((d, f), generator, device, reps=reps),
-            "w_in": _dense_init((d, f), generator, device, reps=reps),
+    if cfg.ffn == "swiglu":
+        return {"w_gate": _dense_init((d, f), generator, device, reps=reps),
+                "w_in": _dense_init((d, f), generator, device, reps=reps),
+                "w_out": _dense_init((f, d), generator, device, reps=reps)}
+    return {"w_in": _dense_init((d, f), generator, device, reps=reps),
             "w_out": _dense_init((f, d), generator, device, reps=reps)}
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
-    if "w_gate" not in p:
-        raise NotImplementedError(f"ffn={cfg.ffn!r} {_LATER}")
-    h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_in"].to(dt))
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_in"].to(dt))
+    else:
+        act = _gelu if cfg.ffn == "gelu" else F.relu
+        h = act(x @ p["w_in"].to(dt))
     return h @ p["w_out"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MoE with CPM comparable-memory routing
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: ModelConfig, generator, device, reps=None) -> Params:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    return {
+        "router": _dense_init((d, e), generator, device, scale=0.02,
+                              reps=reps),
+        "expert_gate": _dense_init((e, d, f), generator, device, reps=reps),
+        "expert_in": _dense_init((e, d, f), generator, device, reps=reps),
+        "expert_out": _dense_init((e, f, d), generator, device, reps=reps),
+    }
+
+
+def moe_route(probs: torch.Tensor, k: int, cap: int):
+    """Top-k capacity routing of (T, E) router probabilities: the
+    comparable-memory mask, each token's k expert ids (highest probability
+    first, ties by expert index: a stable sort, as ``jnp.argsort``), each
+    (token, slot)'s queue position inside its expert in token order (an
+    exact int32 prefix sum, as JAX's ``associative_scan`` of ``add``) and
+    whether it fits the expert's ``cap`` slots.  Returns
+    ``(mask, eidx, pos, keep)``."""
+    t, e = probs.shape
+    mask = comparable.topk_mask(probs, k)                # (T, E)
+    masked = torch.where(mask, -probs, torch.inf)
+    eidx = torch.argsort(masked, dim=-1, stable=True)[:, :k]
+    flat = eidx.reshape(t * k)
+    oh = F.one_hot(flat, e).to(torch.int32)              # (T*k, E)
+    pos_flat = torch.cumsum(oh, dim=0, dtype=torch.int32) - 1
+    pos = pos_flat.gather(1, flat[:, None])[:, 0].reshape(t, k)
+    return mask, eidx, pos, pos < cap
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Top-k capacity routing, dispatch into ``(E, cap, d)`` expert
+    queues, SwiGLU experts and a gate-weighted combine.  Tokens past an
+    expert's capacity are dropped: their (zero) values are added at
+    ``(E-1, cap-1)``, exactly as JAX's ``.at[].add``.  Returns
+    ``(y, aux_loss)``."""
+    b, s, d = x.shape
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    t = b * s
+    dt = x.dtype
+    xt = x.reshape(t, d)
+    scores = xt.float() @ p["router"].float()
+    probs = torch.softmax(scores, dim=-1)                # (T, E)
+    cap = max(int(cfg.moe.capacity_factor * t * k / e), 4)
+    mask, eidx, pos, keep = moe_route(probs, k, cap)
+
+    # load-balance loss: the fraction routed to each expert times its mean
+    # probability
+    load = mask.float().mean(0)
+    importance = probs.mean(0)
+    aux = cfg.moe.router_aux_weight * e * torch.sum(load * importance)
+
+    gates_k = probs.gather(1, eidx)                      # (T, k)
+    gates_k = gates_k / torch.clamp(gates_k.sum(-1, keepdim=True), min=1e-9)
+
+    vals = torch.where(keep[..., None], xt[:, None, :],
+                       torch.zeros((), dtype=dt, device=x.device))
+    sc_e = torch.where(keep, eidx, e - 1)
+    sc_c = torch.where(keep, pos.long(), cap - 1)
+    expert_x = torch.zeros((e, cap, d), dtype=dt, device=x.device)
+    expert_x.index_put_((sc_e, sc_c), vals, accumulate=True)
+
+    hg = torch.bmm(expert_x, p["expert_gate"].to(dt))
+    hi = torch.bmm(expert_x, p["expert_in"].to(dt))
+    eo = torch.bmm(F.silu(hg) * hi, p["expert_out"].to(dt))   # (E, cap, d)
+
+    gathered = eo[sc_e, sc_c]                            # (T, k, d)
+    w = torch.where(keep, gates_k, 0.0).to(dt)
+    out = torch.einsum("tkd,tk->td", gathered, w)
+    return out.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma recurrent block)
+# ---------------------------------------------------------------------------
+
+def init_rglru(cfg: ModelConfig, generator, device, reps=None) -> Params:
+    d = cfg.d_model
+    w = cfg.rnn_width or d
+    # a_param set so that a = sigmoid(a_param) lies in [0.9, 0.999]
+    u = torch.empty(_lead(reps, w), dtype=torch.float32, device=device)
+    u.uniform_(0.9, 0.999, generator=generator)
+    return {
+        "wx": _dense_init((d, w), generator, device, reps=reps),
+        "wg": _dense_init((d, w), generator, device, reps=reps),
+        "wy": _dense_init((w, d), generator, device, reps=reps),
+        "conv_w": _dense_init((cfg.conv_width, w), generator, device,
+                              scale=0.1, reps=reps),
+        "a_param": torch.log(u / (1 - u)),
+        # [input gate, recurrence gate], diagonal
+        "w_input_gate": torch.zeros(_lead(reps, 2, w), dtype=torch.float32,
+                                    device=device),
+    }
+
+
+_RGLRU_C = 8.0
+
+
+def _rglru_coeffs(x, a_param, gate_x, rec_x):
+    """(a_t, b_t) of h_t = a_t h_{t-1} + b_t, float32."""
+    log_a = -_RGLRU_C * F.softplus(a_param) * torch.sigmoid(rec_x)
+    a = torch.exp(log_a)
+    gated = x * torch.sigmoid(gate_x)
+    b = torch.sqrt(torch.clamp(1 - torch.exp(2 * log_a), min=1e-12)) * gated
+    return a, b
+
+
+def _rglru_scan(x: torch.Tensor, a_param, gate_x, rec_x, h0=None):
+    """h_t = a_t*h_{t-1} + sqrt(1-a_t^2)*(i_t*x_t) over the time axis (1)
+    of (B, S, W) inputs, by a log-depth scan: at strides 1, 2, 4, ...
+    each step t >= stride combines the pair ending at t - stride into its
+    own, ``(a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2)`` (the paper's §8
+    super-connectivity along the sequence).  JAX's ``associative_scan``
+    combines in another order, so float32 results agree to rounding, not
+    bit for bit."""
+    a, b = _rglru_coeffs(x, a_param, gate_x, rec_x)
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], 1)
+    s, stride = x.shape[1], 1
+    while stride < s:
+        b = torch.cat([b[:, :stride],
+                       b[:, :-stride] * a[:, stride:] + b[:, stride:]], 1)
+        a = torch.cat([a[:, :stride], a[:, :-stride] * a[:, stride:]], 1)
+        stride *= 2
+    return b
+
+
+def rglru_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              with_cache=False):
+    b, s, _ = x.shape
+    dt = x.dtype
+    branch = (x @ p["wx"].to(dt)).float()                # (B, S, W)
+    gate = _gelu((x @ p["wg"].to(dt)).float())
+    # short depthwise causal conv (Griffin's temporal conv, width 4);
+    # compute_view made conv_w and the gates bf16, promoted to float32 here
+    # as in JAX
+    conv = torch.zeros_like(branch)
+    for i in range(cfg.conv_width):
+        shifted = F.pad(branch, (0, 0, i, 0))[:, :s]
+        conv = conv + shifted * p["conv_w"][i]
+    ig = conv * torch.sigmoid(p["w_input_gate"][0])
+    rg = conv * torch.sigmoid(p["w_input_gate"][1])
+    h = _rglru_scan(conv, p["a_param"], ig, rg)
+    y = (h.to(dt) * gate.to(dt)) @ p["wy"].to(dt)
+    if not with_cache:
+        return y
+    cw = cfg.conv_width
+    if s >= cw - 1:
+        buf = branch[:, s - (cw - 1):]
+    else:
+        buf = F.pad(branch, (0, 0, cw - 1 - s, 0))
+    return y, {"h": h[:, -1].float(), "conv_buf": buf}
+
+
+def init_rglru_cache(cfg: ModelConfig, batch: int, device) -> Params:
+    w = cfg.rnn_width or cfg.d_model
+    return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+            "conv_buf": torch.zeros((batch, cfg.conv_width - 1, w),
+                                    dtype=torch.float32, device=device)}
+
+
+def rglru_step(p: Params, x_t: torch.Tensor, cache: Params,
+               cfg: ModelConfig):
+    dt = x_t.dtype
+    branch = (x_t[:, 0] @ p["wx"].to(dt)).float()       # (B, W)
+    gate = _gelu((x_t[:, 0] @ p["wg"].to(dt)).float())
+    hist = torch.cat([cache["conv_buf"], branch[:, None]], dim=1)
+    # conv_w[i] multiplies the value i steps in the past; hist is oldest first
+    conv = torch.einsum("bcw,cw->bw", hist.flip(1), p["conv_w"].float())
+    ig = conv * torch.sigmoid(p["w_input_gate"][0])
+    rg = conv * torch.sigmoid(p["w_input_gate"][1])
+    a, bterm = _rglru_coeffs(conv, p["a_param"], ig, rg)
+    h = a * cache["h"] + bterm
+    y = ((h * gate).to(dt) @ p["wy"].to(dt))[:, None]
+    return y, {"h": h, "conv_buf": hist[:, 1:]}

@@ -1,15 +1,18 @@
-"""Decoder-LM assembly with prefill / decode entry points (a port of the
-pure-attention part of ``repro.models.lm``).
+"""Decoder-LM assembly with forward / loss / prefill / decode entry points
+(a port of ``repro.models.lm`` for decoder-only configs: global and
+local-window attention, the RG-LRU, dense and MoE FFNs, RoPE and M-RoPE).
 
 The JAX package scans its repeating layer unit over stacked parameters;
 here the stacked layout stays (every leaf of ``params["blocks"][u]``
 carries a leading repeat axis) and the scan becomes a Python loop over
-the repeats.  Only the ``attn`` mixer kind is ported; the other kinds,
-encoder-decoder and M-RoPE configs wait for ROADMAP Queue 1 item 5.
+the repeats; remainder layers (recurrentgemma's 38 = 12 x 3 + 2) are
+applied unstacked from ``params["tail"]``.  The xLSTM mixers (mLSTM,
+sLSTM) and the encoder-decoder wait for ROADMAP Queue 1 item 3.
 
-Decode writes K/V into the stacked cache buffers in place (one
-``index_put_`` per layer) instead of returning copies; the returned cache
-trees share that storage.
+Decode writes the stacked cache buffers in place (K/V and ring slots by
+one ``index_put_`` per layer, recurrent states and lengths by a copy into
+the repeat's row) instead of returning copies; the returned cache trees
+share that storage.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from . import layers as L
 
 Params = dict
 
-_LATER = "waits for ROADMAP Queue 1 item 5 (other mixers and configs)"
+#: the mixer kinds the port serves
+KINDS = ("attn", "attn_local", "rglru")
+_LATER = "waits for ROADMAP Queue 1 item 3 (xLSTM and the encoder-decoder)"
 
 
 def _tree_map(fn, *trees):
@@ -38,15 +43,15 @@ def _tree_map(fn, *trees):
 
 def _layout(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]]:
     """(unit, n_repeats, tail_kinds) — the JAX package's layer layout."""
-    if cfg.enc_dec or cfg.mrope_sections is not None or cfg.ffn == "moe":
-        raise NotImplementedError(f"{cfg.name}: {_LATER}")
+    if cfg.enc_dec:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder {_LATER}")
     kinds = cfg.layer_kinds()
-    bad = sorted(set(kinds) - {"attn"})
+    bad = sorted(set(kinds) - set(KINDS))
     if bad:
         raise NotImplementedError(f"mixer kinds {bad} {_LATER}")
     unit = tuple(cfg.pattern)
     n_rep = len(kinds) // len(unit)
-    if n_rep == 0:
+    if n_rep == 0:                     # fewer layers than one unit (smoke)
         return tuple(kinds), 1, ()
     return unit, n_rep, kinds[n_rep * len(unit):]
 
@@ -57,19 +62,27 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // 512) * 512
 
 
+def _window(cfg: ModelConfig, kind: str):
+    return cfg.window if kind == "attn_local" else None
+
+
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 
 def init_block(cfg: ModelConfig, kind: str, generator, device,
                reps: int | None = None) -> Params:
-    if kind != "attn":
+    p: Params = {"norm1": L.init_norm(cfg, cfg.d_model, device, reps)}
+    if kind in ("attn", "attn_local"):
+        p["attn"] = L.init_attention(cfg, generator, device, reps)
+    elif kind == "rglru":
+        p["rglru"] = L.init_rglru(cfg, generator, device, reps)
+    else:
         raise NotImplementedError(f"mixer {kind!r} {_LATER}")
-    p: Params = {"norm1": L.init_norm(cfg, cfg.d_model, device, reps),
-                 "attn": L.init_attention(cfg, generator, device, reps)}
     if cfg.ffn != "none":
         p["norm2"] = L.init_norm(cfg, cfg.d_model, device, reps)
-        p["ffn"] = L.init_ffn(cfg, generator, device, reps)
+        init = L.init_moe if cfg.ffn == "moe" else L.init_ffn
+        p["ffn"] = init(cfg, generator, device, reps)
     return p
 
 
@@ -103,22 +116,39 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 # blocks
 # ---------------------------------------------------------------------------
 
+def _ffn(p: Params, x, cfg: ModelConfig):
+    """The block's FFN half: (x, aux)."""
+    h = L.apply_norm(p["norm2"], x, cfg.norm_eps)
+    if cfg.ffn == "moe":
+        out, aux = L.apply_moe(p["ffn"], h, cfg)
+        return x + out, aux
+    return x + L.apply_ffn(p["ffn"], h, cfg), None
+
+
 def block_fwd(p: Params, x, kind: str, cfg: ModelConfig, positions, *,
-              with_cache=False):
-    """Full-sequence block.  Returns (x, cache)."""
+              causal=True, with_cache=False):
+    """Full-sequence block.  Returns (x, aux, cache)."""
     p = L.compute_view(p)
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
-    out = L.attention_fwd(p["attn"], h, cfg, positions,
-                          with_cache=with_cache)
     cache = {}
+    if kind in ("attn", "attn_local"):
+        out = L.attention_fwd(p["attn"], h, cfg, positions, causal=causal,
+                              window=_window(cfg, kind),
+                              with_cache=with_cache)
+        name = "attn"
+    else:
+        out = L.rglru_fwd(p["rglru"], h, cfg, with_cache=with_cache)
+        name = "rglru"
     if with_cache:
         out, c = out
-        cache = {"attn": c}
+        cache = {name: c}
     x = x + out
+    aux = None
     if "ffn" in p:
-        h = L.apply_norm(p["norm2"], x, cfg.norm_eps)
-        x = x + L.apply_ffn(p["ffn"], h, cfg)
-    return x, cache
+        x, aux = _ffn(p, x, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, cache
 
 
 def block_step(p: Params, x_t, cache: Params, kind: str, cfg: ModelConfig,
@@ -126,27 +156,60 @@ def block_step(p: Params, x_t, cache: Params, kind: str, cfg: ModelConfig,
     """One-token decode.  Returns (x_t, cache)."""
     p = L.compute_view(p)
     h = L.apply_norm(p["norm1"], x_t, cfg.norm_eps)
-    out, c = L.attention_step(p["attn"], h, cache["attn"], cfg, pos)
-    cache = dict(cache, attn=c)
+    if kind in ("attn", "attn_local"):
+        out, c = L.attention_step(p["attn"], h, cache["attn"], cfg, pos,
+                                  window=_window(cfg, kind))
+        cache = dict(cache, attn=c)
+    else:
+        out, c = L.rglru_step(p["rglru"], h, cache["rglru"], cfg)
+        cache = dict(cache, rglru=c)
     x_t = x_t + out
     if "ffn" in p:
-        h = L.apply_norm(p["norm2"], x_t, cfg.norm_eps)
-        x_t = x_t + L.apply_ffn(p["ffn"], h, cfg)
+        x_t, _ = _ffn(p, x_t, cfg)
     return x_t, cache
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     device, dtype=L.COMPUTE_DTYPE) -> Params:
+    if kind in ("attn", "attn_local"):
+        return {"attn": L.init_attn_cache(cfg, batch, max_len, device, dtype,
+                                          window=_window(cfg, kind))}
+    if kind == "rglru":
+        return {"rglru": L.init_rglru_cache(cfg, batch, device)}
+    raise NotImplementedError(f"mixer {kind!r} {_LATER}")
 
 
 def _rep(tree, r: int):
     return _tree_map(lambda a: a[r], tree)
 
 
+def _write_back(stacked: dict, views: dict, new: dict, r: int) -> None:
+    """Store a block_step result at repeat ``r`` of the stacked cache:
+    leaves the step wrote in place (the ``views`` it was given) stay, the
+    others are copied into row ``r``."""
+    for key, leaf in new.items():
+        if isinstance(leaf, dict):
+            _write_back(stacked[key], views[key], leaf, r)
+        elif leaf is not views[key]:
+            stacked[key][r] = leaf
+
+
 # ---------------------------------------------------------------------------
-# embeddings and logits
+# embeddings, positions and logits
 # ---------------------------------------------------------------------------
 
-def _embed(params: Params, cfg: ModelConfig, tokens):
+def _embed(params: Params, cfg: ModelConfig, tokens,
+           batch: dict | None = None):
     # gather, then cast: elementwise identical to casting the table first
-    emb = params["emb"][tokens.long()].to(L.COMPUTE_DTYPE)
-    return emb * math.sqrt(cfg.d_model)
+    x = params["emb"][tokens.long()].to(L.COMPUTE_DTYPE) * math.sqrt(
+        cfg.d_model)
+    if (cfg.mrope_sections is not None and batch is not None
+            and "patch_embeds" in batch):
+        # vision patches replace the token embeddings at patch_pos
+        pe = torch.as_tensor(batch["patch_embeds"]).to(x.device, x.dtype)
+        pp = torch.as_tensor(batch["patch_pos"]).to(x.device).long()
+        x[torch.arange(x.shape[0], device=x.device)[:, None], pp] = pe
+    return x
 
 
 def _mask_pad(logits, cfg: ModelConfig):
@@ -157,14 +220,79 @@ def _mask_pad(logits, cfg: ModelConfig):
     return logits.masked_fill(pad, -1e30)
 
 
-def _logits(params: Params, cfg: ModelConfig, x):
+def _unemb(params: Params, cfg: ModelConfig):
     name = "emb" if cfg.tie_embeddings else "unemb"
-    w = params[name].to(L.COMPUTE_DTYPE)
-    return _mask_pad(x @ w.to(x.dtype).T, cfg)
+    return params[name].to(L.COMPUTE_DTYPE)
 
 
-def _positions(s: int, b: int, device):
+def _logits(params: Params, cfg: ModelConfig, x):
+    return _mask_pad(x @ _unemb(params, cfg).to(x.dtype).T, cfg)
+
+
+def _positions(cfg: ModelConfig, batch: dict, s: int, b: int, device):
+    """(B, S) positions, or (3, B, S) for M-RoPE (``batch["pos_ids"]``
+    where given, else the text positions on all three axes)."""
+    if cfg.mrope_sections is not None:
+        if "pos_ids" in batch:
+            return torch.as_tensor(batch["pos_ids"]).to(device, torch.int32)
+        return torch.arange(s, dtype=torch.int32,
+                            device=device)[None, None].expand(3, b, s)
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+# ---------------------------------------------------------------------------
+# training-shaped forward and loss (forward only: no backward kernel)
+# ---------------------------------------------------------------------------
+
+def forward(params: Params, cfg: ModelConfig, batch: dict, *,
+            remat: bool = True):
+    """Full-sequence forward.  Returns (x_final, aux_loss).  ``remat``
+    (JAX's activation checkpointing) changes nothing without a backward
+    pass and is accepted for the JAX signature."""
+    del remat
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = _embed(params, cfg, tokens, batch)
+    positions = _positions(cfg, batch, s, b, tokens.device)
+    unit, n_rep, tail = _layout(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for r in range(n_rep):
+        for u, kind in enumerate(unit):
+            x, a, _ = block_fwd(_rep(params["blocks"][u], r), x, kind, cfg,
+                                positions)
+            aux = aux + a
+    for blk, kind in zip(params["tail"], tail):
+        x, a, _ = block_fwd(blk, x, kind, cfg, positions)
+        aux = aux + a
+    x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    return x, aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
+            remat: bool = True, loss_chunk: int = 1024):
+    """Next-token cross entropy with sequence-chunked logits (never
+    materializes (B, S, V): a chunk is (B, C, V)) plus the MoE aux loss.
+    Returns (loss, {"ce", "aux"})."""
+    x, aux = forward(params, cfg, batch, remat=remat)
+    tokens = batch["tokens"]
+    xs = x[:, :-1]
+    labels = tokens[:, 1:].long()
+    n = tokens.shape[1] - 1
+    chunk = min(loss_chunk, n)
+    while n % chunk:
+        chunk -= 1
+    w = _unemb(params, cfg)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = 0
+    for i in range(n // chunk):                          # ce_chunk
+        sl = slice(i * chunk, (i + 1) * chunk)
+        logits = _mask_pad((xs[:, sl] @ w.to(xs.dtype).T).float(), cfg)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, sl, None])[..., 0]
+        tot = tot + torch.sum(lse - gold)
+        cnt += gold.numel()
+    ce = tot / cnt
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -173,23 +301,24 @@ def _positions(s: int, b: int, device):
 
 def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int = 0):
     """Full-sequence forward returning the last position's logits and the
-    per-layer decode caches, padded to ``max_len`` slots."""
+    per-layer decode caches: global-attn caches padded to ``max_len``
+    slots, local-window caches laid out as rings."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = _embed(params, cfg, tokens)
-    positions = _positions(s, b, tokens.device)
+    x = _embed(params, cfg, tokens, batch)
+    positions = _positions(cfg, batch, s, b, tokens.device)
     unit, n_rep, tail = _layout(cfg)
     per_unit = [[] for _ in unit]
     for r in range(n_rep):
         for u, kind in enumerate(unit):
-            x, c = block_fwd(_rep(params["blocks"][u], r), x, kind, cfg,
-                             positions, with_cache=True)
+            x, _, c = block_fwd(_rep(params["blocks"][u], r), x, kind, cfg,
+                                positions, with_cache=True)
             per_unit[u].append(c)
     stacked = [_tree_map(lambda *xs: torch.stack(xs), *cs)
                for cs in per_unit]
     tail_caches = []
     for blk, kind in zip(params["tail"], tail):
-        x, c = block_fwd(blk, x, kind, cfg, positions, with_cache=True)
+        x, _, c = block_fwd(blk, x, kind, cfg, positions, with_cache=True)
         tail_caches.append(c)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, cfg, x[:, -1:])
@@ -198,18 +327,30 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int = 0):
 
 
 def _finalize_caches(cfg: ModelConfig, caches, s: int, max_len: int):
-    """Prefill attn caches come back prompt-length; global-attn caches are
-    padded with zeros to ``max_len`` slots for decode."""
-    def pad(node):
-        k, v = node["attn"]["k"], node["attn"]["v"]
-        if k.shape[-2] < max_len:
-            extra = (0, 0, 0, max_len - k.shape[-2])
+    """Prefill attn caches come back prompt-length; re-lay them out for
+    decode: global-attn caches padded with zeros to ``max_len`` slots,
+    local-window caches to ``W = min(window, max_len)``-slot rings that
+    hold position p at slot ``p % W`` (the last W positions, rolled into
+    place; shorter prompts padded)."""
+    unit, _, tail = _layout(cfg)
+
+    def conv(cache, kind):
+        if "attn" not in cache:
+            return cache
+        k, v = cache["attn"]["k"], cache["attn"]["v"]   # slot axis -2
+        slots = min(cfg.window, max_len) if kind == "attn_local" else max_len
+        if k.shape[-2] > slots:
+            shift = (s - slots) % slots
+            k = torch.roll(k[..., s - slots:, :], shift, dims=-2)
+            v = torch.roll(v[..., s - slots:, :], shift, dims=-2)
+        elif k.shape[-2] < slots:
+            extra = (0, 0, 0, slots - k.shape[-2])
             k = torch.nn.functional.pad(k, extra)
             v = torch.nn.functional.pad(v, extra)
-        return dict(node, attn={"k": k, "v": v, "len": node["attn"]["len"]})
+        return dict(cache, attn={"k": k, "v": v, "len": cache["attn"]["len"]})
 
-    return {"blocks": [pad(c) for c in caches["blocks"]],
-            "tail": [pad(c) for c in caches["tail"]]}
+    return {"blocks": [conv(c, k) for c, k in zip(caches["blocks"], unit)],
+            "tail": [conv(c, k) for c, k in zip(caches["tail"], tail)]}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
@@ -218,28 +359,29 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
     dev = resolve_device(device)
     unit, n_rep, tail = _layout(cfg)
     blocks = []
-    for _ in unit:
-        one = L.init_attn_cache(cfg, batch, max_len, dev, dtype)
-        blocks.append({"attn": _tree_map(
-            lambda a: a[None].expand((n_rep,) + a.shape).clone(), one)})
-    tails = [{"attn": L.init_attn_cache(cfg, batch, max_len, dev, dtype)}
-             for _ in tail]
+    for kind in unit:
+        one = init_block_cache(cfg, kind, batch, max_len, dev, dtype)
+        blocks.append(_tree_map(
+            lambda a: a[None].expand((n_rep,) + a.shape).clone(), one))
+    tails = [init_block_cache(cfg, kind, batch, max_len, dev, dtype)
+             for kind in tail]
     return {"blocks": blocks, "tail": tails}
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens_t, caches: dict,
                 pos):
     """One decode step.  tokens_t: (B, 1); pos: scalar or (B,) int32.
-    Returns (logits (B, 1, V), caches); K/V and ``len`` are written into
-    the given cache buffers in place."""
+    Returns (logits (B, 1, V), caches); the stacked cache buffers are
+    written in place."""
     x = _embed(params, cfg, tokens_t)
     unit, n_rep, tail = _layout(cfg)
     for r in range(n_rep):
         for u, kind in enumerate(unit):
             node = caches["blocks"][u]
-            x, new = block_step(_rep(params["blocks"][u], r), x,
-                                _rep(node, r), kind, cfg, pos)
-            node["attn"]["len"][r] = new["attn"]["len"]
+            views = _rep(node, r)
+            x, new = block_step(_rep(params["blocks"][u], r), x, views,
+                                kind, cfg, pos)
+            _write_back(node, views, new, r)
     new_tail = []
     for blk, c, kind in zip(params["tail"], caches["tail"], tail):
         x, c = block_step(blk, x, c, kind, cfg, pos)
@@ -255,8 +397,9 @@ def decode_step(params: Params, cfg: ModelConfig, tokens_t, caches: dict,
 
 def _snapshot_caches(cfg: ModelConfig, caches: dict) -> dict:
     """Per-step rollback snapshot: everything but global-attention K/V
-    (append-only at slot == pos, rolled back by a length truncation).
-    What remains is copied, since decode updates caches in place."""
+    (append-only at slot == pos, rolled back by a length truncation), so
+    recurrent states, local-window rings and their lengths.  Copied,
+    since decode updates caches in place."""
     def strip(c, kind):
         out = {kk: vv for kk, vv in c.items() if kk != "cross_kv"}
         if kind == "attn":
@@ -288,9 +431,10 @@ def decode_multi(params: Params, cfg: ModelConfig, tokens, caches: dict,
 
 def rollback_caches(cfg: ModelConfig, caches: dict, snaps: dict, idx) -> dict:
     """Roll a ``decode_multi`` result back to ``idx[b] + 1`` committed
-    steps per row: snapshotted leaves are gathered at each row's step,
-    global-attn K/V keep their buffers (a later ``kv_cache.truncate``
-    masks the rejected slots)."""
+    steps per row: snapshotted leaves (recurrent states, rings, their
+    lengths) are gathered at each row's step on the device, global-attn
+    K/V keep their buffers (a later ``kv_cache.truncate`` masks the
+    rejected slots)."""
     unit, _, tail = _layout(cfg)
     idx = torch.as_tensor(idx, dtype=torch.long)
 

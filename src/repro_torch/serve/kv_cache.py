@@ -1,6 +1,7 @@
 """KV-cache management as content-movable memory (paper §4) — a port of
-the parts of ``repro.serve.kv_cache`` that the engine and the session
-pool use: ``truncate``, ``broadcast_lens`` and the paged-pool helpers.
+``repro.serve.kv_cache``: ``truncate``, ``broadcast_lens``, the
+paged-pool helpers, and ``compact_slots`` / ``splice_prefix`` /
+``evict_by_score``.
 
 Paged residency (the serving pool's vLLM-style layout): every
 *global*-attention k/v leaf is stored as a pool of fixed-size sub-pages
@@ -10,21 +11,25 @@ sentinels) maps each session's logical row onto its page list.  The
 port's cache tree stacks ``blocks`` per repeat, so a block leaf
 ``(R, B, KVH, max_len, dh)`` becomes ``(R, n_pages + 1, KVH, page_size,
 dh)`` and a tail leaf ``(B, KVH, max_len, dh)`` becomes ``(n_pages + 1,
-KVH, page_size, dh)``; ``len`` leaves keep their per-slot shapes.
+KVH, page_size, dh)``.  Local-window rings, recurrent states and ``len``
+leaves stay per slot (rows of the batch axis: 1 in ``blocks``, 0 in
+``tail``); only the worst-case-sized global caches are paged.
 
 Page ``n_pages`` is a sink, the one layout change from the JAX package:
 JAX scatters drop sentinel entries (``mode="drop"``), while torch's
 ``index_put_`` raises on them, and masking them on the device would need
 a host sync.  So sentinel entries write into the sink page, which no
 gather ever reads: gathers clamp to ``n_pages - 1`` as in JAX, and the
-per-row ``len`` masks whatever a clamped page holds.  Scatters write the
-pool in place (the JAX helpers return copies) to keep one pool on the
-card, not two.
+per-row ``len`` masks whatever a clamped page holds.  Scatters and seats
+write the pool in place (the JAX helpers return copies) to keep one pool
+on the card, not two.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.lm import _tree_map
 
 
 def truncate(caches, new_len):
@@ -152,7 +157,8 @@ def logical_view(pool_caches, cfg, pt):
     """The decode-facing view of a paged pool: global-attn k/v gathered
     through the page table ``pt (B, C)`` into full-width logical rows —
     the un-paged layout, so ``lm.decode_step`` runs unchanged.  Other
-    leaves (``len``) are the pool's own tensors."""
+    leaves (rings, recurrent states, ``len``) are the pool's own
+    tensors."""
     def site(a, stacked):
         return dict(a, k=_gather_leaf(a["k"], pt, stacked),
                     v=_gather_leaf(a["v"], pt, stacked))
@@ -162,8 +168,8 @@ def logical_view(pool_caches, cfg, pt):
 def merge_paged(pool_caches, slot_caches, cfg, pt):
     """Fold a post-decode logical tree back into the pool: global-attn k/v
     scattered through ``pt`` (dirty-masked: sentinel entries go to the
-    sink, so clean pages are not rewritten); every other leaf (``len``)
-    is taken from ``slot_caches``."""
+    sink, so clean pages are not rewritten); every other leaf (rings,
+    recurrent states, ``len``) is taken from ``slot_caches``."""
     def site(logical, pool, stacked):
         return dict(logical,
                     k=_scatter_leaf(pool["k"], logical["k"], pt, stacked),
@@ -185,40 +191,120 @@ def _zip_attn_nodes(base, other, cfg, site_fn):
     return {"blocks": blocks, "tail": tail}
 
 
+def _rows_write(pool_leaf, new_leaf, idx, stacked: bool):
+    """``new_leaf``'s rows into ``pool_leaf`` at slots ``idx``, in place."""
+    if stacked:
+        pool_leaf[:, idx] = new_leaf.to(pool_leaf.dtype)
+    else:
+        pool_leaf[idx] = new_leaf.to(pool_leaf.dtype)
+    return pool_leaf
+
+
 def seat_caches(pool_caches, new_caches, cfg, idx, pt):
     """Check ``k`` sessions' slot-form caches into the pool, in place:
     global-attn k/v page-chunked and scattered through ``pt (k, C')``
-    (sentinel-padded past each session's grant), ``len`` written at rows
-    ``idx`` (blocks batch axis 1, tail axis 0).  Serves admission
-    (``C' = C`` prefill rows) and restore (``C' = n_live`` saved
-    sub-pages)."""
+    (sentinel-padded past each session's grant), every other leaf (rings,
+    recurrent states, ``len``) written at rows ``idx`` (blocks batch axis
+    1, tail axis 0).  Serves admission (``C' = C`` prefill rows) and
+    restore (``C' = n_live`` saved sub-pages)."""
     idx = idx.to(torch.long)
+    ub, ut = attn_sites(cfg)
 
-    def site(pool_node, new_node, stacked):
-        ln = pool_node["len"]
-        if stacked:
-            ln[:, idx] = new_node["len"].to(ln.dtype)
-        else:
-            ln[idx] = new_node["len"].to(ln.dtype)
-        return dict(pool_node,
-                    k=_scatter_leaf(pool_node["k"], new_node["k"], pt,
-                                    stacked),
-                    v=_scatter_leaf(pool_node["v"], new_node["v"], pt,
-                                    stacked))
+    def node_out(pnode, nnode, site, stacked):
+        out = {}
+        for kk, vv in pnode.items():
+            if site and kk == "attn":
+                na = nnode["attn"]
+                out[kk] = dict(
+                    vv, k=_scatter_leaf(vv["k"], na["k"], pt, stacked),
+                    v=_scatter_leaf(vv["v"], na["v"], pt, stacked),
+                    len=_rows_write(vv["len"], na["len"], idx, stacked))
+            else:
+                out[kk] = _tree_map(
+                    lambda p, n: _rows_write(p, n, idx, stacked), vv,
+                    nnode[kk])
+        return out
 
-    return _zip_attn_nodes(pool_caches, new_caches, cfg, site)
+    return {
+        "blocks": [node_out(p, n, u in ub, True) for u, (p, n)
+                   in enumerate(zip(pool_caches["blocks"],
+                                    new_caches["blocks"]))],
+        "tail": [node_out(p, n, t in ut, False) for t, (p, n)
+                 in enumerate(zip(pool_caches["tail"],
+                                  new_caches["tail"]))],
+    }
 
 
 def lift_slot(pool_caches, cfg, slot: int, pt1):
     """One session's park image out of the pool: global-attn k/v gathered
     at ``pt1 (1, n_live)`` — only its live sub-pages travel — flattened
-    to a logical ``n_live * page_size`` row; ``len`` sliced at ``slot``."""
-    def site(a, stacked):
-        if stacked:
-            return {"k": _gather_leaf(a["k"], pt1, True)[:, 0],
-                    "v": _gather_leaf(a["v"], pt1, True)[:, 0],
-                    "len": a["len"][:, slot].clone()}
-        return {"k": _gather_leaf(a["k"], pt1, False)[0],
-                "v": _gather_leaf(a["v"], pt1, False)[0],
-                "len": a["len"][slot].clone()}
-    return _map_attn_nodes(pool_caches, cfg, site)
+    to a logical ``n_live * page_size`` row; every other leaf copied at
+    ``slot``."""
+    ub, ut = attn_sites(cfg)
+
+    def node_out(node, site, stacked):
+        sl = ((lambda a: a[:, slot].clone()) if stacked
+              else (lambda a: a[slot].clone()))
+        out = {}
+        for kk, vv in node.items():
+            if site and kk == "attn":
+                k = _gather_leaf(vv["k"], pt1, stacked)
+                v = _gather_leaf(vv["v"], pt1, stacked)
+                out[kk] = {"k": k[:, 0] if stacked else k[0],
+                           "v": v[:, 0] if stacked else v[0],
+                           "len": sl(vv["len"])}
+            else:
+                out[kk] = _tree_map(sl, vv)
+        return out
+
+    return {
+        "blocks": [node_out(n, u in ub, True)
+                   for u, n in enumerate(pool_caches["blocks"])],
+        "tail": [node_out(n, t in ut, False)
+                 for t, n in enumerate(pool_caches["tail"])],
+    }
+
+
+# ---------------------------------------------------------------------------
+# slot-axis moves: compaction, prefix splice, eviction by score
+# ---------------------------------------------------------------------------
+
+def compact_slots(k: torch.Tensor, v: torch.Tensor, keep: torch.Tensor):
+    """Remove evicted slots (``keep`` False) and pack the survivors to the
+    front in order — stable compaction (paper §4.2) along the slot axis.
+
+    k, v: (B, KVH, S, dh); keep: (B, S) bool.  Returns (k, v, new_len
+    (B,) int32)."""
+    order = torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)
+    idx = order[:, None, :, None].expand(k.shape)
+    new_len = keep.sum(-1, dtype=torch.int32)
+    return k.gather(2, idx), v.gather(2, idx), new_len
+
+
+def splice_prefix(k: torch.Tensor, v: torch.Tensor, pk: torch.Tensor,
+                  pv: torch.Tensor, used_len):
+    """Prefix-cache splice: insert a cached prefix (pk, pv) of ``plen``
+    slots before the current content — a content-movable range insert on
+    the slot axis of every (row, head, feature) column, on the CPM
+    reference backend; content pushed past the last slot drops.  Returns
+    (k, v, used_len + plen)."""
+    from repro_torch.cpm.array import CPMArray
+
+    plen = pk.shape[2]
+    ul = torch.as_tensor(used_len, dtype=torch.int32, device=k.device)
+
+    def ins(x, px):
+        cols = x.movedim(2, -1)                          # (B, KVH, dh, S)
+        arr = CPMArray(cols, ul, backend="reference")
+        return arr.insert(0, px.movedim(2, -1)).data.movedim(-1, 2)
+
+    return ins(k, pk), ins(v, pv), ul + plen
+
+
+def evict_by_score(k, v, scores, keep_count: int):
+    """Importance-based eviction (H2O-style): keep the ``keep_count`` slots
+    of highest score per row (the comparable-memory top-k mask, ties by
+    address), then compact.  Returns (k, v, new_len)."""
+    from repro_torch.cpm.reference import comparable
+    keep = comparable.topk_mask(scores, keep_count)      # (B, S)
+    return compact_slots(k, v, keep)

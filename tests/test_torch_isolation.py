@@ -33,8 +33,17 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
 print("modules=%d" % len(names))
+print("names=" + ",".join(names))
 print("loaded=" + ",".join(bad))
 """
+
+#: modules the eleventh slice added; each must be among those imported
+_SLICE_MODULES = (
+    "repro_torch.configs.archs", "repro_torch.serve.reference",
+    *(f"repro_torch.configs.{m}" for m in (
+        "command_r_35b", "granite_moe_1b_a400m", "phi35_moe_42b_a6_6b",
+        "qwen25_32b", "qwen2_72b", "qwen2_vl_7b", "recurrentgemma_9b",
+        "seamless_m4t_large_v2", "xlstm_1_3b")))
 
 
 def _env():
@@ -49,8 +58,9 @@ def test_no_jax_and_no_repro_module_is_loaded():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=_env(), cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.strip().splitlines()[-2:]
+    n_modules, names, bad = out.stdout.strip().splitlines()[-3:]
     assert int(n_modules.removeprefix("modules=")) >= 25
+    assert set(_SLICE_MODULES) <= set(names.removeprefix("names=").split(","))
     assert bad == "loaded=", bad
 
 

@@ -201,10 +201,13 @@ def test_prefill_then_decode_equals_longer_prefill(setup):
 
 
 def test_unported_kinds_raise():
+    """The xLSTM mixers and the encoder-decoder wait for ROADMAP Queue 1
+    item 3 and say so."""
     rg = get_config("granite-8b").smoke()
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        lm.init_params(dataclasses.replace(rg, pattern=("rglru",)),
+        lm.init_params(dataclasses.replace(rg, pattern=("mlstm",)),
                        torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        lm.init_params(dataclasses.replace(rg, ffn="gelu"),
+        lm.init_params(dataclasses.replace(rg, enc_dec=True,
+                                           n_enc_layers=2),
                        torch.Generator().manual_seed(0), "cpu")
