@@ -32,12 +32,14 @@ KINDS = ("attn", "attn_local", "rglru")
 _LATER = "waits for ROADMAP Queue 1 item 3 (xLSTM and the encoder-decoder)"
 
 
-def _tree_map(fn, *trees):
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts, lists and tuples of
+    tensors (params and caches), several trees of one structure at once."""
     t0 = trees[0]
     if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, (list, tuple)):
-        return type(t0)(_tree_map(fn, *xs) for xs in zip(*trees))
+        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
     return fn(*trees)
 
 
@@ -180,7 +182,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 
 def _rep(tree, r: int):
-    return _tree_map(lambda a: a[r], tree)
+    return tree_map(lambda a: a[r], tree)
 
 
 def _write_back(stacked: dict, views: dict, new: dict, r: int) -> None:
@@ -244,12 +246,8 @@ def _positions(cfg: ModelConfig, batch: dict, s: int, b: int, device):
 # training-shaped forward and loss (forward only: no backward kernel)
 # ---------------------------------------------------------------------------
 
-def forward(params: Params, cfg: ModelConfig, batch: dict, *,
-            remat: bool = True):
-    """Full-sequence forward.  Returns (x_final, aux_loss).  ``remat``
-    (JAX's activation checkpointing) changes nothing without a backward
-    pass and is accepted for the JAX signature."""
-    del remat
+def forward(params: Params, cfg: ModelConfig, batch: dict):
+    """Full-sequence forward.  Returns (x_final, aux_loss)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(params, cfg, tokens, batch)
@@ -269,11 +267,11 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, *,
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
-            remat: bool = True, loss_chunk: int = 1024):
+            loss_chunk: int = 1024):
     """Next-token cross entropy with sequence-chunked logits (never
     materializes (B, S, V): a chunk is (B, C, V)) plus the MoE aux loss.
     Returns (loss, {"ce", "aux"})."""
-    x, aux = forward(params, cfg, batch, remat=remat)
+    x, aux = forward(params, cfg, batch)
     tokens = batch["tokens"]
     xs = x[:, :-1]
     labels = tokens[:, 1:].long()
@@ -314,7 +312,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int = 0):
             x, _, c = block_fwd(_rep(params["blocks"][u], r), x, kind, cfg,
                                 positions, with_cache=True)
             per_unit[u].append(c)
-    stacked = [_tree_map(lambda *xs: torch.stack(xs), *cs)
+    stacked = [tree_map(lambda *xs: torch.stack(xs), *cs)
                for cs in per_unit]
     tail_caches = []
     for blk, kind in zip(params["tail"], tail):
@@ -361,7 +359,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
     blocks = []
     for kind in unit:
         one = init_block_cache(cfg, kind, batch, max_len, dev, dtype)
-        blocks.append(_tree_map(
+        blocks.append(tree_map(
             lambda a: a[None].expand((n_rep,) + a.shape).clone(), one))
     tails = [init_block_cache(cfg, kind, batch, max_len, dev, dtype)
              for kind in tail]
@@ -404,7 +402,7 @@ def _snapshot_caches(cfg: ModelConfig, caches: dict) -> dict:
         out = {kk: vv for kk, vv in c.items() if kk != "cross_kv"}
         if kind == "attn":
             out.pop("attn", None)
-        return _tree_map(torch.clone, out)
+        return tree_map(torch.clone, out)
 
     unit, _, tail = _layout(cfg)
     return {"blocks": [strip(c, k) for c, k in zip(caches["blocks"], unit)],
@@ -425,7 +423,7 @@ def decode_multi(params: Params, cfg: ModelConfig, tokens, caches: dict,
                                  pos + t)
         logits.append(lg[:, 0])
         snaps.append(_snapshot_caches(cfg, caches))
-    snaps = _tree_map(lambda *xs: torch.stack(xs), *snaps)
+    snaps = tree_map(lambda *xs: torch.stack(xs), *snaps)
     return torch.stack(logits, dim=1), caches, snaps
 
 
@@ -450,7 +448,7 @@ def rollback_caches(cfg: ModelConfig, caches: dict, snaps: dict, idx) -> dict:
             if kk == "cross_kv" or (kind == "attn" and kk == "attn"):
                 out[kk] = vv
             else:
-                out[kk] = _tree_map(lambda s: sel(s, baxis), snap_c[kk])
+                out[kk] = tree_map(lambda s: sel(s, baxis), snap_c[kk])
         return out
 
     return {"blocks": [merge(c, sc, k, 2) for c, sc, k in

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.lm import _tree_map
+from repro_torch.models.lm import tree_map
 
 
 def truncate(caches, new_len):
@@ -220,7 +220,7 @@ def seat_caches(pool_caches, new_caches, cfg, idx, pt):
                     v=_scatter_leaf(vv["v"], na["v"], pt, stacked),
                     len=_rows_write(vv["len"], na["len"], idx, stacked))
             else:
-                out[kk] = _tree_map(
+                out[kk] = tree_map(
                     lambda p, n: _rows_write(p, n, idx, stacked), vv,
                     nnode[kk])
         return out
@@ -254,7 +254,7 @@ def lift_slot(pool_caches, cfg, slot: int, pt1):
                            "v": v[:, 0] if stacked else v[0],
                            "len": sl(vv["len"])}
             else:
-                out[kk] = _tree_map(sl, vv)
+                out[kk] = tree_map(sl, vv)
         return out
 
     return {

@@ -533,7 +533,7 @@ class SessionPool:
             image = kv_cache.lift_slot(self.caches, self.engine.cfg, slot,
                                        pt1)
             sess.parked = PageState(
-                caches=lm._tree_map(lambda t: t.cpu(), image),
+                caches=lm.tree_map(lambda t: t.cpu(), image),
                 pos=int(self.pos[slot]), cur=int(self.cur[slot]), row=row,
                 row_len=row_len, n_pages=n_live)
             sess.parks += 1
@@ -560,10 +560,10 @@ class SessionPool:
                               vclock=self._vclock,
                               args={"sessions": k, "pages": n_live}):
             slots = [seated[sess.sid] for sess in group]
-            blocks = lm._tree_map(
+            blocks = lm.tree_map(
                 lambda *xs: torch.stack(xs, dim=1).to(self.device),
                 *[st.caches["blocks"] for st in states])
-            tail = lm._tree_map(
+            tail = lm.tree_map(
                 lambda *xs: torch.stack(xs).to(self.device),
                 *[st.caches["tail"] for st in states])
             pt = self._dev(self._page_table_rows(slots, n_live))

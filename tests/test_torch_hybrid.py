@@ -328,10 +328,10 @@ def test_decode_multi_and_rollback(smoke, deep, mode, request):
                               c, torch.from_numpy(pos + t))
         for r in np.nonzero(idx == t)[0]:
             for got, want in zip(
-                    _flat(lm._tree_map(lambda a: a[:, r], tr["blocks"])) +
-                    _flat(lm._tree_map(lambda a: a[r], tr["tail"])),
-                    _flat(lm._tree_map(lambda a: a[:, r], c["blocks"])) +
-                    _flat(lm._tree_map(lambda a: a[r], c["tail"]))):
+                    _flat(lm.tree_map(lambda a: a[:, r], tr["blocks"])) +
+                    _flat(lm.tree_map(lambda a: a[r], tr["tail"])),
+                    _flat(lm.tree_map(lambda a: a[:, r], c["blocks"])) +
+                    _flat(lm.tree_map(lambda a: a[r], c["tail"]))):
                 assert torch.equal(got, want)
 
 

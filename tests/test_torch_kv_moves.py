@@ -110,7 +110,7 @@ def _random_tree(jtree, rng):
 def _both(tree_np):
     """(JAX tree in bf16 where the cache holds bf16, port tree)."""
     return (jax.tree.map(jnp.asarray, tree_np),
-            lm._tree_map(torch.from_numpy,
+            lm.tree_map(torch.from_numpy,
                          jax.tree.map(lambda a: a.copy(), tree_np)))
 
 
