@@ -32,7 +32,10 @@ Phases, in order; any failure exits non-zero:
      H = 16, KVH = 1, S = 2,304; bf16 and float32, causal with no window,
      window 2,048 and window 100, strided and packed), the bf16
      window-2,048 case timed beside its bound and SDPA with the window
-     as a mask;
+     as a mask; and at seamless-m4t-large-v2's shapes (B = 4,
+     H = KVH = 16, D = 64, strided, bf16 and float32), bidirectional: the
+     encoder's Sq = Skv = 1,024 and cross attention's Sq = 64 over
+     Skv = 1,024, each bf16 case timed beside its bound and SDPA;
   3. check the port end to end on a small input: the smoke config on the
      card (kernels) against the same weights on the CPU (plain twins);
   4. build granite-8b at full width from a seeded ``torch.Generator`` on
@@ -164,7 +167,29 @@ Phases, in order; any failure exits non-zero:
      and the share of speculative tokens equal to the scan's, not gated:
      each decode step routes one token a row under one capacity, and a
      speculative step's are drafts at each row's own position, so where
-     an expert overflows another token is dropped than in the scan.
+     an expert overflows another token is dropped than in the scan;
+ 12. with those weights freed, xlstm-1.3b at full width and depth (48
+     layers: 6 units of 7 mLSTM and 1 sLSTM, no attention; 1.94B float32
+     parameters): the first mLSTM and the sLSTM layer on a 2 x 16 input
+     in float32 compute, card against CPU, outputs and states within
+     1e-4 x max(1, |value|); ``Engine.generate`` at 4 x 256 prompt
+     tokens (one mLSTM chunk), 32 new, scan then speculative (draft 4):
+     tokens equal, no ``flash_attention`` launch, the commit's launches as
+     in phase 5, one host sync a round and none in a commit; then phase
+     6's gateway traffic over the paged pool with phase 6's checks (the
+     mLSTM / sLSTM states parked and restored; no flash launch);
+ 13. seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+     decoder layers, d_model 1,024, 16 heads of dim 64, ReLU d_ff 8,192,
+     vocab 256,206; 1.63B float32 parameters): a small input (2 x 64
+     frames, 2 x 16 tokens) card against CPU: the encoder output
+     and last logits in float32 compute within 2e-2 x max(1, |value|);
+     in bf16 every encoder and decoder layer fed the CPU's input within
+     2e-2 of each token's largest value (the full-depth bf16 encoder
+     output and logits printed beside); then ``Engine.generate`` with ``src_embeds`` of 4 x 1,024
+     seeded normal frames under 4 x 64 prompt tokens, 32 new, scan then
+     speculative (draft 4): tokens equal, 72 ``flash_attention`` launches
+     a prefill (24 encoder, 24 decoder, 24 cross) and none a decode step,
+     the commit's launches as in phase 5.
 
 The lines before the last are the launch floor beside the kernels that
 run at it, the card (``nvidia-smi`` name and power limit) and one JSON
@@ -216,6 +241,17 @@ HYB_BATCH, HYB_PROMPT, HYB_NEW, HYB_SPEC = 2, 2304, 32, 4
 MOE_SMALL = (2, 32)
 MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_SPEC = 4, 256, 32, 4
 NEAR_TIE = 2e-2
+# phase 12: xlstm-1.3b at full width and depth (42 mLSTM and 6 sLSTM
+# layers): prompts of one mLSTM chunk; the small input card against CPU
+XL_SMALL = (2, 16)
+XL_BATCH, XL_PROMPT, XL_NEW, XL_SPEC = 4, 256, 32, 4
+XL_TOL = 1e-4
+# phase 13: seamless-m4t-large-v2 at full width and depth (24 encoder and
+# 24 decoder layers): 1,024 source frames (a multiple of the kernel's
+# 128-key tile) under 64 prompt tokens; the small input's (batch, frames,
+# tokens)
+ED_SMALL = (2, 64, 16)
+ED_BATCH, ED_SRC, ED_PROMPT, ED_NEW, ED_SPEC = 4, 1024, 64, 32, 4
 # phase 7: the CPM surface at the paper benchmark's row length, and the
 # allocator at a pool's size (16,384 pages of 32 tokens: about what the
 # card holds of granite-8b's KV at ~147 KB a token)
@@ -572,8 +608,8 @@ def _row_err(torch, got, want) -> float:
                   / w.abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def _d256_agrees(torch, got, want, dt):
-    """Phase 2's D = 256 gate: ``allclose`` at ``FLASH_TOL``, and in bf16
+def _flash_agrees(torch, got, want, dt):
+    """Phase 2's gate for D = 256 and the encoder-decoder's modes: ``allclose`` at ``FLASH_TOL``, and in bf16
     also each row within ``FLASH_ROW_TOL`` of its largest value.  Returns
     (ok, max abs err, row err)."""
     err = float((got.float() - want.float()).abs().max())
@@ -614,7 +650,7 @@ def check_flash_d256(torch, dev, rec):
                 torch.cuda.synchronize()
                 want = fa.flash_attention_plain(q, k, v, causal=True,
                                                 window=window)
-                ok, err, row = _d256_agrees(torch, got, want, dt)
+                ok, err, row = _flash_agrees(torch, got, want, dt)
                 print(f"flash_attention D=256 {dt} causal window={window} "
                       f"{layout} (B={b} H={h} KVH={kvh} S={s}): "
                       f"max_abs_err={err:.3e} tol={FLASH_TOL[dt]}, row "
@@ -629,7 +665,7 @@ def check_flash_d256(torch, dev, rec):
                 for shifted in ((window - 1, window + 1) if window else ()):
                     off = fa.flash_attention_plain(q, k, v, causal=True,
                                                    window=shifted)
-                    passes, _, srow = _d256_agrees(torch, got, off, dt)
+                    passes, _, srow = _flash_agrees(torch, got, off, dt)
                     print(f"  against the twin at window {shifted}: row "
                           f"err {srow:.3e}, "
                           f"{'NOT CAUGHT' if passes else 'caught'}")
@@ -677,6 +713,71 @@ def check_flash_d256(torch, dev, rec):
           f"({pairs * b * h} live pairs; the kernel computes "
           f"{tiles * b * h} 64x64 tiles), SDPA with the window mask "
           f"{lib_ms:.4f} ms; float32 {f32_ms:.4f} ms")
+
+
+def check_flash_encdec(torch, dev, rec):
+    """Phase 2, seamless-m4t-large-v2's modes (16 q heads over 16 kv
+    heads of dim 64: the wgmma + TMA route in bf16): the encoder's
+    bidirectional self-attention (Sq = Skv = 1,024 frames) and the
+    decoder's cross attention (Sq = 64 prompt positions over Skv = 1,024
+    frames), bf16 and float32, on the main path's strided (B, S, H, D)
+    views, each against the plain twin under the D = 256 gate; each bf16
+    case timed beside its bound and SDPA on the same inputs (no mask, no
+    kv repeat), float32 timed too.  Adds ``encoder_*`` and ``cross_*``
+    keys to phase 2's flash_attention record ``rec``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, d, skv = ED_BATCH, 16, 64, ED_SRC
+    g = torch.Generator(device=dev).manual_seed(13)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for tag, sq in (("encoder", ED_SRC), ("cross", ED_PROMPT)):
+        base = [torch.randn((b, n, h, d), generator=g,
+                            device=dev).transpose(1, 2)
+                for n in (sq, skv, skv)]
+        errs = {}
+        for dt in ("bfloat16", "float32"):
+            q, k, v = (t.to(getattr(torch, dt)) for t in base)
+            got = fa.flash_attention(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(q, k, v, causal=False)
+            ok, err, row = _flash_agrees(torch, got, want, dt)
+            print(f"flash_attention {tag} {dt} bidirectional (B={b} H={h} "
+                  f"KVH={h} Sq={sq} Skv={skv} D={d}, strided): "
+                  f"max_abs_err={err:.3e} tol={FLASH_TOL[dt]}, row err "
+                  f"{row:.3e} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"flash_attention {tag} {dt} disagrees with its plain "
+                     f"twin (max abs err {err}, row err {row})")
+            errs[dt] = (err, row)
+        q, k, v = (t.to(torch.bfloat16) for t in base)
+        ms, src, call_ms = timed(
+            lambda: fa.flash_attention(q, k, v, causal=False), 20)
+        plain_ms, _, _ = timed(
+            lambda: fa.flash_attention_plain(q, k, v, causal=False), 5)
+        lib_ms, _, _ = timed(lambda: sdpa(q, k, v), 20)
+        lib_kernels = kernel_ms(lambda: sdpa(q, k, v), 20)
+        pairs = b * h * sq * skv
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v, out
+        bound_ms, by = bound(nbytes, 4.0 * d * pairs)
+        qf, kf, vf = (t.float() for t in base)
+        f32_ms, f32_src, _ = timed(
+            lambda: fa.flash_attention(qf, kf, vf, causal=False), 5)
+        rec.update({f"{tag}_shape": [b, h, h, sq, skv, d],
+                    f"{tag}_max_abs_err": errs["bfloat16"][0],
+                    f"{tag}_row_err": errs["bfloat16"][1],
+                    f"{tag}_f32_max_abs_err": errs["float32"][0],
+                    f"{tag}_ms": ms, f"{tag}_ms_source": src,
+                    f"{tag}_call_ms": call_ms, f"{tag}_plain_ms": plain_ms,
+                    f"{tag}_bound_ms": bound_ms, f"{tag}_bound_by": by,
+                    f"{tag}_pairs": pairs, f"{tag}_library_ms": lib_ms,
+                    f"{tag}_library_call": "scaled_dot_product_attention",
+                    f"{tag}_library_kernels": lib_kernels,
+                    f"{tag}_f32_ms": f32_ms, f"{tag}_f32_ms_source": f32_src})
+        print(f"flash_attention {tag} bf16 bidirectional (B={b} H={h} "
+              f"Sq={sq} Skv={skv} D={d}, strided): {ms:.4f} ms ({src}; "
+              f"{call_ms:.4f} a call), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {by} ({pairs} (q, k) pairs), SDPA "
+              f"{lib_ms:.4f} ms on {lib_kernels}; float32 {f32_ms:.4f} ms")
 
 
 def _nine_op_stream(np, r, n, dtype, per_row, seed):
@@ -1162,10 +1263,11 @@ def _solo_gaps(torch, engine, prompt, seq):
     return (lg.amax(-1) - picked).cpu(), tol, other
 
 
-def serve_pool(torch, dev, cfg, params, record, tag="pool"):
+def serve_pool(torch, dev, cfg, params, record, tag="pool",
+               kernels=POOL_KERNELS):
     """Phase 6 (see the module docstring) on ``cfg`` / ``params``, its
-    record in ``record[tag]``.  Returns the launch counts of the gateway
-    run."""
+    record in ``record[tag]``; each of ``kernels`` must launch.  Returns
+    the launch counts of the gateway run."""
     import warnings
 
     from repro_torch.kernels import ops
@@ -1216,9 +1318,9 @@ def serve_pool(torch, dev, cfg, params, record, tag="pool"):
     if st["pages_free"] != pool.total_pages:
         fail(f"{st['pages_free']} of {pool.total_pages} pages free after "
              f"the drain")
-    for name in POOL_KERNELS:
+    for name in kernels:
         if counts[name] <= 0:
-            fail(f"{name} was not launched on the pool path ({counts})")
+            fail(f"{name} was not launched on the {tag} path ({counts})")
     if any(counts[name] for name in CPM_KERNELS + CPM2_KERNELS):
         fail(f"the pool path launched a per-op CPM kernel: {counts}")
 
@@ -1395,92 +1497,82 @@ def _init_full(torch, dev, name, seed):
     return cfg, params, {"params": n, "init_s": init_s}
 
 
-def serve_recurrentgemma(torch, dev, record, card):
-    """Phase 10: recurrentgemma-9b through ``Engine.generate`` at batch 2
-    with 2,304-token prompts (past the 2,048-key window: every ring
-    wraps), 32 new tokens, greedy scan then speculative (draft 4) with
-    the launch counters set to 0 before each run: tokens equal, 12
-    ``flash_attention`` launches a prefill (one per attn_local layer),
-    the commit's launches as its verdict implies, one host sync a round
-    and none in a commit; then phase 6's gateway over the paged pool on
-    these weights.  Returns (generate counts, pool counts)."""
-    from repro_torch.launch.serve import repeated_prompts
+def _serve_counted(torch, dev, name, cfg, params, batch, new, spec, flash,
+                   card):
+    """``Engine.generate`` on ``batch`` (its (B, S) ``tokens`` and whatever
+    else the model reads) with ``new`` tokens, greedy scan then
+    speculative (draft ``spec``), the launch counters set to 0 before
+    each run: tokens in the vocabulary, speculative == scan, ``flash``
+    ``flash_attention`` launches a run (its one prefill; none a decode
+    step), the commit's launches as its verdict implies, one host sync a
+    round and none in a commit; then the prefill timed, its logits
+    finite, and profiled.  Returns (record, the speculative run's counts,
+    engine)."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.serve import Engine, GenConfig
 
-    cfg, params, init = _init_full(torch, dev, "recurrentgemma-9b", 0)
-    n_local = sum(k == "attn_local" for k in cfg.layer_kinds())
-    engine = Engine(cfg, params,
-                    max_len=HYB_PROMPT + HYB_NEW + HYB_SPEC + 8,
+    b, s = batch["tokens"].shape
+    torch.cuda.reset_peak_memory_stats()             # this model's peak
+    engine = Engine(cfg, params, max_len=s + new + spec + 8,
                     cpm_backend="cuda")
-    prompt = repeated_prompts(HYB_BATCH, HYB_PROMPT, cfg.vocab_size, 3,
-                              device=dev)
-    scan_cfg = GenConfig(max_new_tokens=HYB_NEW)
-    spec_cfg = GenConfig(max_new_tokens=HYB_NEW, ngram_spec=HYB_SPEC)
+    scan_cfg = GenConfig(max_new_tokens=new)
+    spec_cfg = GenConfig(max_new_tokens=new, ngram_spec=spec)
     # the commit's verdict at this shape first: a calibrated model settles
     # it by timing the group once, outside the counted runs
-    kind, decision = _commit_verdict(torch, dev, HYB_BATCH,
-                                     HYB_PROMPT + HYB_NEW, HYB_SPEC)
+    kind, decision = _commit_verdict(torch, dev, b, s + new, spec)
 
     ops.reset_launch_counts()                      # the scan path, counted
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    scan, _ = engine.generate({"tokens": prompt}, scan_cfg)
+    scan, _ = engine.generate(batch, scan_cfg)
     torch.cuda.synchronize()
     t_scan = time.perf_counter() - t0
     scan_counts = ops.launch_counts()
-    gen = {"engine": engine, "prompt": prompt, "spec": spec_cfg}
-    spec, stats, counts, syncs, t_spec = _generate_counted(torch, gen)
+    gen = {"engine": engine, "batch": batch, "spec": spec_cfg}
+    out, stats, counts, syncs, t_spec = _generate_counted(torch, gen)
     in_commit, in_prefill, rounds_syncs = syncs
 
-    if tuple(scan.shape) != (HYB_BATCH, HYB_PROMPT + HYB_NEW) or not bool(
+    if tuple(scan.shape) != (b, s + new) or not bool(
             ((scan >= 0) & (scan < cfg.vocab_size)).all()):
-        fail(f"recurrentgemma scan output {tuple(scan.shape)} or tokens "
-             f"outside the vocabulary")
-    if not torch.equal(scan, spec):
-        fail("recurrentgemma: speculative tokens differ from scan tokens")
+        fail(f"{name} scan output {tuple(scan.shape)} or tokens outside "
+             f"the vocabulary")
+    if not torch.equal(scan, out):
+        fail(f"{name}: speculative tokens differ from scan tokens")
     for path, c in (("scan", scan_counts), ("speculative", counts)):
-        if c["flash_attention"] != n_local:
-            fail(f"recurrentgemma {path}: flash_attention launched "
-                 f"{c['flash_attention']} times, want {n_local} (one "
+        if c["flash_attention"] != flash:
+            fail(f"{name} {path}: flash_attention launched "
+                 f"{c['flash_attention']} times, want {flash} (one "
                  f"prefill)")
     if scan_counts["fused_stream"] or scan_counts["shift_range"]:
-        fail(f"the recurrentgemma scan path launched a commit kernel: "
+        fail(f"the {name} scan path launched a commit kernel: "
              f"{scan_counts}")
-    commit_launch_check(counts, kind, stats["rounds"],
-                        "recurrentgemma generate")
+    commit_launch_check(counts, kind, stats["rounds"], f"{name} generate")
     if in_commit:
-        fail(f"a recurrentgemma commit synchronized with the host: "
+        fail(f"a {name} commit synchronized with the host: "
              f"{in_commit[:3]}")
     if len(rounds_syncs) != stats["rounds"]:
-        fail(f"recurrentgemma: {len(rounds_syncs)} host syncs over "
+        fail(f"{name}: {len(rounds_syncs)} host syncs over "
              f"{stats['rounds']} rounds outside the prefill, want one a "
              f"round: {rounds_syncs[:3]}")
 
     t0 = time.perf_counter()
-    logits, caches = lm.prefill(params, cfg, {"tokens": prompt},
-                                max_len=engine.max_len)
+    logits, _ = lm.prefill(params, cfg, batch, max_len=engine.max_len)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     if not bool(torch.isfinite(logits[..., :cfg.vocab_size].float()).all()):
-        fail("recurrentgemma: non-finite prefill logits")
-    ring = caches["blocks"][2]["attn"]["k"]
-    if ring.shape[-2] != cfg.window:
-        fail(f"recurrentgemma ring of {ring.shape[-2]} slots, want "
-             f"{cfg.window}")
-    del logits, caches
+        fail(f"{name}: non-finite prefill logits")
+    del logits
     busy_ms, top = profile_top(torch, lambda: lm.prefill(
-        params, cfg, {"tokens": prompt}, max_len=engine.max_len))
-    print(f"recurrentgemma-9b prefill under torch.profiler: device busy "
+        params, cfg, batch, max_len=engine.max_len))
+    print(f"{name} prefill under torch.profiler: device busy "
           f"{busy_ms:.1f} ms; top kernels (ms, calls): {top}")
-    new = HYB_BATCH * HYB_NEW
-    rec = {**init, "layers": cfg.n_layers, "attn_local_layers": n_local,
-           "batch": HYB_BATCH, "prompt_len": HYB_PROMPT, "max_new": HYB_NEW,
-           "spec": HYB_SPEC, "window": cfg.window, "prefill_ms": prefill_ms,
+    n_new = b * new
+    rec = {"layers": cfg.n_layers, "batch": b, "prompt_len": s,
+           "max_new": new, "spec": spec, "prefill_ms": prefill_ms,
            "prefill_device_busy_ms": busy_ms, "prefill_top_kernels": top,
-           "scan_s": t_scan, "scan_tok_s": new / t_scan,
-           "spec_s": t_spec, "spec_tok_s": new / t_spec,
+           "scan_s": t_scan, "scan_tok_s": n_new / t_scan,
+           "spec_s": t_spec, "spec_tok_s": n_new / t_spec,
            "rounds": stats["rounds"], "accepted": stats["accepted"],
            "proposed": stats["proposed"],
            "acceptance_rate": stats["acceptance_rate"],
@@ -1490,17 +1582,46 @@ def serve_recurrentgemma(torch, dev, record, card):
            "host_syncs_commits": len(in_commit),
            "host_syncs_prefill": len(in_prefill),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    record["hybrid"] = rec
-    print(f"recurrentgemma-9b serve: prefill {prefill_ms:.1f} ms (B="
-          f"{HYB_BATCH} x {HYB_PROMPT}, window {cfg.window}); scan "
-          f"{t_scan:.2f}s = {new / t_scan:.1f} tok/s; spec {t_spec:.2f}s = "
-          f"{new / t_spec:.1f} tok/s, {stats['rounds']} rounds, acceptance "
-          f"{stats['acceptance_rate']:.3f}; spec == scan; flash_attention "
-          f"{counts['flash_attention']} a prefill; commit {kind}: "
-          f"fused_stream {counts['fused_stream']}, shift_range "
-          f"{counts['shift_range']}; host syncs {len(rounds_syncs)} in "
-          f"{stats['rounds']} rounds, 0 in commits, {len(in_prefill)} in "
-          f"the prefill; {card}")
+    print(f"{name} serve: prefill {prefill_ms:.1f} ms (B={b} x {s}); "
+          f"scan {t_scan:.2f}s = {n_new / t_scan:.1f} tok/s; spec "
+          f"{t_spec:.2f}s = {n_new / t_spec:.1f} tok/s, {stats['rounds']} "
+          f"rounds, acceptance {stats['acceptance_rate']:.3f}; spec == "
+          f"scan; flash_attention {counts['flash_attention']} a prefill, "
+          f"none a decode step; commit {kind}: fused_stream "
+          f"{counts['fused_stream']}, shift_range {counts['shift_range']}; "
+          f"host syncs {len(rounds_syncs)} in {stats['rounds']} rounds, 0 "
+          f"in commits, {len(in_prefill)} in the prefill; peak "
+          f"{rec['peak_gib']:.1f} GiB; {card}")
+    return rec, counts, engine
+
+
+def serve_recurrentgemma(torch, dev, record, card):
+    """Phase 10: recurrentgemma-9b through ``Engine.generate`` at batch 2
+    with 2,304-token prompts (past the 2,048-key window: every ring
+    wraps), 32 new tokens, greedy scan then speculative (draft 4)
+    (:func:`_serve_counted`, 12 ``flash_attention`` launches a prefill:
+    one per attn_local layer); each ring the window wide; then phase 6's
+    gateway over the paged pool on these weights.  Returns (generate
+    counts, pool counts)."""
+    from repro_torch.launch.serve import repeated_prompts
+    from repro_torch.models import lm
+
+    cfg, params, init = _init_full(torch, dev, "recurrentgemma-9b", 0)
+    n_local = sum(k == "attn_local" for k in cfg.layer_kinds())
+    prompt = repeated_prompts(HYB_BATCH, HYB_PROMPT, cfg.vocab_size, 3,
+                              device=dev)
+    rec, counts, engine = _serve_counted(
+        torch, dev, "recurrentgemma-9b", cfg, params, {"tokens": prompt},
+        HYB_NEW, HYB_SPEC, n_local, card)
+    _, caches = lm.prefill(params, cfg, {"tokens": prompt},
+                           max_len=engine.max_len)
+    ring = caches["blocks"][2]["attn"]["k"]
+    if ring.shape[-2] != cfg.window:
+        fail(f"recurrentgemma ring of {ring.shape[-2]} slots, want "
+             f"{cfg.window}")
+    del caches, ring
+    record["hybrid"] = {**init, **rec, "attn_local_layers": n_local,
+                        "window": cfg.window}
     pool_counts = serve_pool(torch, dev, cfg, params, record,
                              tag="hybrid_pool")
     return counts, pool_counts
@@ -1722,6 +1843,212 @@ def serve_moe(torch, dev, record, card):
           f"{counts}; {card}")
     del params, engine
     torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: xlstm-1.3b at full width and depth
+# ---------------------------------------------------------------------------
+
+def _rel_err(want, got, per_token=False) -> float:
+    """max |got - want| over max(1, max |want|): of the whole tensor, or
+    (``per_token``) of each token's row of a (..., d) tensor, the largest."""
+    w, g = want.float(), got.float().cpu()
+    if per_token:
+        return float(((g - w).abs().amax(-1)
+                      / w.abs().amax(-1).clamp_min(1.0)).max())
+    return float((g - w).abs().max() / max(1.0, float(w.abs().max())))
+
+
+def check_xlstm_layers(torch, cfg, params):
+    """Phase 12's small input: the first mLSTM layer and the sLSTM layer of
+    the full-width model in float32 compute, on the card and on the CPU
+    from the same input (2 x 16 embedded tokens): each output and state
+    within ``XL_TOL`` x max(1, its largest |value|).  Returns a record."""
+    from repro_torch.launch.serve import repeated_prompts
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    b, s = XL_SMALL
+    dev = params["emb"].device
+    unit, _, _ = lm._layout(cfg)
+    tokens = repeated_prompts(b, s, cfg.vocab_size, 10, device=dev)
+    pos = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
+    out = {}
+    saved = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        x = lm._embed(params, cfg, tokens).cpu()
+        for kind in ("mlstm", "slstm"):
+            blk = lm._rep(params["blocks"][unit.index(kind)], 0)
+            want, _, wc = lm.block_fwd(lm.tree_map(lambda t: t.cpu(), blk),
+                                       x, kind, cfg, pos, with_cache=True)
+            got, _, gc = lm.block_fwd(blk, x.to(dev), kind, cfg,
+                                      pos.to(dev), with_cache=True)
+            errs = {"y": _rel_err(want, got)}
+            for leaf, w in wc[kind].items():
+                if w.is_floating_point():
+                    errs[leaf] = _rel_err(w, gc[kind][leaf])
+            out[kind] = errs
+            if not max(errs.values()) <= XL_TOL:
+                fail(f"xlstm-1.3b {kind} layer, card vs CPU in float32: "
+                     f"{errs} (tol {XL_TOL} x max(1, |value|))")
+    finally:
+        L.COMPUTE_DTYPE = saved
+    print(f"xlstm-1.3b small input ({b} x {s}), card vs CPU in float32, "
+          f"error over max(1, |value|): {out} (tol {XL_TOL})")
+    return out
+
+
+def serve_xlstm(torch, dev, record, card):
+    """Phase 12: xlstm-1.3b (42 mLSTM and 6 sLSTM layers, no attention)
+    at full width and depth: the small input card against CPU
+    (:func:`check_xlstm_layers`), then ``Engine.generate`` at 4 x 256
+    prompt tokens (one mLSTM chunk), 32 new, draft 4
+    (:func:`_serve_counted`: no ``flash_attention`` launch), then phase
+    6's gateway over the paged pool (no flash launch there either; the
+    mLSTM and sLSTM states parked and restored).  Returns (generate
+    counts, pool counts)."""
+    from repro_torch.launch.serve import repeated_prompts
+
+    cfg, params, init = _init_full(torch, dev, "xlstm-1.3b", 8)
+    small = check_xlstm_layers(torch, cfg, params)
+    dh = 2 * cfg.d_model // cfg.n_heads
+    state_mb = cfg.n_heads * dh * dh * 4 / 1e6        # C, float32
+    n_m = sum(k == "mlstm" for k in cfg.layer_kinds())
+    print(f"xlstm-1.3b: an mLSTM state C is {state_mb:.1f} MB a row a "
+          f"layer; a verify round of draft {XL_SPEC} holds it "
+          f"{XL_SPEC + 1} times (live and {XL_SPEC} snapshots): "
+          f"{XL_BATCH * n_m * (XL_SPEC + 1) * state_mb / 1e3:.1f} GB at "
+          f"batch {XL_BATCH} over {n_m} layers")
+    prompt = repeated_prompts(XL_BATCH, XL_PROMPT, cfg.vocab_size, 9,
+                              device=dev)
+    rec, counts, _ = _serve_counted(torch, dev, "xlstm-1.3b", cfg, params,
+                                    {"tokens": prompt}, XL_NEW, XL_SPEC, 0,
+                                    card)
+    record["xlstm"] = {**init, **rec, "small_input": small,
+                       "state_mb_row_layer": state_mb}
+    pool_counts = serve_pool(torch, dev, cfg, params, record,
+                             tag="xlstm_pool",
+                             kernels=("fused_stream", "gather_rows",
+                                      "scatter_rows"))
+    if pool_counts["flash_attention"]:
+        fail(f"the xlstm pool launched flash_attention: {pool_counts}")
+    return counts, pool_counts
+
+
+# ---------------------------------------------------------------------------
+# phase 13: seamless-m4t-large-v2 at full width and depth
+# ---------------------------------------------------------------------------
+
+def check_seamless_small(torch, cfg, params):
+    """Phase 13's small input, card against the port's CPU run of the same
+    weights: 2 x 64 source frames under 2 x 16 prompt tokens.  The encoder
+    output and the last prefill logits with both sides computing in
+    float32, within 2e-2 x max(1, largest |value|) (phase 3's tolerance);
+    in bf16, the served dtype, every encoder and decoder layer fed the
+    CPU's input to it (a decoder layer's cross attention the CPU's encoder
+    output), each token's hidden state within 2e-2 x max(1, its largest
+    |value|), as phase 11, with the full-depth bf16 encoder output and
+    logits reported beside them: through 24 layers each layer's one or two
+    bf16 ulps carry to about the tolerance (2.016e-2 of the encoder
+    output on an H100 80GB HBM3 at 700 W).  Returns a record."""
+    from repro_torch.launch.serve import repeated_prompts
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    b, ts, s = ED_SMALL
+    dev = params["emb"].device
+    cpu_p = lm.tree_map(lambda t: t.cpu(), params)
+    src = torch.randn((b, ts, cfg.d_model),
+                      generator=torch.Generator().manual_seed(14))
+    tokens = repeated_prompts(b, s, cfg.vocab_size, 15)
+    v = cfg.vocab_size
+    rec = {}
+    for tag, dtype in (("", torch.float32), ("bf16_", torch.bfloat16)):
+        saved = L.COMPUTE_DTYPE
+        L.COMPUTE_DTYPE = dtype
+        try:
+            enc_w = lm._run_encoder(cpu_p, cfg, src, "cpu")
+            enc_g = lm._run_encoder(params, cfg, src.to(dev), dev)
+            lw, _ = lm.prefill(cpu_p, cfg, {"tokens": tokens,
+                                            "src_embeds": src})
+            lg, _ = lm.prefill(params, cfg, {"tokens": tokens.to(dev),
+                                             "src_embeds": src.to(dev)})
+        finally:
+            L.COMPUTE_DTYPE = saved
+        rec.update({
+            f"{tag}encoder_err": _rel_err(enc_w, enc_g),
+            f"{tag}logits_err": _rel_err(lw[..., :v], lg[..., :v]),
+            f"{tag}argmax_equal": float(
+                (lw[..., :v].float().argmax(-1) ==
+                 lg[..., :v].float().argmax(-1).cpu()).float().mean())})
+    pos_s = torch.arange(ts, dtype=torch.int32)[None].expand(b, ts)
+    pos = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
+    layers = [("encoder", r, cpu_p["encoder"]["blocks"],
+               params["encoder"]["blocks"]) for r in range(cfg.n_enc_layers)]
+    layers += [("decoder", r, cpu_p["blocks"][0], params["blocks"][0])
+               for r in range(cfg.n_layers)]
+    x = src.to(torch.bfloat16)
+    errs = {"encoder": [], "decoder": []}
+    for part, r, blk_cpu, blk_dev in layers:
+        dec = part == "decoder"
+        if dec and r == 0:
+            x = lm._embed(cpu_p, cfg, tokens)
+        p_ = pos if dec else pos_s
+        want, _, _ = lm.block_fwd(lm._rep(blk_cpu, r), x, "attn", cfg, p_,
+                                  causal=dec, enc_out=enc_w if dec else None)
+        got, _, _ = lm.block_fwd(lm._rep(blk_dev, r), x.to(dev), "attn",
+                                 cfg, p_.to(dev), causal=dec,
+                                 enc_out=enc_w.to(dev) if dec else None)
+        errs[part].append(_rel_err(want, got, per_token=True))
+        x = want
+    del cpu_p
+    rec.update({f"{part}_layers_worst": max(e) for part, e in errs.items()})
+    rec["first_layers"] = {part: e[:2] for part, e in errs.items()}
+    print(f"seamless-m4t-large-v2 small input ({b} x {ts} frames, {b} x "
+          f"{s} tokens), card vs CPU: float32 compute, encoder output "
+          f"{rec['encoder_err']:.3e}, last logits {rec['logits_err']:.3e} "
+          f"of max(1, |value|) (tol 2e-2), argmax equal "
+          f"{rec['argmax_equal']:.3f}; bf16, each layer from the CPU's "
+          f"input, worst token: encoder {rec['encoder_layers_worst']:.3e}, "
+          f"decoder {rec['decoder_layers_worst']:.3e} (tol 2e-2); bf16 "
+          f"through all layers (not gated): encoder output "
+          f"{rec['bf16_encoder_err']:.3e}, last logits "
+          f"{rec['bf16_logits_err']:.3e}, argmax equal "
+          f"{rec['bf16_argmax_equal']:.3f}")
+    bad = {k: rec[k] for k in ("encoder_err", "logits_err",
+                               "encoder_layers_worst",
+                               "decoder_layers_worst") if not rec[k] <= 2e-2}
+    if bad:
+        fail(f"seamless-m4t-large-v2 card vs CPU beyond 2e-2: {bad}")
+    return rec
+
+
+def serve_seamless(torch, dev, record, card):
+    """Phase 13: seamless-m4t-large-v2 (24 encoder and 24 decoder layers,
+    16 heads of dim 64, ReLU FFNs of 8,192, layer norm) at full width and
+    depth: the small input card against CPU
+    (:func:`check_seamless_small`), then ``Engine.generate`` with
+    ``src_embeds`` of 4 x 1,024 seeded normal frames under 4 x 64 prompt
+    tokens, 32 new, draft 4 (:func:`_serve_counted`: 72
+    ``flash_attention`` launches a prefill, 24 bidirectional encoder, 24
+    causal decoder and 24 cross, none a decode step).  Returns the
+    generate counts."""
+    from repro_torch.launch.serve import repeated_prompts
+
+    cfg, params, init = _init_full(torch, dev, "seamless-m4t-large-v2", 10)
+    small = check_seamless_small(torch, cfg, params)
+    src = torch.randn((ED_BATCH, ED_SRC, cfg.d_model), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(11))
+    prompt = repeated_prompts(ED_BATCH, ED_PROMPT, cfg.vocab_size, 12,
+                              device=dev)
+    flash = cfg.n_enc_layers + 2 * cfg.n_layers
+    rec, counts, _ = _serve_counted(
+        torch, dev, "seamless-m4t-large-v2", cfg, params,
+        {"tokens": prompt, "src_embeds": src}, ED_NEW, ED_SPEC, flash, card)
+    record["seamless"] = {**init, **rec, "source_frames": ED_SRC,
+                          "flash_per_prefill": flash, "small_input": small}
     return counts
 
 
@@ -2923,8 +3250,8 @@ def _generate_counted(torch, gen):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            spec, stats = gen["engine"].generate({"tokens": gen["prompt"]},
-                                                 gen["spec"])
+            spec, stats = gen["engine"].generate(
+                gen.get("batch") or {"tokens": gen["prompt"]}, gen["spec"])
         finally:
             torch.cuda.set_sync_debug_mode("default")
             rounds_syncs.extend(_syncs_of(caught))
@@ -3303,6 +3630,7 @@ def main(argv=None) -> int:
                check_fused_stream(torch, np, dev, card, empty),
                *check_rows(torch, np, dev)]
     check_flash_d256(torch, dev, kernels[0])
+    check_flash_encdec(torch, dev, kernels[0])
     check_small_model(torch, dev)
     gen_counts, cfg, params, gen = serve_granite(torch, dev, args.layers,
                                                 record)
@@ -3343,6 +3671,11 @@ def main(argv=None) -> int:
                                                        card)
     torch.cuda.empty_cache()
     moe_counts = serve_moe(torch, dev, record, card)
+    # phases 12 and 13: xLSTM and the encoder-decoder
+    xl_counts, xl_pool_counts = serve_xlstm(torch, dev, record, card)
+    torch.cuda.empty_cache()
+    ed_counts = serve_seamless(torch, dev, record, card)
+    torch.cuda.empty_cache()
     kernels += time_stream_kernels(torch, dev, data, data3, errs3)
     del data
     record["streams"] = {"shape": [CPM_R, CPM_N], "used_len": data3["used"],
@@ -3356,7 +3689,8 @@ def main(argv=None) -> int:
              "generate_eager": by_cost["eager"],
              "pool_by_cost": pool2_counts,
              "hybrid_generate": hyb_counts, "hybrid_pool": hyb_pool_counts,
-             "moe_generate": moe_counts}
+             "moe_generate": moe_counts, "xlstm_generate": xl_counts,
+             "xlstm_pool": xl_pool_counts, "seamless_generate": ed_counts}
     for k in kernels:
         # each kernel's count on the newest path that runs it (the pool for
         # the serving kernels, phase 7, 8 or 9 for the per-op ones)

@@ -13,9 +13,7 @@ Sources per architecture:
   xlstm-1.3b             [arXiv:2405.04517]
   qwen2-vl-7b            [arXiv:2409.12191]
 
-Every config is registered; the port's model stack serves the
-decoder-only ones except xlstm-1.3b, whose mLSTM / sLSTM mixers and the
-encoder-decoder (seamless-m4t-large-v2) wait for ROADMAP Queue 1 item 3.
+Every config is registered, and the port's model stack serves all ten.
 """
 
 from .granite_moe_1b_a400m import GRANITE_MOE_1B

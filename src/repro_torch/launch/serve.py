@@ -7,8 +7,10 @@ decoding, on the card by default.
         --device cpu
 
 ``--arch`` takes every decoder-only config of ``repro_torch.configs``
-(dense, MoE, the recurrentgemma hybrid, the qwen2-vl text path); the
-xLSTM and encoder-decoder configs raise until ROADMAP Queue 1 item 3.
+(dense, MoE, the recurrentgemma hybrid, xLSTM, the qwen2-vl text path).
+The command feeds tokens only, as the JAX package's does, so an
+encoder-decoder (seamless-m4t) is served from Python:
+``Engine.generate({"tokens": ..., "src_embeds": ...}, gen)``.
 
 Weights are random, drawn from ``--seed``; prompts repeat a seeded n-gram
 so that prompt-lookup drafts find matches.

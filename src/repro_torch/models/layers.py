@@ -1,7 +1,9 @@
-"""Decoder layers (a port of ``repro.models.layers``): GQA attention
-(global and local-window), RMS / layer norm, RoPE and M-RoPE, the
-SwiGLU / GELU / ReLU FFNs, MoE with comparable-memory top-k routing and
-the RG-LRU recurrent block (Griffin / RecurrentGemma).
+"""Model layers (a port of ``repro.models.layers``): GQA attention
+(global, local-window, bidirectional and cross), RMS / layer norm, RoPE
+and M-RoPE, the SwiGLU / GELU / ReLU FFNs, MoE with comparable-memory
+top-k routing, the RG-LRU recurrent block (Griffin / RecurrentGemma) and
+the xLSTM mixers: the mLSTM (chunkwise-parallel matrix memory) and the
+sLSTM (stabilized scalar memory, a loop over time).
 
 Pure functions on tensors: ``init_*`` builds parameter dicts that mirror
 the JAX pytree one to one, ``apply_*`` / ``*_fwd`` / ``*_step`` consume
@@ -9,8 +11,7 @@ them.  Parameters stay float32 and are cast to ``COMPUTE_DTYPE``
 (bfloat16) where they are used, at the JAX package's casting points
 (``compute_view`` casts every >=2-D float32 weight per block).  The
 sharding constraints of the JAX package are dropped (distribution is
-ROADMAP Queue 1 item 5).  The xLSTM mixers (mLSTM, sLSTM) and cross
-attention wait for ROADMAP Queue 1 item 3.
+ROADMAP Queue 1 item 5), and with them the sLSTM's ``shard_map`` branch.
 """
 
 from __future__ import annotations
@@ -123,7 +124,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
-# attention (GQA; global causal or local window)
+# attention (GQA; global causal / local window / bidirectional / cross)
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg: ModelConfig, generator, device,
@@ -144,29 +145,40 @@ def init_attention(cfg: ModelConfig, generator, device,
     return p
 
 
-def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 kv_input: torch.Tensor | None = None):
+    """q from ``x``, k and v from ``kv_input`` (cross attention) or ``x``:
+    (B, S, H, dh) and (B, Skv, KVH, dh)."""
     b, s, _ = x.shape
     dh, h, kvh = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    kv_x = x if kv_input is None else kv_input
     dt = x.dtype
     q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    k = kv_x @ p["wk"].to(dt)
+    v = kv_x @ p["wv"].to(dt)
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    return (q.reshape(b, s, h, dh), k.reshape(b, s, kvh, dh),
-            v.reshape(b, s, kvh, dh))
+    skv = kv_x.shape[1]
+    return (q.reshape(b, s, h, dh), k.reshape(b, skv, kvh, dh),
+            v.reshape(b, skv, kvh, dh))
 
 
 def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
-                  *, causal=True, window=None, with_cache=False):
-    """Full-sequence self-attention (``window``: local, keys within
-    ``window`` positions of the query).  Returns y or (y, cache)."""
+                  *, causal=True, window=None, kv_input=None,
+                  kv_positions=None, rope=True, with_cache=False):
+    """Full-sequence attention: self-attention over ``x`` (``window``:
+    local, keys within ``window`` positions of the query; ``causal=False``:
+    bidirectional), or cross attention from ``x`` to ``kv_input`` (keys at
+    ``kv_positions`` where RoPE applies; the decoder's cross attention
+    runs with ``causal=False, rope=False``).  Returns y or (y, cache)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    q, k, v = _project_qkv(p, x, cfg, kv_input)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        kpos = positions if kv_positions is None else kv_positions
+        k = apply_rope(k, kpos, cfg.rope_theta, cfg.mrope_sections)
     q = q.transpose(1, 2)                                # (B, H, S, dh)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
@@ -195,16 +207,29 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
-                   cfg: ModelConfig, pos, *, window=None):
+                   cfg: ModelConfig, pos, *, window=None, cross_kv=None):
     """One-token decode.  x_t: (B, 1, d); pos: scalar or (B,) int32.
 
     The new k/v are written into ``cache["k"]`` / ``cache["v"]`` at slot
     ``pos % slots`` in place (the JAX version returns updated copies); a
     ring's live slots are ``min(pos + 1, slots)``, in any order, since
     softmax does not care.  The returned cache holds the same storage
-    with ``len = pos + 1``."""
+    with ``len = pos + 1``.
+
+    With ``cross_kv`` (the encoder's K/V and its length) the step is cross
+    attention: the query attends to the first ``cross_kv["len"]`` encoder
+    positions, without RoPE, and ``cache`` comes back untouched."""
     b = x_t.shape[0]
     dh, h = cfg.dh, cfg.n_heads
+    if cross_kv is not None:
+        q = x_t @ p["wq"].to(x_t.dtype)
+        if "bq" in p:
+            q = q + p["bq"].to(x_t.dtype)
+        q = q.reshape(b, 1, h, dh).transpose(1, 2)
+        o = ops.decode_attention(q, cross_kv["k"], cross_kv["v"],
+                                 cache_len=cross_kv["len"])
+        o = o.transpose(1, 2).reshape(b, 1, h * dh)
+        return o @ p["wo"].to(x_t.dtype), cache
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x_t.device)
     per_row = pos.ndim == 1
     posb = pos[:, None] if per_row else pos.expand(b, 1)
@@ -438,3 +463,232 @@ def rglru_step(p: Params, x_t: torch.Tensor, cache: Params,
     h = a * cache["h"] + bterm
     y = ((h * gate).to(dt) @ p["wy"].to(dt))[:, None]
     return y, {"h": h, "conv_buf": hist[:, 1:]}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix memory): chunkwise-parallel prefill, O(1) decode
+# ---------------------------------------------------------------------------
+
+def init_mlstm(cfg: ModelConfig, generator, device, reps=None) -> Params:
+    d = cfg.d_model
+    up = 2 * d
+    h = cfg.n_heads
+    dh = up // h
+    hs = 1 / math.sqrt(dh)
+    return {
+        "w_up": _dense_init((d, up), generator, device, reps=reps),
+        "w_up_gate": _dense_init((d, up), generator, device, reps=reps),
+        # head-block-diagonal q/k/v (xLSTM's per-head projections)
+        "wq": _dense_init((h, dh, dh), generator, device, scale=hs,
+                          reps=reps),
+        "wk": _dense_init((h, dh, dh), generator, device, scale=hs,
+                          reps=reps),
+        "wv": _dense_init((h, dh, dh), generator, device, scale=hs,
+                          reps=reps),
+        # input and forget gates
+        "w_if": _dense_init((up, 2 * h), generator, device, scale=0.02,
+                            reps=reps),
+        "w_down": _dense_init((up, d), generator, device, reps=reps),
+    }
+
+
+def _mlstm_chunk_scan(q, k, v, log_f, log_i, chunk: int):
+    """Chunkwise-parallel mLSTM.  q, k, v: (B, H, S, dh) float32; gates:
+    (B, H, S) logs <= 0 (a sigmoid input gate keeps every decay factor
+    <= 1, so the form is stable in float32 without the m-stabilizer).
+
+    Within a chunk, position i reads position j <= i through the decay
+    ``exp(cum_f_i - cum_f_j + log_i_j)``; across chunks the state
+    ``C_n = exp(total_f_n) C_{n-1} + dC_n`` (and its normalizer) is
+    carried by a loop over the chunks, where JAX runs an associative scan:
+    float32 results agree to rounding.  Returns (out (B, H, S, dh),
+    (C (B, H, dh, dh), n (B, H, dh)) after the last position)."""
+    b, h, s, dh = q.shape
+    assert s % chunk == 0
+    n = s // chunk
+    q = q.reshape(b, h, n, chunk, dh)
+    k = k.reshape(b, h, n, chunk, dh)
+    v = v.reshape(b, h, n, chunk, dh)
+    log_f = log_f.reshape(b, h, n, chunk)
+    log_i = log_i.reshape(b, h, n, chunk)
+    cum_f = torch.cumsum(log_f, dim=-1)                  # (B, H, N, C)
+    total_f = cum_f[..., -1:]
+
+    di = cum_f[..., :, None] - cum_f[..., None, :] + log_i[..., None, :]
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=q.device))
+    dmat = torch.where(mask, torch.exp(di), 0.0)
+
+    wk = torch.exp(total_f - cum_f + log_i)[..., None] * k   # (B,H,N,C,dh)
+    dC = torch.einsum("bhncd,bhnce->bhnde", wk, v)       # (B,H,N,dh,dh)
+    dnorm = wk.sum(dim=-2)                               # (B,H,N,dh)
+    decay = torch.exp(total_f[..., 0])                   # (B,H,N)
+
+    # the state before each chunk, then the final one
+    C = torch.zeros_like(dC[:, :, 0])
+    nrm = torch.zeros_like(dnorm[:, :, 0])
+    c_prev, n_prev = [], []
+    for i in range(n):
+        c_prev.append(C)
+        n_prev.append(nrm)
+        C = C * decay[:, :, i, None, None] + dC[:, :, i]
+        nrm = nrm * decay[:, :, i, None] + dnorm[:, :, i]
+    Cprev = torch.stack(c_prev, dim=2)
+    nprev = torch.stack(n_prev, dim=2)
+
+    qs = q * torch.exp(cum_f)[..., None]
+    inter = torch.einsum("bhncd,bhnde->bhnce", qs, Cprev)
+    inter_n = torch.einsum("bhncd,bhnd->bhnc", qs, nprev)
+    intra = torch.einsum("bhncd,bhnjd->bhncj", q, k) * dmat
+    out = inter + torch.einsum("bhncj,bhnjd->bhncd", intra, v)
+    norm = inter_n + intra.sum(-1)
+    out = out / torch.clamp(norm.abs(), min=1.0)[..., None]
+    return out.reshape(b, h, s, dh), (C, nrm)
+
+
+def _mlstm_qkv(p: Params, z: torch.Tensor, dh: int):
+    """Per-head q, k / sqrt(dh) and v of (..., H, dh) inputs, in the
+    stream dtype."""
+    dt = z.dtype
+    q = torch.einsum("...hd,hde->...he", z, p["wq"].to(dt))
+    k = torch.einsum("...hd,hde->...he", z, p["wk"].to(dt)) / math.sqrt(dh)
+    v = torch.einsum("...hd,hde->...he", z, p["wv"].to(dt))
+    return q, k, v
+
+
+def mlstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              with_cache=False, chunk: int = 256):
+    """The mLSTM over a sequence, chunks of ``min(chunk, S)`` positions:
+    S must be a multiple of it (as in JAX; nothing is padded)."""
+    b, s, _ = x.shape
+    dt = x.dtype
+    h = cfg.n_heads
+    up = p["w_up"].shape[-1]
+    dh = up // h
+    z = x @ p["w_up"].to(dt)                             # (B, S, up)
+    gate = F.silu(x @ p["w_up_gate"].to(dt))
+    q, k, v = _mlstm_qkv(p, z.reshape(b, s, h, dh), dh)  # (B, S, H, dh)
+    gif = (z @ p["w_if"].to(dt)).float()                 # (B, S, 2H)
+    log_i = F.logsigmoid(gif[..., :h]).transpose(1, 2)
+    log_f = F.logsigmoid(gif[..., h:]).transpose(1, 2)
+    out, (C, nrm) = _mlstm_chunk_scan(
+        q.transpose(1, 2).float(), k.transpose(1, 2).float(),
+        v.transpose(1, 2).float(), log_f, log_i, min(chunk, s))
+    out = out.transpose(1, 2).reshape(b, s, up).to(dt)
+    y = (out * gate) @ p["w_down"].to(dt)
+    if not with_cache:
+        return y
+    return y, {"C": C, "n": nrm,
+               "len": torch.tensor(s, dtype=torch.int32, device=x.device)}
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device) -> Params:
+    h = cfg.n_heads
+    dh = 2 * cfg.d_model // h
+    return {"C": torch.zeros((batch, h, dh, dh), dtype=torch.float32,
+                             device=device),
+            "n": torch.zeros((batch, h, dh), dtype=torch.float32,
+                             device=device),
+            "len": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def mlstm_step(p: Params, x_t: torch.Tensor, cache: Params,
+               cfg: ModelConfig):
+    b = x_t.shape[0]
+    dt = x_t.dtype
+    h = cfg.n_heads
+    up = p["w_up"].shape[-1]
+    dh = up // h
+    z = x_t[:, 0] @ p["w_up"].to(dt)
+    gate = F.silu(x_t[:, 0] @ p["w_up_gate"].to(dt))
+    q, k, v = (t.float() for t in _mlstm_qkv(p, z.reshape(b, h, dh), dh))
+    gif = (z @ p["w_if"].to(dt)).float()
+    i_g = torch.exp(F.logsigmoid(gif[..., :h]))[..., None]   # (B, H, 1)
+    f_g = torch.exp(F.logsigmoid(gif[..., h:]))[..., None]
+    C = f_g[..., None] * cache["C"] \
+        + i_g[..., None] * k[..., :, None] * v[..., None, :]
+    nrm = f_g * cache["n"] + i_g * k
+    num = torch.einsum("bhd,bhde->bhe", q, C)
+    den = torch.clamp(torch.einsum("bhd,bhd->bh", q, nrm).abs(), min=1.0)
+    out = (num / den[..., None]).reshape(b, up).to(dt)
+    y = ((out * gate) @ p["w_down"].to(dt))[:, None]
+    return y, {"C": C, "n": nrm, "len": cache["len"] + 1}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (xLSTM scalar memory, stabilized exponential gating)
+# ---------------------------------------------------------------------------
+
+def init_slstm(cfg: ModelConfig, generator, device, reps=None) -> Params:
+    d = cfg.d_model
+    h = cfg.n_heads
+    dh = d // h
+    return {
+        "wx": _dense_init((d, 4 * d), generator, device, reps=reps),  # z i f o
+        "rec_w": _dense_init((h, dh, 4 * dh), generator, device,
+                             scale=0.02, reps=reps),
+        "w_down": _dense_init((d, d), generator, device, reps=reps),
+    }
+
+
+def _slstm_cell(p, cfg: ModelConfig, x_pre, state):
+    """x_pre: (B, 4D) input pre-activations; state: (c, n, h, m), each
+    (B, H, dh) float32.  ``m`` starts at -1e30, so the first step's
+    forget factor ``exp(f_l + m - m_new)`` is exactly 0."""
+    b = x_pre.shape[0]
+    hh = cfg.n_heads
+    dh = cfg.d_model // hh
+    c, n, hprev, m = state
+    rec = torch.einsum("bhd,hdk->bhk", hprev, p["rec_w"].to(hprev.dtype))
+    pre = x_pre.reshape(b, hh, 4 * dh) + rec
+    z = torch.tanh(pre[..., :dh])
+    i_l = pre[..., dh:2 * dh]                            # log input gate
+    f_l = F.logsigmoid(pre[..., 2 * dh:3 * dh])          # log forget gate
+    o = torch.sigmoid(pre[..., 3 * dh:])
+    m_new = torch.maximum(f_l + m, i_l)
+    i_g = torch.exp(i_l - m_new)
+    f_g = torch.exp(f_l + m - m_new)
+    c_new = f_g * c + i_g * z
+    n_new = f_g * n + i_g
+    h_new = o * c_new / torch.clamp(n_new, min=1.0)
+    return c_new, n_new, h_new, m_new
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> Params:
+    hh = cfg.n_heads
+    shape = (batch, hh, cfg.d_model // hh)
+    z = torch.zeros(shape, dtype=torch.float32, device=device)
+    return {"c": z, "n": z.clone(), "h": z.clone(),
+            "m": torch.full(shape, -1e30, dtype=torch.float32,
+                            device=device)}
+
+
+def slstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              with_cache=False):
+    """The sLSTM over a sequence: one cell step a position, in order."""
+    b, s, d = x.shape
+    dt = x.dtype
+    x_pre = (x @ p["wx"].to(dt)).float()                 # (B, S, 4D)
+    pp = {"rec_w": p["rec_w"].float()}
+    z = init_slstm_cache(cfg, b, x.device)
+    state = (z["c"], z["n"], z["h"], z["m"])
+    hs = []
+    for t in range(s):
+        state = _slstm_cell(pp, cfg, x_pre[:, t], state)
+        hs.append(state[2])
+    out = torch.stack(hs, dim=1).reshape(b, s, d)
+    y = out.to(dt) @ p["w_down"].to(dt)
+    if not with_cache:
+        return y
+    return y, dict(zip(("c", "n", "h", "m"), state))
+
+
+def slstm_step(p: Params, x_t: torch.Tensor, cache: Params,
+               cfg: ModelConfig):
+    dt = x_t.dtype
+    x_pre = (x_t[:, 0] @ p["wx"].to(dt)).float()
+    state = (cache["c"], cache["n"], cache["h"], cache["m"])
+    c, n, h, m = _slstm_cell(p, cfg, x_pre, state)
+    out = h.reshape(x_t.shape[0], -1).to(dt)
+    y = (out @ p["w_down"].to(dt))[:, None]
+    return y, {"c": c, "n": n, "h": h, "m": m}

@@ -1,13 +1,16 @@
-"""Decoder-LM assembly with forward / loss / prefill / decode entry points
-(a port of ``repro.models.lm`` for decoder-only configs: global and
-local-window attention, the RG-LRU, dense and MoE FFNs, RoPE and M-RoPE).
+"""Model assembly with forward / loss / prefill / decode entry points (a
+port of ``repro.models.lm``): decoder LMs of global and local-window
+attention, the RG-LRU and the xLSTM mixers (mLSTM, sLSTM), dense and MoE
+FFNs, RoPE and M-RoPE, and the encoder-decoder (audio) variant, whose
+bidirectional encoder runs over ``batch["src_embeds"]`` and whose
+decoder blocks add cross attention to the encoder output.
 
 The JAX package scans its repeating layer unit over stacked parameters;
 here the stacked layout stays (every leaf of ``params["blocks"][u]``
-carries a leading repeat axis) and the scan becomes a Python loop over
+carries a leading repeat axis, as do those of the encoder's
+``params["encoder"]["blocks"]``) and the scan becomes a Python loop over
 the repeats; remainder layers (recurrentgemma's 38 = 12 x 3 + 2) are
-applied unstacked from ``params["tail"]``.  The xLSTM mixers (mLSTM,
-sLSTM) and the encoder-decoder wait for ROADMAP Queue 1 item 3.
+applied unstacked from ``params["tail"]``.
 
 Decode writes the stacked cache buffers in place (K/V and ring slots by
 one ``index_put_`` per layer, recurrent states and lengths by a copy into
@@ -18,6 +21,7 @@ share that storage.
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -27,9 +31,21 @@ from . import layers as L
 
 Params = dict
 
-#: the mixer kinds the port serves
-KINDS = ("attn", "attn_local", "rglru")
-_LATER = "waits for ROADMAP Queue 1 item 3 (xLSTM and the encoder-decoder)"
+class _Recurrent(NamedTuple):
+    init: Callable
+    fwd: Callable
+    step: Callable
+    cache: Callable
+
+
+#: the recurrent mixers' layer functions, by kind
+_RECURRENT = {
+    "rglru": _Recurrent(L.init_rglru, L.rglru_fwd, L.rglru_step,
+                        L.init_rglru_cache),
+    "mlstm": _Recurrent(L.init_mlstm, L.mlstm_fwd, L.mlstm_step,
+                        L.init_mlstm_cache),
+    "slstm": _Recurrent(L.init_slstm, L.slstm_fwd, L.slstm_step,
+                        L.init_slstm_cache)}
 
 
 def tree_map(fn, *trees):
@@ -45,12 +61,7 @@ def tree_map(fn, *trees):
 
 def _layout(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]]:
     """(unit, n_repeats, tail_kinds) — the JAX package's layer layout."""
-    if cfg.enc_dec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder {_LATER}")
     kinds = cfg.layer_kinds()
-    bad = sorted(set(kinds) - set(KINDS))
-    if bad:
-        raise NotImplementedError(f"mixer kinds {bad} {_LATER}")
     unit = tuple(cfg.pattern)
     n_rep = len(kinds) // len(unit)
     if n_rep == 0:                     # fewer layers than one unit (smoke)
@@ -72,16 +83,29 @@ def _window(cfg: ModelConfig, kind: str):
 # parameters
 # ---------------------------------------------------------------------------
 
+def _mixer(kind: str) -> str:
+    """The block's param / cache key of its mixer."""
+    return "attn" if kind in ("attn", "attn_local") else kind
+
+
 def init_block(cfg: ModelConfig, kind: str, generator, device,
-               reps: int | None = None) -> Params:
-    p: Params = {"norm1": L.init_norm(cfg, cfg.d_model, device, reps)}
-    if kind in ("attn", "attn_local"):
-        p["attn"] = L.init_attention(cfg, generator, device, reps)
-    elif kind == "rglru":
-        p["rglru"] = L.init_rglru(cfg, generator, device, reps)
+               reps: int | None = None, cross: bool = False) -> Params:
+    """A block: norm and mixer, with ``cross`` a norm and cross attention
+    (the decoder of an encoder-decoder), and the FFN except in the xLSTM
+    blocks."""
+    name = _mixer(kind)
+    if name == "attn":
+        init = L.init_attention
+    elif kind in _RECURRENT:
+        init = _RECURRENT[kind].init
     else:
-        raise NotImplementedError(f"mixer {kind!r} {_LATER}")
-    if cfg.ffn != "none":
+        raise ValueError(kind)
+    p: Params = {"norm1": L.init_norm(cfg, cfg.d_model, device, reps),
+                 name: init(cfg, generator, device, reps)}
+    if cross:
+        p["norm_cross"] = L.init_norm(cfg, cfg.d_model, device, reps)
+        p["cross"] = L.init_attention(cfg, generator, device, reps)
+    if cfg.ffn != "none" and kind not in ("mlstm", "slstm"):
         p["norm2"] = L.init_norm(cfg, cfg.d_model, device, reps)
         init = L.init_moe if cfg.ffn == "moe" else L.init_ffn
         p["ffn"] = init(cfg, generator, device, reps)
@@ -108,9 +132,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     if not cfg.tie_embeddings:
         p["unemb"] = emb()
     p["final_norm"] = L.init_norm(cfg, cfg.d_model, dev)
-    p["blocks"] = [init_block(cfg, kind, generator, dev, reps=n_rep)
-                   for kind in unit]
-    p["tail"] = [init_block(cfg, kind, generator, dev) for kind in tail]
+    cross = cfg.enc_dec
+    p["blocks"] = [init_block(cfg, kind, generator, dev, reps=n_rep,
+                              cross=cross) for kind in unit]
+    p["tail"] = [init_block(cfg, kind, generator, dev, cross=cross)
+                 for kind in tail]
+    if cfg.enc_dec:
+        p["encoder"] = {"blocks": init_block(cfg, "attn", generator, dev,
+                                             reps=cfg.n_enc_layers),
+                        "norm": L.init_norm(cfg, cfg.d_model, dev)}
     return p
 
 
@@ -128,23 +158,35 @@ def _ffn(p: Params, x, cfg: ModelConfig):
 
 
 def block_fwd(p: Params, x, kind: str, cfg: ModelConfig, positions, *,
-              causal=True, with_cache=False):
-    """Full-sequence block.  Returns (x, aux, cache)."""
+              causal=True, enc_out=None, with_cache=False):
+    """Full-sequence block (``enc_out``: the encoder output its cross
+    attention reads).  Returns (x, aux, cache)."""
     p = L.compute_view(p)
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
     cache = {}
-    if kind in ("attn", "attn_local"):
+    name = _mixer(kind)
+    if name == "attn":
         out = L.attention_fwd(p["attn"], h, cfg, positions, causal=causal,
                               window=_window(cfg, kind),
                               with_cache=with_cache)
-        name = "attn"
     else:
-        out = L.rglru_fwd(p["rglru"], h, cfg, with_cache=with_cache)
-        name = "rglru"
+        out = _RECURRENT[kind].fwd(p[name], h, cfg, with_cache=with_cache)
     if with_cache:
         out, c = out
         cache = {name: c}
     x = x + out
+    if "cross" in p:
+        h = L.apply_norm(p["norm_cross"], x, cfg.norm_eps)
+        out = L.attention_fwd(p["cross"], h, cfg, positions, causal=False,
+                              kv_input=enc_out, rope=False)
+        if with_cache:
+            # projected again, as in JAX, for the decode cache
+            ck, cv = _cross_kv(p["cross"], enc_out, cfg)
+            cache["cross_kv"] = {
+                "k": ck, "v": cv,
+                "len": torch.tensor(enc_out.shape[1], dtype=torch.int32,
+                                    device=x.device)}
+        x = x + out
     aux = None
     if "ffn" in p:
         x, aux = _ffn(p, x, cfg)
@@ -153,32 +195,57 @@ def block_fwd(p: Params, x, kind: str, cfg: ModelConfig, positions, *,
     return x, aux, cache
 
 
+def _cross_kv(p: Params, enc_out, cfg: ModelConfig):
+    """The encoder output's cross-attention K/V, (B, KVH, Ts, dh) each."""
+    b, ts, _ = enc_out.shape
+    kvh, dh = cfg.n_kv_heads, cfg.dh
+    dt = enc_out.dtype
+    k = (enc_out @ p["wk"].to(dt)).reshape(b, ts, kvh, dh).transpose(1, 2)
+    v = (enc_out @ p["wv"].to(dt)).reshape(b, ts, kvh, dh).transpose(1, 2)
+    return k, v
+
+
 def block_step(p: Params, x_t, cache: Params, kind: str, cfg: ModelConfig,
                pos):
     """One-token decode.  Returns (x_t, cache)."""
     p = L.compute_view(p)
     h = L.apply_norm(p["norm1"], x_t, cfg.norm_eps)
-    if kind in ("attn", "attn_local"):
+    name = _mixer(kind)
+    if name == "attn":
         out, c = L.attention_step(p["attn"], h, cache["attn"], cfg, pos,
                                   window=_window(cfg, kind))
-        cache = dict(cache, attn=c)
     else:
-        out, c = L.rglru_step(p["rglru"], h, cache["rglru"], cfg)
-        cache = dict(cache, rglru=c)
+        out, c = _RECURRENT[kind].step(p[name], h, cache[name], cfg)
+    cache = dict(cache, **{name: c})
     x_t = x_t + out
+    if "cross" in p:
+        h = L.apply_norm(p["norm_cross"], x_t, cfg.norm_eps)
+        out, _ = L.attention_step(p["cross"], h, {}, cfg, pos,
+                                  cross_kv=cache["cross_kv"])
+        x_t = x_t + out
     if "ffn" in p:
         x_t, _ = _ffn(p, x_t, cfg)
     return x_t, cache
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     device, dtype=L.COMPUTE_DTYPE) -> Params:
-    if kind in ("attn", "attn_local"):
-        return {"attn": L.init_attn_cache(cfg, batch, max_len, device, dtype,
-                                          window=_window(cfg, kind))}
-    if kind == "rglru":
-        return {"rglru": L.init_rglru_cache(cfg, batch, device)}
-    raise NotImplementedError(f"mixer {kind!r} {_LATER}")
+                     device, dtype=L.COMPUTE_DTYPE,
+                     cross_len: int = 0) -> Params:
+    """A block's zero decode cache; ``cross_len`` adds the cross-attention
+    K/V of that many encoder positions."""
+    if _mixer(kind) == "attn":
+        c = {"attn": L.init_attn_cache(cfg, batch, max_len, device, dtype,
+                                       window=_window(cfg, kind))}
+    else:
+        c = {kind: _RECURRENT[kind].cache(cfg, batch, device)}
+    if cross_len:
+        shape = (batch, cfg.n_kv_heads, cross_len, cfg.dh)
+        c["cross_kv"] = {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": torch.tensor(cross_len, dtype=torch.int32,
+                                device=device)}
+    return c
 
 
 def _rep(tree, r: int):
@@ -242,6 +309,28 @@ def _positions(cfg: ModelConfig, batch: dict, s: int, b: int, device):
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
+def _run_encoder(params: Params, cfg: ModelConfig, src_embeds, device):
+    """The encoder stack over ``src_embeds`` (B, Ts, d), cast to
+    ``COMPUTE_DTYPE``: bidirectional attention blocks at positions
+    ``0 .. Ts-1``, then the encoder norm."""
+    x = torch.as_tensor(src_embeds).to(device, L.COMPUTE_DTYPE)
+    b, ts, _ = x.shape
+    pos = torch.arange(ts, dtype=torch.int32, device=device)[None].expand(
+        b, ts)
+    enc = params["encoder"]
+    for r in range(cfg.n_enc_layers):
+        x, _, _ = block_fwd(_rep(enc["blocks"], r), x, "attn", cfg, pos,
+                            causal=False)
+    return L.apply_norm(enc["norm"], x, cfg.norm_eps)
+
+
+def _encode(params: Params, cfg: ModelConfig, batch: dict, device):
+    """The encoder output of an encoder-decoder's batch, else None."""
+    if not cfg.enc_dec:
+        return None
+    return _run_encoder(params, cfg, batch["src_embeds"], device)
+
+
 # ---------------------------------------------------------------------------
 # training-shaped forward and loss (forward only: no backward kernel)
 # ---------------------------------------------------------------------------
@@ -252,15 +341,16 @@ def forward(params: Params, cfg: ModelConfig, batch: dict):
     b, s = tokens.shape
     x = _embed(params, cfg, tokens, batch)
     positions = _positions(cfg, batch, s, b, tokens.device)
+    enc_out = _encode(params, cfg, batch, tokens.device)
     unit, n_rep, tail = _layout(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for r in range(n_rep):
         for u, kind in enumerate(unit):
             x, a, _ = block_fwd(_rep(params["blocks"][u], r), x, kind, cfg,
-                                positions)
+                                positions, enc_out=enc_out)
             aux = aux + a
     for blk, kind in zip(params["tail"], tail):
-        x, a, _ = block_fwd(blk, x, kind, cfg, positions)
+        x, a, _ = block_fwd(blk, x, kind, cfg, positions, enc_out=enc_out)
         aux = aux + a
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
     return x, aux
@@ -300,23 +390,26 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
 def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int = 0):
     """Full-sequence forward returning the last position's logits and the
     per-layer decode caches: global-attn caches padded to ``max_len``
-    slots, local-window caches laid out as rings."""
+    slots, local-window caches laid out as rings, recurrent states after
+    the last position, and an encoder-decoder's cross-attention K/V."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(params, cfg, tokens, batch)
     positions = _positions(cfg, batch, s, b, tokens.device)
+    enc_out = _encode(params, cfg, batch, tokens.device)
     unit, n_rep, tail = _layout(cfg)
     per_unit = [[] for _ in unit]
     for r in range(n_rep):
         for u, kind in enumerate(unit):
             x, _, c = block_fwd(_rep(params["blocks"][u], r), x, kind, cfg,
-                                positions, with_cache=True)
+                                positions, enc_out=enc_out, with_cache=True)
             per_unit[u].append(c)
     stacked = [tree_map(lambda *xs: torch.stack(xs), *cs)
                for cs in per_unit]
     tail_caches = []
     for blk, kind in zip(params["tail"], tail):
-        x, _, c = block_fwd(blk, x, kind, cfg, positions, with_cache=True)
+        x, _, c = block_fwd(blk, x, kind, cfg, positions, enc_out=enc_out,
+                            with_cache=True)
         tail_caches.append(c)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, cfg, x[:, -1:])
@@ -352,17 +445,19 @@ def _finalize_caches(cfg: ModelConfig, caches, s: int, max_len: int):
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
-                dtype=L.COMPUTE_DTYPE) -> dict:
-    """Zero caches shaped for decode."""
+                dtype=L.COMPUTE_DTYPE, cross_len: int = 0) -> dict:
+    """Zero caches shaped for decode (``cross_len``: encoder positions of
+    the cross-attention K/V)."""
     dev = resolve_device(device)
     unit, n_rep, tail = _layout(cfg)
     blocks = []
     for kind in unit:
-        one = init_block_cache(cfg, kind, batch, max_len, dev, dtype)
+        one = init_block_cache(cfg, kind, batch, max_len, dev, dtype,
+                               cross_len)
         blocks.append(tree_map(
             lambda a: a[None].expand((n_rep,) + a.shape).clone(), one))
-    tails = [init_block_cache(cfg, kind, batch, max_len, dev, dtype)
-             for kind in tail]
+    tails = [init_block_cache(cfg, kind, batch, max_len, dev, dtype,
+                              cross_len) for kind in tail]
     return {"blocks": blocks, "tail": tails}
 
 
@@ -395,14 +490,15 @@ def decode_step(params: Params, cfg: ModelConfig, tokens_t, caches: dict,
 
 def _snapshot_caches(cfg: ModelConfig, caches: dict) -> dict:
     """Per-step rollback snapshot: everything but global-attention K/V
-    (append-only at slot == pos, rolled back by a length truncation), so
-    recurrent states, local-window rings and their lengths.  Copied,
-    since decode updates caches in place."""
+    (append-only at slot == pos, rolled back by a length truncation) and
+    cross-attention K/V (static during decode), so recurrent states,
+    local-window rings and their lengths.  Views of the live caches,
+    which decode updates in place: the caller copies them."""
     def strip(c, kind):
         out = {kk: vv for kk, vv in c.items() if kk != "cross_kv"}
         if kind == "attn":
             out.pop("attn", None)
-        return tree_map(torch.clone, out)
+        return out
 
     unit, _, tail = _layout(cfg)
     return {"blocks": [strip(c, k) for c, k in zip(caches["blocks"], unit)],
@@ -413,17 +509,22 @@ def decode_multi(params: Params, cfg: ModelConfig, tokens, caches: dict,
                  pos):
     """Teacher-forced decode over ``T`` tokens: token t is fed at position
     ``pos + t`` per row.  Returns ``(logits (B, T, V), caches, snaps)``
-    with per-step rollback snapshots stacked on a leading T axis."""
+    with per-step rollback snapshots stacked on a leading T axis (each
+    step copied straight into its slot: an xLSTM's matrix states are
+    held T + 1 times, not 2T + 1)."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     if pos.ndim == 0:
         pos = pos.expand(tokens.shape[0])
-    logits, snaps = [], []
-    for t in range(tokens.shape[1]):
+    n = tokens.shape[1]
+    logits, snaps = [], None
+    for t in range(n):
         lg, caches = decode_step(params, cfg, tokens[:, t:t + 1], caches,
                                  pos + t)
         logits.append(lg[:, 0])
-        snaps.append(_snapshot_caches(cfg, caches))
-    snaps = tree_map(lambda *xs: torch.stack(xs), *snaps)
+        live = _snapshot_caches(cfg, caches)
+        if snaps is None:
+            snaps = tree_map(lambda a: a.new_empty((n, *a.shape)), live)
+        tree_map(lambda buf, a: buf[t].copy_(a), snaps, live)
     return torch.stack(logits, dim=1), caches, snaps
 
 
@@ -432,7 +533,7 @@ def rollback_caches(cfg: ModelConfig, caches: dict, snaps: dict, idx) -> dict:
     steps per row: snapshotted leaves (recurrent states, rings, their
     lengths) are gathered at each row's step on the device, global-attn
     K/V keep their buffers (a later ``kv_cache.truncate`` masks the
-    rejected slots)."""
+    rejected slots) and cross-attention K/V never changed."""
     unit, _, tail = _layout(cfg)
     idx = torch.as_tensor(idx, dtype=torch.long)
 

@@ -84,7 +84,9 @@ class Engine:
 
     def generate(self, batch: dict, gen: GenConfig,
                  generator: torch.Generator | None = None):
-        """Returns (tokens (B, prompt+new) int32, stats).
+        """Returns (tokens (B, prompt+new) int32, stats).  ``batch`` holds
+        ``tokens`` and whatever else the model reads (``src_embeds``;
+        ``patch_embeds``, ``patch_pos``, ``pos_ids``).
 
         stats: ``accepted`` / ``proposed`` draft tokens (clipped to the
         budget), ``emitted`` new tokens, ``rounds`` speculative rounds,
@@ -95,8 +97,13 @@ class Engine:
         if gen.max_new_tokens <= 0:
             return tokens, {"accepted": 0, "proposed": 0, "rounds": 0,
                             "emitted": 0, "acceptance_rate": 0.0}
+        # every batch key reaches the prefill (patch embeddings and their
+        # positions, an encoder's src_embeds), on the engine's device
+        full = {k: torch.as_tensor(v).to(self.device)
+                for k, v in batch.items()}
         logits, caches = lm.prefill(self.params, self.cfg,
-                                    {"tokens": tokens}, max_len=self.max_len)
+                                    dict(full, tokens=tokens),
+                                    max_len=self.max_len)
         caches = kv_cache.broadcast_lens(caches, b)
         pos = torch.full((b,), s, dtype=torch.int32, device=self.device)
         spec = (gen.ngram_spec > 0 and gen.temperature <= 0

@@ -201,13 +201,16 @@ def test_prefill_then_decode_equals_longer_prefill(setup):
 
 
 def test_unported_kinds_raise():
-    """The xLSTM mixers and the encoder-decoder wait for ROADMAP Queue 1
-    item 3 and say so."""
+    """Every mixer kind of the JAX package is ported: a kind outside them
+    raises ``ValueError`` as JAX's ``init_block`` does; the session pool
+    refuses the encoder-decoder with ``NotImplementedError``, as JAX's."""
+    from repro_torch.serve import Engine
+
     rg = get_config("granite-8b").smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        lm.init_params(dataclasses.replace(rg, pattern=("mlstm",)),
+    with pytest.raises(ValueError, match="mamba"):
+        lm.init_params(dataclasses.replace(rg, pattern=("mamba",)),
                        torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        lm.init_params(dataclasses.replace(rg, enc_dec=True,
-                                           n_enc_layers=2),
-                       torch.Generator().manual_seed(0), "cpu")
+    ed = dataclasses.replace(rg, enc_dec=True, n_enc_layers=2)
+    p = lm.init_params(ed, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="decoder-only"):
+        Engine(ed, p, max_len=32).session_pool(slots=2)
