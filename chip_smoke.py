@@ -189,7 +189,38 @@ Phases, in order; any failure exits non-zero:
      seeded normal frames under 4 x 64 prompt tokens, 32 new, scan then
      speculative (draft 4): tokens equal, 72 ``flash_attention`` launches
      a prefill (24 encoder, 24 decoder, 24 cross) and none a decode step,
-     the commit's launches as in phase 5.
+     the commit's launches as in phase 5;
+ 14. the HTTP/SSE wire and the live obs plane, run right after phase 6 on
+     its granite-8b while the weights are resident: a ``Gateway`` with
+     phase 6's pool, mounted with ``start(http_port=0)`` on 127.0.0.1,
+     the launch counters set to 0 just before and read just after, less
+     the launches of the in-process reference run below.
+     Identity: phase 6's 4 x 128-token prompts (budget 32) POSTed as SSE
+     streams and one of its 64-token prompts (budget 8) as one
+     ``"stream": false`` body, the tick loop held at its lock until all 5
+     wait, so the batch is fixed; then a fresh ``Gateway`` over the same
+     engine ``asubmit``s the same 5 in order and streams them: the wire's
+     tokens and chunking equal the in-process stream's bit for bit, the
+     JSON body its stream.  Launches: one steady tick with the frontend
+     mounted (8 SSE streams seated), run in a worker thread as
+     ``serve()`` runs it, passes phase 6's steady-step check (one
+     ``gather_rows``, ``fused_stream`` and ``scatter_rows`` per bank, the
+     decode chunk under ``torch.cuda.set_sync_debug_mode("error")``) and
+     is timed as phase 6's step (host, CUDA events, device busy under
+     ``torch.profiler``), beside one ``pool.step()`` on the event loop's
+     thread.
+     ``/metrics`` passes the port's strict parser and its
+     ``repro_http_requests_total``, gateway and pool series equal
+     ``gw.stats()``; the chunked ``/debug/trace`` body equals
+     ``export.chrome_trace`` of the ring byte for byte and validates; a
+     client that closes after ``start`` leaves its request cancelled and
+     every slot and page free; a burst with ``deadline_steps=1`` fires the
+     SLO monitor's multi-window alert once, whose flight-recorder dump
+     under ``build/chip_smoke/flightrec`` validates (trace, Prometheus
+     text, the allocator's page table).  Printed beside the card: time
+     to the first SSE token, wire against in-process tokens/s and the
+     frontend's host time per request (the wall time of each request's
+     handler steps on the event loop, by route).
 
 The lines before the last are the launch floor beside the kernels that
 run at it, the card (``nvidia-smi`` name and power limit) and one JSON
@@ -232,6 +263,13 @@ POOL = dict(slots=8, n_banks=2, chunk=4, page_size=32, pages_per_bank=24)
 POOL_MAX_LEN = 384
 #: (gateway tick, requests, prompt tokens, budget)
 POOL_TRAFFIC = ((0, 4, 128, 32), (2, 4, 64, 8), (3, 4, 256, 8))
+# phase 14: seconds any wait of the wire phase may take (each is a condition
+# polled every 10 ms), the disconnecting client's budget, the SLO burst and
+# the /healthz round trips timed for the frontend's host time
+HTTP_DEADLINE = 300.0
+HTTP_DISCONNECT_BUDGET = 200
+HTTP_BURST = 8
+HTTP_HEALTHZ_TRIPS = 50
 # phase 10: recurrentgemma-9b at full width and depth (38 layers, 12 of
 # them local attention over a 2,048-key window): prompts longer than the
 # window, so every ring wraps
@@ -1263,13 +1301,72 @@ def _solo_gaps(torch, engine, prompt, seq):
     return (lg.amax(-1) - picked).cpu(), tol, other
 
 
+def _steady_chunk(torch, pool, run_step):
+    """One steady step of ``pool`` (every slot seated, none waiting)
+    through ``run_step()``, its decode chunk under
+    ``set_sync_debug_mode("error")``.  Fails if the chunk synchronizes
+    with the host, if the step admitted, restored, parked or retired, or
+    if it launched anything but one ``gather_rows``, ``fused_stream`` and
+    ``scatter_rows`` a bank.  Returns (``run_step()``'s result, its
+    launches, host ms to its end on the card, ms between CUDA events
+    around it)."""
+    from repro_torch.kernels import ops
+
+    before = pool.stats()
+    if before["waiting"] or before["active"] != pool.slots:
+        fail(f"the steady step is not steady: {before}")
+    active = pool.table.active_count()
+    inner = pool._chunk
+
+    def guarded(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    pool._chunk = guarded
+    c0 = ops.launch_counts()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev0.record()
+    try:
+        out = run_step()
+    except RuntimeError as e:
+        fail(f"the decode chunk failed under set_sync_debug_mode('error'), "
+             f"where a host sync raises: {e}")
+    finally:
+        del pool._chunk
+    ev1.record()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts_delta(ops.launch_counts(), c0)
+    after = pool.stats()
+    moved = {k: (before[k], after[k]) for k in ("admits", "restores",
+                                                "preemptions", "cancels")
+             if after[k] != before[k]}
+    if moved or pool.table.active_count() != active:
+        fail(f"the steady step admitted, restored, parked or retired: "
+             f"{moved}, active {active} -> {pool.table.active_count()}")
+    want = {name: 0 for name in launches}
+    want.update({k: len(pool.banks) for k in ("gather_rows", "fused_stream",
+                                              "scatter_rows")})
+    if launches != want:
+        fail(f"one steady step launched {launches}, want {want}")
+    return out, launches, step_ms, ev0.elapsed_time(ev1)
+
+
+def _counts_delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
 def serve_pool(torch, dev, cfg, params, record, tag="pool",
                kernels=POOL_KERNELS):
     """Phase 6 (see the module docstring) on ``cfg`` / ``params``, its
     record in ``record[tag]``; each of ``kernels`` must launch.  Returns
     the launch counts of the gateway run."""
-    import warnings
-
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import repeated_prompts
     from repro_torch.serve import Engine, Gateway, GenConfig
@@ -1353,55 +1450,8 @@ def serve_pool(torch, dev, cfg, params, record, tag="pool",
         gw.submit(repeated_prompts(1, 64, cfg.vocab_size, 40 + i,
                                    device=dev)[0], 24)
     gw.tick()                                      # admission + one chunk
-    before = gw.stats()
-    if before["waiting"] or before["active"] != POOL["slots"]:
-        fail(f"the steady step is not steady: {before}")
-    inner = pool._chunk
-    syncs = []
-
-    def watched(*a, **k):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                return inner(*a, **k)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-                syncs.extend(str(w.message) for w in caught
-                             if "synchronizing CUDA operation"
-                             in str(w.message))
-
-    pool._chunk = watched
-    done_before = pool.table.active_count()
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    ev0.record()
-    pool.step()
-    ev1.record()
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    del pool._chunk
+    _, steady, step_ms, event_ms = _steady_chunk(torch, pool, pool.step)
     dispatch_s = pool.last_chunk_s
-    steady = ops.launch_counts()
-    after = pool.stats()
-    moved = {k: (before[k], after[k]) for k in ("admits", "restores",
-                                                "preemptions", "cancels")
-             if after[k] != before[k]}
-    if moved or pool.table.active_count() != done_before:
-        fail(f"the steady step admitted, restored, parked or retired: "
-             f"{moved}, active {done_before} -> "
-             f"{pool.table.active_count()}")
-    want = {name: 0 for name in steady}
-    want.update({"gather_rows": POOL["n_banks"],
-                 "fused_stream": POOL["n_banks"],
-                 "scatter_rows": POOL["n_banks"]})
-    if steady != want:
-        fail(f"one steady pool.step() launched {steady}, want {want}")
-    if syncs:
-        fail(f"the decode chunk synchronized with the host: {syncs[:3]}")
     chunk_tokens = POOL["slots"] * POOL["chunk"]
     busy_ms, top = profile_top(torch, pool.step)
     while gw.loop.pending():
@@ -1423,12 +1473,12 @@ def serve_pool(torch, dev, cfg, params, record, tag="pool",
         "near_tie_steps": tie_steps, "largest_gap": worst,
         "largest_gap_tol": worst_tol, "solo_check_s": t_solo,
         "launches": counts, "steady_launches": steady,
-        "steady_step_ms": step_s * 1e3,
-        "steady_step_device_ms": ev0.elapsed_time(ev1),
+        "steady_step_ms": step_ms,
+        "steady_step_device_ms": event_ms,
         "steady_dispatch_ms": dispatch_s * 1e3,
-        "steady_decode_tok_s": chunk_tokens / step_s,
+        "steady_decode_tok_s": chunk_tokens / step_ms * 1e3,
         "steady_device_busy_ms": busy_ms,
-        "steady_idle_share": 1.0 - busy_ms / (step_s * 1e3),
+        "steady_idle_share": 1.0 - busy_ms / step_ms,
         "steady_top_kernels": top,
         "ticks_report": [{k: r[k] for k in (
             "tick", "step", "admitted", "restored", "preempted", "finished",
@@ -1442,13 +1492,14 @@ def serve_pool(torch, dev, cfg, params, record, tag="pool",
           f"{st['admits']} admits; preemptions {st['preemptions']}, "
           f"restores {st['restores']}, page stalls {st['page_stalls']}")
     print(f"{tag} steady step ({POOL['slots']} rows x chunk "
-          f"{POOL['chunk']}): {step_s * 1e3:.1f} ms synchronized, "
-          f"{ev0.elapsed_time(ev1):.1f} ms between events, chunk dispatch "
-          f"{dispatch_s * 1e3:.1f} ms; {chunk_tokens / step_s:.1f} "
-          f"decode tok/s; launches {steady}; host syncs in the chunk 0")
+          f"{POOL['chunk']}): {step_ms:.1f} ms synchronized, "
+          f"{event_ms:.1f} ms between events, chunk dispatch "
+          f"{dispatch_s * 1e3:.1f} ms; {chunk_tokens / step_ms * 1e3:.1f} "
+          f"decode tok/s; launches {steady}; no host sync in the chunk "
+          f"under set_sync_debug_mode('error')")
     print(f"{tag} steady step under torch.profiler: device busy "
-          f"{busy_ms:.1f} ms of the {step_s * 1e3:.1f} ms unprofiled step "
-          f"(idle share {1.0 - busy_ms / (step_s * 1e3):.3f}); top kernels "
+          f"{busy_ms:.1f} ms of the {step_ms:.1f} ms unprofiled step "
+          f"(idle share {1.0 - busy_ms / step_ms:.3f}); top kernels "
           f"(ms, calls): {top}")
     print(f"launches on the {tag} path: {counts}")
     return counts
@@ -1472,6 +1523,471 @@ def profile_top(torch, fn):
     busy = sum(e.self_device_time_total for e in dev) / 1e3
     return busy, [[e.key[:60], round(e.self_device_time_total / 1e3, 3),
                    e.count] for e in dev[:8]]
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the HTTP/SSE wire and the live obs plane over the gateway
+# ---------------------------------------------------------------------------
+
+async def _until(cond, what: str, gw=None) -> None:
+    """Wait for ``cond()``, polled every 10 ms, for at most HTTP_DEADLINE
+    seconds; fails at the deadline or when ``gw``'s serve loop died."""
+    import asyncio
+
+    end = time.monotonic() + HTTP_DEADLINE
+    while not cond():
+        task = gw._task if gw is not None else None
+        if task is not None and task.done():
+            why = "cancelled" if task.cancelled() else task.exception()
+            fail(f"the gateway's serve loop ended while waiting for {what}: "
+                 f"{why}")
+        if time.monotonic() > end:
+            fail(f"timed out after {HTTP_DEADLINE}s waiting for {what}")
+        await asyncio.sleep(0.01)
+
+
+class _Stepped:
+    """Awaits ``coro`` and adds the wall time of each of its steps to
+    ``acc[0]``: the time the coroutine itself holds the event loop (a wait
+    for the GIL inside a step included), without the waits between steps.
+    Not ``thread_time``: some hosts count a thread's CPU time only in
+    10 ms ticks."""
+
+    def __init__(self, coro, acc):
+        self.coro, self.acc = coro, acc
+
+    def __await__(self):
+        coro, acc = self.coro, self.acc
+        value, exc = None, None
+        while True:
+            t0 = time.perf_counter()
+            try:
+                fut = coro.send(value) if exc is None else coro.throw(exc)
+            except StopIteration as e:
+                return e.value
+            finally:
+                acc[0] += time.perf_counter() - t0
+            try:
+                value, exc = (yield fut), None
+            except BaseException as e:          # noqa: BLE001 -- to coro
+                value, exc = None, e
+
+
+def _time_handlers(fe):
+    """Wraps the mounted frontend's ``_route``: each request's handler
+    time on the event loop (:class:`_Stepped`) is kept under its route,
+    JSON-body generates apart.  Returns ``{route: [seconds, ...]}``."""
+    spent = {}
+    inner = fe._route
+
+    async def timed(method, route, body, reader, writer):
+        acc = [0.0]
+        try:
+            return await _Stepped(inner(method, route, body, reader, writer),
+                                  acc)
+        finally:
+            if route == "/v1/generate" and \
+                    json.loads(body or b"{}").get("stream", True) is False:
+                route += " (json)"
+            spent.setdefault(route, []).append(acc[0])
+
+    fe._route = timed
+    return spent
+
+
+async def _sse_tokens(wire, host, port, prompt, budget, **extra):
+    """One SSE request: (token chunks, the first ``tokens`` event's and
+    the ``done`` event's perf_counter times, the ``done`` payload)."""
+    chunks, first, done = [], None, None
+    async for ev, data in wire.sse_events(
+            host, port, "/v1/generate",
+            {"prompt": [int(t) for t in prompt], "max_new_tokens": budget,
+             **extra}):
+        if ev == "tokens":
+            first = first or time.perf_counter()
+            chunks.append(json.loads(data)["tokens"])
+        elif ev == "done":
+            done = json.loads(data)
+    if done is None:
+        fail(f"an SSE stream ended without its done event ({chunks})")
+    return chunks, first, time.perf_counter(), done
+
+
+async def _stream_of(gw, rid):
+    """``Gateway.stream`` of ``rid``: (chunks, first chunk's and last
+    chunk's perf_counter times)."""
+    chunks, first = [], None
+    async for c in gw.stream(rid):
+        first = first or time.perf_counter()
+        chunks.append([int(t) for t in c])
+    return chunks, first, time.perf_counter()
+
+
+async def _http_phase(torch, dev, cfg, params, card):
+    """Phase 14 (see the module docstring).  Returns (launch counts of the
+    phase, its record)."""
+    import asyncio
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import repeated_prompts
+    from repro_torch.obs import export, metrics, promparse, tracing
+    from repro_torch.serve import Engine, Gateway
+    from repro_torch.serve import http as wire
+
+    engine = Engine(cfg, params, max_len=POOL_MAX_LEN)
+    _, n_long, plen, budget = POOL_TRAFFIC[0]
+    # phase 6's prompts, as host arrays: the wire carries token lists
+    longs = list(repeated_prompts(n_long, plen, cfg.vocab_size, 20).numpy())
+    short_budget = POOL_TRAFFIC[1][3]
+    short = repeated_prompts(POOL_TRAFFIC[1][1], POOL_TRAFFIC[1][2],
+                             cfg.vocab_size, 21).numpy()[0]
+    steady = [repeated_prompts(1, 64, cfg.vocab_size, 40 + i).numpy()[0]
+              for i in range(POOL["slots"])]
+    rec_dir = ROOT / "build" / "chip_smoke" / "flightrec"
+    shutil.rmtree(rec_dir, ignore_errors=True)
+    limit = tracing.TRACER.max_events
+
+    def http_series(route, code):
+        fam = metrics.REGISTRY.get("repro_http_requests_total")
+        return 0 if fam is None else fam.labels(route=route,
+                                                code=str(code)).value
+
+    ops.reset_launch_counts()                   # the http_pool path, counted
+    gw = Gateway(engine, **POOL)
+    pool = gw.pool
+    if {b.backend for b in pool.banks} != {"cuda"}:
+        fail("the gateway on the card does not default to the cuda banks")
+    gen_200 = http_series("/v1/generate", 200)
+    rec = {"pool": dict(POOL), "prompts": [n_long, plen, budget],
+           "json_body": [int(short.shape[0]), short_budget]}
+
+    # -- 1. identity: wire == in-process, the batch fixed -------------------
+    async with gw._tick_lock:                   # no tick until all 5 wait
+        await gw.start(http_port=0, http_host="127.0.0.1",
+                       recorder_dir=str(rec_dir))
+        await _until(lambda: gw.http is not None and gw.http.port != 0,
+                     "the frontend to bind", gw)
+        fe = gw.http
+        host, port = fe.host, fe.port
+        spent = _time_handlers(fe)
+        if tracing.TRACER.max_events != fe._tracer_limit or \
+                fe.ring not in tracing.TRACER._sinks:
+            fail("the mounted frontend did not bound the tracer or attach "
+                 "its ring")
+        streams = []
+        for p in longs:                         # one at a time: rid order
+            streams.append(asyncio.ensure_future(
+                _sse_tokens(wire, host, port, p, budget)))
+            k = len(streams)
+            await _until(lambda: len(gw._streaming) == k,
+                         f"{k} SSE streams attached", gw)
+        body = asyncio.ensure_future(wire.request(
+            host, port, "POST", "/v1/generate",
+            {"prompt": [int(t) for t in short],
+             "max_new_tokens": short_budget, "stream": False}))
+        await _until(lambda: gw.stats()["waiting"] == n_long + 1,
+                     "all 5 requests waiting", gw)
+        t_wire = time.perf_counter()
+    wire_out = await asyncio.wait_for(asyncio.gather(*streams),
+                                      HTTP_DEADLINE)
+    status, _, raw = await asyncio.wait_for(body, HTTP_DEADLINE)
+    t_wire_end = time.perf_counter()
+    if status != 200:
+        fail(f"the JSON-body request answered {status}: {raw[:300]}")
+    json_body = json.loads(raw)
+
+    # the in-process reference runs while the wire gateway idles: its
+    # launches are taken out of the http_pool path's
+    c_local = ops.launch_counts()
+    local = Gateway(engine, **POOL)
+    rids = [await local.asubmit(p, budget) for p in longs]
+    rids.append(await local.asubmit(short, short_budget))
+    consumers = [asyncio.ensure_future(_stream_of(local, r)) for r in rids]
+    await _until(lambda: len(local._streaming) == len(rids),
+                 "the in-process streams attached")
+    t_local = time.perf_counter()
+    await local.start()
+    local_out = await asyncio.wait_for(asyncio.gather(*consumers),
+                                       HTTP_DEADLINE)
+    t_local_end = time.perf_counter()
+    await local.stop()
+    local_counts = _counts_delta(ops.launch_counts(), c_local)
+    for i, ((chunks, *_), (lchunks, *_)) in enumerate(zip(wire_out,
+                                                          local_out)):
+        if chunks != lchunks:
+            fail(f"request {i}: SSE chunks differ from the in-process "
+                 f"stream's: {chunks} vs {lchunks}")
+        if np.asarray(sum(chunks, []), np.int32).tobytes() != \
+                np.asarray(sum(lchunks, []), np.int32).tobytes() or \
+                sum(len(c) for c in chunks) != budget or len(chunks) < 2:
+            fail(f"request {i}: {sum(len(c) for c in chunks)} wire tokens "
+                 f"in {len(chunks)} chunks for budget {budget}")
+    want = [int(t) for t in short] + sum(local_out[-1][0], [])
+    got_local = [int(t) for t in np.asarray(local.request(rids[-1]).tokens)]
+    if json_body["tokens"] != want or got_local != want or \
+            json_body["n_tokens"] != len(short) + short_budget:
+        fail(f"the JSON body's tokens {json_body['tokens'][-short_budget:]} "
+             f"differ from their stream {want[-short_budget:]}")
+    new_tokens = n_long * budget + short_budget
+    ttft_wire = [w[1] - t_wire for w in wire_out]
+    ttft_local = [w[1] - t_local for w in local_out]
+    rec["identity"] = {
+        "wire_s": t_wire_end - t_wire, "inprocess_s": t_local_end - t_local,
+        "wire_tok_s": new_tokens / (t_wire_end - t_wire),
+        "inprocess_tok_s": new_tokens / (t_local_end - t_local),
+        "ttft_wire_ms": [x * 1e3 for x in ttft_wire],
+        "ttft_inprocess_ms": [x * 1e3 for x in ttft_local],
+        "chunks": [len(w[0]) for w in wire_out]}
+    print(f"http identity: {n_long} SSE streams of {plen} + {budget} and a "
+          f"JSON body of {len(short)} + {short_budget} == the in-process "
+          f"stream, bit for bit, chunks {rec['identity']['chunks']}")
+
+    # -- 2. steady ticks with the frontend mounted --------------------------
+    async with gw._tick_lock:
+        clients = []
+        for p in steady:
+            clients.append(asyncio.ensure_future(
+                _sse_tokens(wire, host, port, p, 24)))
+            k = len(clients)
+            await _until(lambda: len(gw._streaming) == k,
+                         f"{k} steady streams attached", gw)
+        await _until(lambda: gw.stats()["waiting"] == POOL["slots"],
+                     "8 steady requests waiting", gw)
+        # ticks as serve() runs them: the compute in a worker thread,
+        # delivery back on the event loop
+        gw.last_report = await asyncio.to_thread(gw.loop.tick)
+        gw._publish()
+        gw.last_report, step_counts, tick_ms, tick_event_ms = \
+            await asyncio.to_thread(_steady_chunk, torch, pool, gw.loop.tick)
+        chunk_ms = gw.last_report.chunk_wall_s * 1e3
+        c0 = ops.launch_counts()
+        t0 = time.perf_counter()
+        gw._publish()
+        publish_ms = (time.perf_counter() - t0) * 1e3
+        delivery = _counts_delta(ops.launch_counts(), c0)
+        # the same step on the event loop's own thread, as phase 6 runs it
+        _, _, main_ms, _ = _steady_chunk(torch, pool, pool.step)
+        gw._publish()
+        busy_ms, top = profile_top(torch, gw.loop.tick)   # device time
+        gw._publish()
+    await asyncio.wait_for(asyncio.gather(*clients), HTTP_DEADLINE)
+    chunk_tokens = POOL["slots"] * POOL["chunk"]
+    rec["steady"] = {
+        "launches": step_counts, "delivery_launches": delivery,
+        "tick_ms": tick_ms, "tick_device_ms": tick_event_ms,
+        "tick_chunk_dispatch_ms": chunk_ms, "main_thread_step_ms": main_ms,
+        "decode_tok_s": chunk_tokens / tick_ms * 1e3,
+        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / tick_ms,
+        "top_kernels": top, "publish_ms": publish_ms}
+    print(f"http steady tick (frontend mounted, {POOL['slots']} SSE "
+          f"streams, gw.loop.tick in a worker thread as serve() runs it): "
+          f"launches {step_counts}, no host sync in the chunk under "
+          f"set_sync_debug_mode('error'); {tick_ms:.1f} ms synchronized, "
+          f"{tick_event_ms:.1f} ms between events, chunk dispatch "
+          f"{chunk_ms:.1f} ms, {chunk_tokens / tick_ms * 1e3:.1f} decode "
+          f"tok/s; pool.step() on the event loop thread {main_ms:.1f} ms; "
+          f"device busy "
+          f"{busy_ms:.1f} ms under torch.profiler (idle share "
+          f"{1.0 - busy_ms / tick_ms:.3f}); the delivery to 8 streams "
+          f"{publish_ms:.2f} ms on the host, "
+          f"{delivery['gather_rows']} gather_rows; {card}")
+
+    # -- 3. /metrics against gw.stats() -------------------------------------
+    await _until(lambda: not gw.loop.pending(), "the steady streams done",
+                 gw)
+    stats = gw.stats()                          # sets the pool's gauges
+    st, _, raw = await wire.request(host, port, "GET", "/metrics")
+    if st != 200:
+        fail(f"/metrics answered {st}")
+    fams = promparse.parse(raw.decode("utf-8"))
+
+    def scraped(name, **labels):
+        key = tuple(sorted(labels.items()))
+        if name not in fams or key not in fams[name].series():
+            fail(f"/metrics has no {name}{labels}")
+        return fams[name].series()[key]
+
+    served = n_long + 1 + POOL["slots"]
+    got = scraped("repro_http_requests_total", route="/v1/generate",
+                  code="200")
+    if got != gen_200 + served:
+        fail(f"repro_http_requests_total counts {got} generate requests, "
+             f"want {gen_200 + served}")
+    gw_label = next(dict(k)["gw"] for k, s in metrics.REGISTRY.get(
+        "repro_gateway_requests_total")._series.items()
+        if s is gw._obs_series["requests_total"])
+    checks = {("repro_gateway_requests_total", "gw", gw_label): "requests",
+              ("repro_gateway_slo_met_total", "gw", gw_label): "slo_met",
+              ("repro_gateway_slo_missed_total", "gw", gw_label):
+                  "slo_missed"}
+    for key, name in (("admits", "admits_total"),
+                      ("prefill_launches", "prefill_launches_total"),
+                      ("decode_steps", "decode_steps_total"),
+                      ("emitted", "emitted_total"),
+                      ("submitted", "submitted_total"),
+                      ("cancels", "cancels_total"),
+                      ("preemptions", "preemptions_total"),
+                      ("active", "active"), ("waiting", "waiting"),
+                      ("pages_free", "pages_free")):
+        checks[(f"repro_pool_{name}", "pool", pool._pool_label)] = key
+    for (name, label, value), key in checks.items():
+        if scraped(name, **{label: value}) != stats[key]:
+            fail(f"/metrics {name}{{{label}={value}}} = "
+                 f"{scraped(name, **{label: value})}, gw.stats()[{key!r}] "
+                 f"= {stats[key]}")
+    rec["metrics"] = {"families": len(fams), "bytes": len(raw),
+                      "checked": len(checks) + 1}
+    print(f"http /metrics: {len(fams)} families, {len(raw)} bytes, parsed "
+          f"by the strict parser; {len(checks) + 1} series equal "
+          f"gw.stats()")
+
+    # -- 4. the chunked trace ------------------------------------------------
+    total = fe.ring.stats()["total"]
+    st, hdrs, raw = await wire.request(host, port, "GET", "/debug/trace")
+    if st != 200 or hdrs.get("transfer-encoding") != "chunked":
+        fail(f"/debug/trace answered {st} with {hdrs}")
+    if fe.ring.stats()["total"] != total:
+        fail("the ring grew while the trace was read")
+    one_shot = json.dumps(export.chrome_trace(fe.ring), indent=1)
+    if raw.decode("utf-8") != one_shot:
+        fail("the chunked /debug/trace body differs from chrome_trace")
+    counts = export.validate_chrome_trace(json.loads(raw))
+    for name in ("gateway.tick", "pool.admission", "pool.prefill",
+                 "pool.decode_chunk"):
+        if counts.get(name, 0) < 1:
+            fail(f"the trace has no {name} span: {sorted(counts)}")
+    rec["trace"] = {"bytes": len(raw), "events": sum(counts.values()),
+                    "ring": fe.ring.stats()}
+    print(f"http /debug/trace: {len(raw)} bytes in chunks == chrome_trace "
+          f"of the ring, {sum(counts.values())} events, valid")
+
+    # -- 5. a client that walks away ----------------------------------------
+    gone = metrics.REGISTRY.get("repro_http_disconnects_total").default.value
+    reader, writer = await asyncio.open_connection(host, port)
+    writer.write(wire._request_bytes("POST", "/v1/generate", host, json.dumps(
+        {"prompt": [int(t) for t in longs[0]],
+         "max_new_tokens": HTTP_DISCONNECT_BUDGET}).encode()))
+    await writer.drain()
+    await asyncio.wait_for(reader.readuntil(b"start"), HTTP_DEADLINE)
+    writer.close()
+    await writer.wait_closed()
+    req = gw.request(gw._next_rid - 1)
+    await _until(lambda: req.done, "the disconnected request to end", gw)
+    if not req.cancelled or len(req.tokens) >= plen + HTTP_DISCONNECT_BUDGET:
+        fail(f"the disconnected request was not cancelled "
+             f"({len(req.tokens)} tokens)")
+    await _until(lambda: pool.alloc.free_count() == pool.slots
+                 and pool.alloc.page_free_count() == pool.total_pages,
+                 "every slot and page back", gw)
+    await _until(lambda: metrics.REGISTRY.get(
+        "repro_http_disconnects_total").default.value == gone + 1,
+        "the disconnect counted", gw)
+    rec["disconnect"] = {"tokens_at_cancel": len(req.tokens) - plen}
+    print(f"http disconnect: cancelled after {len(req.tokens) - plen} of "
+          f"{HTTP_DISCONNECT_BUDGET} tokens; {pool.slots} slots and "
+          f"{pool.total_pages} pages free")
+
+    # -- 6. an SLO burn fires the flight recorder ----------------------------
+    mon = gw.slo_monitor
+    n_alerts = len(mon.alerts)
+    burst = [asyncio.ensure_future(wire.request(
+        host, port, "POST", "/v1/generate",
+        {"prompt": [int(t) for t in steady[i]], "max_new_tokens": 8,
+         "deadline_steps": 1, "stream": False}))
+        for i in range(HTTP_BURST)]
+    for r in await asyncio.wait_for(asyncio.gather(*burst), HTTP_DEADLINE):
+        if r[0] != 200 or json.loads(r[2])["slo_met"] is not False:
+            fail(f"a burst request answered {r[0]}: {r[2][:200]}")
+    if len(mon.alerts) != n_alerts + 1:
+        fail(f"the burst fired {len(mon.alerts) - n_alerts} alerts, want 1 "
+             f"({mon.state()})")
+    alert = mon.alerts[-1]
+    dumps = sorted(os.listdir(rec_dir)) if rec_dir.is_dir() else []
+    if dumps != ["flight_0000.json"] or alert["dump"] != str(
+            rec_dir / "flight_0000.json"):
+        fail(f"the alert wrote {dumps} (dump {alert['dump']})")
+    dump = json.loads((rec_dir / dumps[0]).read_text())
+    export.validate_chrome_trace(dump["trace"])
+    promparse.parse(dump["metrics_prom"])
+    alloc = dump["allocator"]
+    used = sum(len(v) for v in alloc["page_lists"].values())
+    if alloc["n_slots"] != POOL["slots"] or \
+            alloc["n_pages"] != pool.total_pages or \
+            alloc["free_slots"] != alloc["slot_state"].count(0) or \
+            alloc["free_pages"] != alloc["page_state"].count(0) or \
+            used != alloc["n_pages"] - alloc["free_pages"] or \
+            alloc["page_size"] != POOL["page_size"]:
+        fail(f"the dump's allocator state is inconsistent: "
+             f"{ {k: v for k, v in alloc.items() if 'state' not in k} }")
+    rec["alert"] = {"step": alert["step"], "fast": alert["fast"],
+                    "slow": alert["slow"], "dump_bytes":
+                    (rec_dir / dumps[0]).stat().st_size,
+                    "dump_spans": len(dump["trace"]["traceEvents"]),
+                    "slo": mon.state()}
+    print(f"http SLO burst: {HTTP_BURST} requests past deadline_steps=1, "
+          f"one alert at step {alert['step']} (fast burn "
+          f"{alert['fast']['burn']:.1f}x, slow {alert['slow']['burn']:.1f}x)"
+          f", dump {dumps[0]} ({rec['alert']['dump_bytes']} bytes): trace "
+          f"valid, Prometheus text parsed, allocator {alloc['free_slots']} "
+          f"slots / {alloc['free_pages']} pages free")
+
+    # -- the frontend's host time per request --------------------------------
+    t0 = time.perf_counter()
+    for _ in range(HTTP_HEALTHZ_TRIPS):
+        st, _, _ = await wire.request(host, port, "GET", "/healthz")
+        if st != 200:
+            fail(f"/healthz answered {st}")
+    healthz_ms = (time.perf_counter() - t0) * 1e3 / HTTP_HEALTHZ_TRIPS
+    await gw.stop()
+    if fe.ring in tracing.TRACER._sinks or \
+            tracing.TRACER.max_events != limit:
+        fail("the unmounted frontend left its sink or the tracer's limit")
+    counts = _counts_delta(ops.launch_counts(), local_counts)
+    for name in POOL_KERNELS:
+        if counts[name] <= 0:
+            fail(f"{name} was not launched on the http_pool path ({counts})")
+    if any(counts[name] for name in CPM_KERNELS + CPM2_KERNELS):
+        fail(f"the http_pool path launched a per-op CPM kernel: {counts}")
+    ident = rec["identity"]
+    rec["healthz_ms"] = healthz_ms
+    rec["handler_ms"] = {r: {"requests": len(v), "mean": np.mean(v) * 1e3,
+                                 "max": np.max(v) * 1e3}
+                             for r, v in sorted(spent.items())}
+    rec["launches"] = counts
+    rec["inprocess_launches"] = local_counts
+    print(f"http time to the first SSE token: "
+          f"{np.mean(ident['ttft_wire_ms']):.1f} ms (in-process stream "
+          f"{np.mean(ident['ttft_inprocess_ms']):.1f} ms), the 5 requests "
+          f"of {plen} / {len(short)} prompt tokens admitted in one tick; "
+          f"{card}")
+    print(f"http wire {ident['wire_tok_s']:.1f} new tok/s against "
+          f"in-process {ident['inprocess_tok_s']:.1f} tok/s "
+          f"({new_tokens} tokens, {ident['wire_s']:.3f} s vs "
+          f"{ident['inprocess_s']:.3f} s); {card}")
+    per_route = "; ".join(
+        f"{r} {v['mean']:.3f} ms mean, {v['max']:.3f} max over "
+        f"{v['requests']}" for r, v in rec["handler_ms"].items())
+    print(f"http frontend host time per request (the wall time of the "
+          f"handler's own steps on the event loop, other tasks and the "
+          f"waits between steps excluded): {per_route}; a /healthz round "
+          f"trip {healthz_ms:.3f} ms wall (mean of {HTTP_HEALTHZ_TRIPS}); "
+          f"{card}")
+    print(f"launches on the http_pool path: {counts} (the in-process "
+          f"reference's {local_counts} taken out)")
+    return counts, rec
+
+
+def serve_http(torch, dev, cfg, params, record, card):
+    """Phase 14 on phase 6's weights; its record in ``record["http"]``.
+    Returns the launch counts of the phase."""
+    import asyncio
+
+    counts, record["http"] = asyncio.run(_http_phase(torch, dev, cfg,
+                                                     params, card))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3635,6 +4151,8 @@ def main(argv=None) -> int:
     gen_counts, cfg, params, gen = serve_granite(torch, dev, args.layers,
                                                 record)
     pool_counts = serve_pool(torch, dev, cfg, params, record)
+    # phase 14: the HTTP/SSE wire over the same weights
+    http_counts = serve_http(torch, dev, cfg, params, record, card)
 
     # phase 7
     cpm_counts, errs, data = check_cpm_surface(torch, np, dev)
@@ -3681,7 +4199,8 @@ def main(argv=None) -> int:
     record["streams"] = {"shape": [CPM_R, CPM_N], "used_len": data3["used"],
                          "path_s": data3["path_s"],
                          "rows_s": data3["rows_s"], "launches": s_counts}
-    paths = {"generate": gen_counts, "pool": pool_counts, "cpm": cpm_counts,
+    paths = {"generate": gen_counts, "pool": pool_counts,
+             "http_pool": http_counts, "cpm": cpm_counts,
              "allocator": alloc_counts, "cpm2": cpm2_counts,
              "streams": s_counts["streams"], "rows": s_counts["rows"],
              "generate_by_cost": by_cost["calibrated"],

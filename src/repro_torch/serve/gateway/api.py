@@ -1,6 +1,5 @@
 """The async front door: submit / stream / cancel over the engine loop (a
-port of ``repro.serve.gateway.api``; the HTTP wire front,
-``repro.serve.http``, is not ported yet — ROADMAP Queue 1).
+port of ``repro.serve.gateway.api``).
 
 :class:`Gateway` owns one
 :class:`~repro_torch.serve.session_pool.SessionPool` plus the preemption
@@ -17,7 +16,9 @@ policy and exposes two faces over the same deterministic core:
     loop stays responsive; delivery (queue and event signalling) happens
     back on the event loop, since asyncio primitives are not
     thread-safe, and only the serve loop's one in-flight thread ever
-    calls ``pool.step``.
+    calls ``pool.step``.  ``serve(http_port=...)`` mounts the HTTP/SSE
+    wire front (:class:`~repro_torch.serve.http.HttpFrontend`) around
+    the loop.
 
 Per-request knobs ride on :class:`Request`: a GenConfig override
 (sampling params realized per pool row), a token budget, and an optional
@@ -109,7 +110,8 @@ class Gateway:
                  preempt: bool | PreemptConfig = True,
                  bank_backend: str | None = None, rng=None,
                  page_size: int | None = None,
-                 pages_per_bank: int | None = None):
+                 pages_per_bank: int | None = None,
+                 slo_monitor=None):
         self.gen = gen if gen is not None else GenConfig()
         self.pool = engine.session_pool(
             slots=slots, n_banks=n_banks, gen=self.gen, chunk=chunk,
@@ -129,6 +131,11 @@ class Gateway:
         label = str(next(_GW_IDS))
         self._obs_series = {k: fam.labels(gw=label)
                             for k, fam in _GW_FAMILIES.items()}
+        # optional obs.slo.SloMonitor: every deadline grade feeds its
+        # burn-rate windows (a host-side deque append); on a multi-window
+        # burn it fires its flight recorder
+        self.slo_monitor = slo_monitor
+        self.http = None               # HttpFrontend while serve(http_port=)
         self.last_report: TickReport | None = None
         self._wake: asyncio.Event | None = None
         self._task: asyncio.Task | None = None
@@ -228,6 +235,8 @@ class Gateway:
             self.slo_met_count += 1
         elif req.slo_met is False:
             self.slo_missed_count += 1
+        if self.slo_monitor is not None and req.slo_met is not None:
+            self.slo_monitor.record(req.slo_met, self.now)
         if req._done_ev is not None:
             req._done_ev.set()
         self._push_stream(req, final=True)
@@ -286,7 +295,8 @@ class Gateway:
         pool is single-writer: a bare ``cancel`` racing the tick thread
         could free a slot the in-flight ``pool.step`` then writes back as
         live.  This face takes the serve loop's tick lock, so the cancel
-        lands strictly between heartbeats."""
+        lands strictly between heartbeats (the HTTP frontend uses it for
+        client disconnects)."""
         async with self._tick_lock:
             return self.cancel(rid)
 
@@ -307,27 +317,49 @@ class Gateway:
                 return
             yield chunk
 
-    async def serve(self, idle_wait: float = 0.05) -> None:
+    async def serve(self, idle_wait: float = 0.05,
+                    http_port: int | None = None,
+                    http_host: str = "127.0.0.1", **http_kw) -> None:
         """The continuous loop: tick while work is pending, park on the
         wake event (set by ``asubmit``) when idle.  The tick's compute
         half (``EngineLoop.tick``) runs in a worker thread; the delivery
-        half (``_publish``) runs on the event loop."""
+        half (``_publish``) runs on the event loop.
+
+        ``http_port`` mounts the wire front for the duration of the loop:
+        an :class:`~repro_torch.serve.http.HttpFrontend` (SSE token
+        streams on ``POST /v1/generate``, ``GET /metrics``, live stats,
+        the chunked trace export) bound to ``http_host:http_port`` (port
+        0 picks a free port: read it back from ``gateway.http.port``).
+        Other keyword arguments go to the frontend (ring capacity,
+        keep-alive period, detokenizer, recorder directory)."""
         wake = self._ensure_wake()
-        while not self._stopping:
-            if self.loop.pending():
-                async with self._tick_lock:
-                    self.last_report = await asyncio.to_thread(
-                        self.loop.tick)
-                    self._publish()
-            else:
-                wake.clear()
-                try:
-                    await asyncio.wait_for(wake.wait(), timeout=idle_wait)
-                except asyncio.TimeoutError:
-                    pass
+        self.http = None
+        if http_port is not None:
+            from ..http import HttpFrontend
+            self.http = HttpFrontend(self, host=http_host, port=http_port,
+                                     **http_kw)
+            await self.http.start()
+        try:
+            while not self._stopping:
+                if self.loop.pending():
+                    async with self._tick_lock:
+                        self.last_report = await asyncio.to_thread(
+                            self.loop.tick)
+                        self._publish()
+                else:
+                    wake.clear()
+                    try:
+                        await asyncio.wait_for(wake.wait(),
+                                               timeout=idle_wait)
+                    except asyncio.TimeoutError:
+                        pass
+        finally:
+            if self.http is not None:
+                await self.http.stop()
 
     async def start(self, **serve_kw) -> None:
-        """Run :meth:`serve` as a background task; kwargs pass through."""
+        """Run :meth:`serve` as a background task; kwargs pass through
+        (``start(http_port=0)`` mounts the wire front)."""
         if self._task is None:
             self._stopping = False
             self._task = asyncio.ensure_future(self.serve(**serve_kw))

@@ -37,9 +37,12 @@ print("names=" + ",".join(names))
 print("loaded=" + ",".join(bad))
 """
 
-#: modules the eleventh slice added; each must be among those imported
+#: modules of the later slices; each must be among those imported
 _SLICE_MODULES = (
     "repro_torch.configs.archs", "repro_torch.serve.reference",
+    "repro_torch.serve.http",
+    *(f"repro_torch.obs.{m}" for m in ("export", "live", "slo",
+                                       "promparse")),
     *(f"repro_torch.configs.{m}" for m in (
         "command_r_35b", "granite_moe_1b_a400m", "phi35_moe_42b_a6_6b",
         "qwen25_32b", "qwen2_72b", "qwen2_vl_7b", "recurrentgemma_9b",
