@@ -220,7 +220,31 @@ Phases, in order; any failure exits non-zero:
      text, the allocator's page table).  Printed beside the card: time
      to the first SSE token, wire against in-process tokens/s and the
      frontend's host time per request (the wall time of each request's
-     handler steps on the event loop, by route).
+     handler steps on the event loop, by route);
+ 15. training, after phase 13 with the serving weights freed: (a)
+     ``ops.attention`` under autograd launches the flash kernel through
+     ``FlashAttentionFn`` (one launch a call) and its dq, dk, dv agree
+     with autograd of the plain twin within 2e-2 (bf16) / 1e-4 (float32)
+     of each gradient's largest value, at granite-8b's (2, 32/8, 1,024,
+     128) causal, recurrentgemma's D = 256 window 2,048, seamless's
+     bidirectional encoder and cross attention, and float32; (b) one
+     train step's gradients of granite-8b at full width cut to 2
+     layers, 2 x 128 tokens, float32 compute, card against CPU: every
+     leaf nonzero where the CPU's is and within 1e-3 of its largest
+     value; (c) granite-8b at full width and 8 layers, 8 x 4,096 tokens
+     (``train_4k``'s sequence) in 4 microbatches, remat, bf16: 6
+     straight steps with the launch counters set to 0 just before and
+     read just after (64 ``flash_attention`` launches a step, forward
+     and remat recompute; finite losses), each timed on the host clock
+     to a synchronize, the host syncs of one under
+     ``set_sync_debug_mode("warn")`` by site, another under
+     ``torch.profiler`` (busy share, top kernels), the peak memory, the
+     forward kernel and the plain backward timed alone at the training
+     shape; then 3 steps through ``run_loop`` with an async checkpoint
+     (under ``build/chip_smoke/train_ckpt``, timed and removed after),
+     the state dropped, ``resume_or_init`` into fresh tensors from a
+     ``meta`` skeleton and 3 more: params bit for bit the straight
+     run's, losses equal.
 
 The lines before the last are the launch floor beside the kernels that
 run at it, the card (``nvidia-smi`` name and power limit) and one JSON
@@ -290,6 +314,23 @@ XL_TOL = 1e-4
 # tokens)
 ED_SMALL = (2, 64, 16)
 ED_BATCH, ED_SRC, ED_PROMPT, ED_NEW, ED_SPEC = 4, 1024, 64, 32, 4
+# phase 15: training.  (a) flash gradients at the serving shapes and at
+# (c)'s one microbatch of train_4k (granite-train): (name,
+# B, H, KVH, Sq, Skv, D, causal, window, dtype); (b) the 2-layer cut's
+# (layers, batch, sequence), card against CPU; (c) granite-8b at 8 layers,
+# train_4k's sequence, global batch 8 in 4 microbatches, 6 steps
+TRAIN_GRAD_CASES = (
+    ("granite", 2, 32, 8, 1024, 1024, 128, True, None, "bfloat16"),
+    ("granite-train", 2, 32, 8, 4096, 4096, 128, True, None, "bfloat16"),
+    ("recurrentgemma", 1, 16, 1, 2304, 2304, 256, True, 2048, "bfloat16"),
+    ("seamless-encoder", 4, 16, 16, 1024, 1024, 64, False, None, "bfloat16"),
+    ("seamless-cross", 4, 16, 16, 64, 1024, 64, False, None, "bfloat16"),
+    ("granite", 2, 32, 8, 1024, 1024, 128, True, None, "float32"))
+FLASH_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_SMALL = (2, 2, 128)
+TRAIN_TOL = 1e-3
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 8, 8, 4, 6
+TRAIN_PROFILED = 4                     # the straight run's step under profile
 # phase 7: the CPM surface at the paper benchmark's row length, and the
 # allocator at a pool's size (16,384 pages of 32 tokens: about what the
 # card holds of granite-8b's KV at ~147 KB a token)
@@ -1506,14 +1547,13 @@ def serve_pool(torch, dev, cfg, params, record, tag="pool",
 
 
 def profile_top(torch, fn):
-    """One call of ``fn`` under ``torch.profiler``: the summed device time
-    of its kernels and copies (ms), and the eight largest by device time
-    as ``[name, ms, calls]``."""
+    """One call of ``fn`` under ``torch.profiler``, the device's activity
+    only: the summed device time of its kernels and copies (ms), and the
+    eight largest by device time as ``[name, ms, calls]``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
@@ -2565,6 +2605,382 @@ def serve_seamless(torch, dev, record, card):
         {"tokens": prompt, "src_embeds": src}, ED_NEW, ED_SPEC, flash, card)
     record["seamless"] = {**init, **rec, "source_frames": ED_SRC,
                           "flash_per_prefill": flash, "small_input": small}
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training on the card
+# ---------------------------------------------------------------------------
+
+def _max_rel(got, want) -> float:
+    """max |got - want| over max |want| (0 where both are 0)."""
+    num = float((got.float() - want.float()).abs().max())
+    den = float(want.float().abs().max())
+    return num / den if den else num
+
+
+def check_flash_grads(torch, dev):
+    """Phase 15(a): ``ops.attention`` under autograd on the card goes
+    through ``FlashAttentionFn`` (one forward launch a call) and its
+    dq, dk, dv agree with autograd of the plain twin on the same inputs,
+    within 2e-2 (bf16) or 1e-4 (float32) of each gradient's largest
+    value, at the serving shapes and at one microbatch of (c)'s
+    4,096-token sequences.  Returns a record."""
+    from repro_torch.kernels import flash_attention as fa, ops
+
+    out = []
+    for name, b, h, kvh, sq, skv, d, causal, window, dt in TRAIN_GRAD_CASES:
+        g = torch.Generator(device=dev).manual_seed(sq + d)
+        dtype = getattr(torch, dt)
+        # the main path's layout: (B, S, heads, D) viewed as (B, heads, S, D)
+        q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype) \
+            .transpose(1, 2).requires_grad_()
+        k, v = (torch.randn((b, skv, kvh, d), generator=g, device=dev)
+                .to(dtype).transpose(1, 2).requires_grad_()
+                for _ in range(2))
+        do = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
+        n0 = fa.flash_attention.launches
+        o = ops.attention(q, k, v, causal=causal, window=window)
+        launches = fa.flash_attention.launches - n0
+        if "FlashAttentionFn" not in type(o.grad_fn).__name__ \
+                or launches != 1:
+            fail(f"flash gradients {name}: ops.attention under grad ran "
+                 f"{type(o.grad_fn).__name__} with {launches} launches")
+        got = torch.autograd.grad(o, (q, k, v), do)
+        want = torch.autograd.grad(
+            fa.flash_attention_plain(q, k, v, causal=causal, window=window),
+            (q, k, v), do)
+        torch.cuda.synchronize()
+        errs = [_max_rel(x, y) for x, y in zip(got, want)]
+        tol = FLASH_GRAD_TOL[dt]
+        print(f"flash_attention gradients {name} {dt} (B={b} H={h} KVH={kvh}"
+              f" Sq={sq} Skv={skv} D={d} causal={causal} window={window}): "
+              f"dq/dk/dv err {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} of "
+              f"the largest value, tol {tol}; {launches} forward launch")
+        if any(e > tol for e in errs):
+            fail(f"flash gradients {name} {dt} disagree with autograd of "
+                 f"the plain twin: {errs}")
+        out.append({"case": name, "dtype": dt, "errs": errs,
+                    "launches": launches})
+    return out
+
+
+def check_train_grads_small(torch, dev):
+    """Phase 15(b): one train step's gradients (``loss_and_grads``, remat
+    on) of granite-8b at full width cut to 2 layers, batch 2 x 128,
+    float32 compute, card (the flash kernel and its plain backward)
+    against CPU (autograd of the reference) from the same params and
+    tokens: every leaf nonzero where the CPU's is and within 1e-3 of its
+    largest value.  A detached attention leaves wq, wk, wv without
+    gradient.  Returns a record."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L, lm
+    from repro_torch.train._tree import leaves_with_path
+    from repro_torch.train.train_step import loss_and_grads
+
+    layers, b, s = TRAIN_SMALL
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=layers)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        290), dev)
+    cpu_params = lm.tree_map(lambda t: t.cpu(), params)
+    tokens = np.random.default_rng(291).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    saved = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        n0 = ops.launch_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = ops.launch_counts()["flash_attention"] - n0
+        t0 = time.perf_counter()
+        cpu_loss, _, cpu_grads = loss_and_grads(cpu_params, cfg,
+                                                {"tokens": tokens})
+        cpu_s = time.perf_counter() - t0
+    finally:
+        L.COMPUTE_DTYPE = saved
+    worst, errs = ("", 0.0), {}
+    for (path, g), (_, c) in zip(leaves_with_path(grads),
+                                 leaves_with_path(cpu_grads)):
+        err = _max_rel(g.cpu(), c)
+        errs[path] = err
+        if err > worst[1]:
+            worst = (path, err)
+        if float(c.abs().max()) > 0 and float(g.abs().max()) == 0:
+            fail(f"train gradients: {path} is zero on the card and not on "
+                 f"the CPU (a detached attention?)")
+        if err > TRAIN_TOL:
+            fail(f"train gradients: {path} {err:.2e} of its largest value "
+                 f"from the CPU's (tol {TRAIN_TOL})")
+    if launches != 2 * layers:
+        fail(f"train gradients: {launches} flash launches, want "
+             f"{2 * layers} (forward and remat recompute a layer)")
+    qkv = {n: max(e for p, e in errs.items() if f"['{n}']" in p)
+           for n in ("wq", "wk", "wv")}
+    loss_err = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    print(f"train gradients, granite-8b x {layers} layers, {b} x {s} "
+          f"tokens, float32 compute, card vs CPU: {len(errs)} leaves, worst "
+          f"{worst[0]} {worst[1]:.2e}, wq/wk/wv {qkv['wq']:.2e}/"
+          f"{qkv['wk']:.2e}/{qkv['wv']:.2e} of each leaf's largest value "
+          f"(tol {TRAIN_TOL}); loss {float(loss):.6f} vs {float(cpu_loss):.6f}"
+          f"; {launches} flash launches; card {card_s:.2f}s, CPU {cpu_s:.2f}s")
+    return {"layers": layers, "batch": [b, s], "worst_leaf": worst[0],
+            "worst_err": worst[1], "qkv_errs": qkv, "loss_rel_err": loss_err,
+            "flash_launches": launches, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def _sync_sites(torch, fn, *args):
+    """``fn(*args)`` under ``set_sync_debug_mode("warn")``: its result and
+    one entry a host sync, the innermost frame of the port or of this
+    script on the Python stack when it warned (file:line, function and
+    source line).  Syncs inside the autograd engine's device thread are
+    reported at the ``backward()`` call that waits for them."""
+    import traceback
+
+    sites = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "repro_torch" in f.filename
+                  or f.filename.endswith("chip_smoke.py")]
+        f = frames[-1] if frames else traceback.extract_stack()[-2]
+        sites.append(f"{Path(f.filename).name}:{f.lineno} {f.name}: "
+                     f"{(f.line or '').strip()}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def _ckpt_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def train_granite(torch, dev, record, card):
+    """Phase 15 (a, b, then c): granite-8b at full width cut to 8 layers,
+    train_4k's 4,096-token sequences, global batch 8 in 4 microbatches of
+    2, remat on, bf16 compute.  Six steps through ``run_loop``, each
+    timed on the host clock ending in a synchronize, with the launch
+    counters set to 0 just before and read just after (64 flash launches
+    a step, forward and remat recompute), host syncs of step 3 under
+    ``set_sync_debug_mode("warn")``, step 5 under ``torch.profiler``, and
+    an async checkpoint after step 3 (its copy and its write timed).  Then
+    the state is dropped (the crash), ``resume_or_init`` restores the
+    step-3 checkpoint into fresh tensors and three more steps run: the
+    final params must equal the six-step run's bit for bit.  Returns the
+    six-step run's launch counts."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.kernels import flash_attention as fa, ops
+    from repro_torch.launch.train import init_state
+    from repro_torch.train import (OptConfig, checkpoint, data,
+                                   fault_tolerance as ft, make_train_step)
+    from repro_torch.train._tree import leaves_with_path
+
+    t_phase = time.perf_counter()
+    rec = {"flash_grads": check_flash_grads(torch, dev)}
+    rec["grads_s"] = time.perf_counter() - t_phase
+    rec["small"] = check_train_grads_small(torch, dev)
+    rec["small_s"] = time.perf_counter() - t_phase - rec["grads_s"]
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("granite-8b"),
+                              n_layers=TRAIN_LAYERS)
+    seq = SHAPES["train_4k"].seq_len
+    shape = ShapeConfig("train_4k", seq, TRAIN_BATCH, "train")
+    opt_cfg = OptConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, opt_cfg, num_microbatches=TRAIN_MICRO,
+                           remat=True, loss_chunk=1024)
+    tokens = TRAIN_BATCH * seq
+
+    def step_fn(state, batch):
+        p, o, m = step(state["params"], state["opt"], batch)
+        return {"params": p, "opt": o}, m
+
+    # six steps, an async checkpoint after the third
+    half = TRAIN_STEPS // 2
+    ckpt_dir = ROOT / "build" / "chip_smoke" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    fcfg = ft.FaultConfig(ckpt_dir=str(ckpt_dir), ckpt_every=half)
+    no_ckpt = dataclasses.replace(fcfg, ckpt_every=0)
+    t_run = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # earlier phases' tensors
+    t0 = time.perf_counter()
+    state = init_state(cfg, dev, seed=29)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in leaves_with_path(state["params"]))
+    print(f"train: granite-8b x {TRAIN_LAYERS} layers, {n_params / 1e9:.3f}B"
+          f" float32 params, init {time.perf_counter() - t0:.1f}s")
+    pipe = data.make_pipeline(cfg, shape, seed=29)
+    losses, step_ms, per_step, syncs, prof = [], [], [], [], {}
+
+    def timed_step(state, batch):
+        i = len(step_ms)
+        c0 = ops.launch_counts()["flash_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 2:
+            (state, m), found = _sync_sites(torch, step_fn, state, batch)
+            syncs.extend(found)
+        elif i == TRAIN_PROFILED:
+            out = []
+            prof["busy_ms"], prof["top"] = profile_top(
+                torch, lambda: out.append(step_fn(state, batch)))
+            state, m = out[0]
+        else:
+            state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(ops.launch_counts()["flash_attention"] - c0)
+        losses.append(float(m["loss"]))
+        return state, m
+
+    times = {}
+    real_save = checkpoint.save
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        out = real_save(*a, **kw)
+        times["save_copy_s"] = time.perf_counter() - t
+        times["save_return"] = time.perf_counter()
+        return out
+
+    ops.reset_launch_counts()
+    checkpoint.save = timed_save
+    try:
+        # run_loop waits for the write before it returns
+        state, _ = ft.run_loop(fcfg, state, timed_step, pipe, 0, half)
+    finally:
+        checkpoint.save = real_save
+    times["save_write_s"] = time.perf_counter() - times.pop("save_return")
+    state, _ = ft.run_loop(no_ckpt, state, timed_step, pipe, half,
+                           TRAIN_STEPS)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    nbytes = _ckpt_bytes(ckpt_dir)
+    want = 2 * TRAIN_LAYERS * TRAIN_MICRO
+    if any(n != want for n in per_step):
+        fail(f"train: flash launches a step {per_step}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: losses not finite: {losses}")
+    # the first step warms up, the profiled one runs slower
+    steady = [t for i, t in enumerate(step_ms) if i and i != TRAIN_PROFILED]
+    mean_ms = sum(steady) / len(steady)
+    busy_ms, top = prof["busy_ms"], prof["top"]
+    print(f"train: losses {losses}; step ms {[round(x, 1) for x in step_ms]}"
+          f" (steps 2-{TRAIN_STEPS} but the profiled step {TRAIN_PROFILED + 1}"
+          f": mean {mean_ms:.1f} ms, "
+          f"{tokens / mean_ms * 1e3:.0f} tokens/s); {per_step} flash "
+          f"launches a step; peak {peak / 2**30:.2f} GiB allocated "
+          f"({(peak - base) / 2**30:.2f} above the earlier phases' "
+          f"{base / 2**30:.2f}); "
+          f"host syncs in step 3: {len(syncs)} {syncs}; {card}")
+    print(f"train: step {TRAIN_PROFILED + 1} under torch.profiler: device "
+          f"busy {busy_ms:.1f} ms of the {mean_ms:.1f} ms unprofiled step "
+          f"(busy share {busy_ms / mean_ms:.3f}); top kernels {top}; {card}")
+    rec["run_s"] = time.perf_counter() - t_run
+    # the six-step run's params stay on the card (8.6 GB) for the compare
+    ref = [p.detach() for _, p in leaves_with_path(state["params"])]
+    del state
+    torch.cuda.empty_cache()
+
+    # the forward kernel and the plain backward at the training shape
+    g = torch.Generator(device=dev).manual_seed(30)
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    mb = TRAIN_BATCH // TRAIN_MICRO
+    q, k, v, do = (torch.randn((mb, seq, n, d), generator=g, device=dev)
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for n in (h, kvh, kvh, h))
+    o = fa.flash_attention(q, k, v, causal=True)
+    fwd_ms, fwd_src, _ = timed(lambda: fa.flash_attention(q, k, v,
+                                                          causal=True), 10)
+    bwd_ms, bwd_src, bwd_call = timed(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, do, causal=True), 3)
+    # bounds from the causal pairs: the forward's two products are 4 * D
+    # flops a pair, the backward's five 10 * D; bytes each input read once
+    # and each output written once (bf16)
+    pairs = mb * h * seq * (seq + 1) // 2
+    qo = 2 * mb * h * seq * d
+    kv = 2 * mb * kvh * seq * d
+    fwd_bound = bound(2 * qo + 2 * kv, 4.0 * d * pairs)
+    bwd_bound = bound(3 * qo + 2 * kv + qo + 2 * kv, 10.0 * d * pairs)
+    del q, k, v, do, o
+    per_step_attn = want // 2 * bwd_ms + want * fwd_ms
+    print(f"train: flash forward at ({mb}, {h}/{kvh}, {seq}, {d}) bf16 "
+          f"{fwd_ms:.3f} ms a call ({fwd_src}; bound {fwd_bound[0]:.4f} ms "
+          f"by {fwd_bound[1]}), plain backward {bwd_ms:.2f} ms a call "
+          f"({bwd_src}; {bwd_call:.2f} with host time; bound "
+          f"{bwd_bound[0]:.4f} ms by {bwd_bound[1]}): {per_step_attn:.0f} ms"
+          f" of attention a step ({want} forward, {want // 2} backward "
+          f"calls), {per_step_attn / mean_ms:.3f} of the step; {card}")
+
+    # the crash: the state is gone; resume from the step-3 checkpoint
+    t_resume = time.perf_counter()
+    t0 = time.perf_counter()
+    state, extra, start = ft.resume_or_init(
+        fcfg, lambda: init_state(cfg, dev, seed=29),
+        like=init_state(cfg, "meta"), device=dev)
+    torch.cuda.synchronize()
+    times["restore_s"] = time.perf_counter() - t0
+    if start != half:
+        fail(f"train: resumed at step {start}, want {half}")
+    pipe = data.make_pipeline(cfg, shape, seed=29)
+    pipe.restore(extra["data"])
+    resumed = []
+    state, _ = ft.run_loop(
+        no_ckpt, state, step_fn, pipe, start, TRAIN_STEPS,
+        on_metrics=lambda s, m: resumed.append(float(m["loss"])))
+    same = [torch.equal(p.detach(), r) for (_, p), r in
+            zip(leaves_with_path(state["params"]), ref)]
+    print(f"train: checkpoint of {nbytes / 1e9:.2f} GB after step {half}: "
+          f"save {times['save_copy_s']:.1f}s copying to the host + "
+          f"{times['save_write_s']:.1f}s writing (async), restore "
+          f"{times['restore_s']:.1f}s (warm page "
+          f"cache); resumed losses {resumed} vs the six-step run's "
+          f"{losses[half:]}; params equal bit for bit: "
+          f"{sum(same)}/{len(same)} leaves; {card}")
+    if not all(same) or resumed != losses[half:]:
+        fail("train: 3 steps + checkpoint + resume + 3 steps differ from 6 "
+             "steps without the restart")
+    rec["resume_s"] = time.perf_counter() - t_resume
+    del state, ref
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"train: phase 15 took {rec['phase_s']:.1f}s: (a) "
+          f"{rec['grads_s']:.1f}s, (b) {rec['small_s']:.1f}s, six steps "
+          f"with the checkpoint {rec['run_s']:.1f}s, resume and three steps "
+          f"{rec['resume_s']:.1f}s")
+    rec.update({"layers": TRAIN_LAYERS, "seq": seq, "batch": TRAIN_BATCH,
+                "microbatches": TRAIN_MICRO, "params": n_params,
+                "losses": losses, "step_ms": step_ms, "mean_step_ms": mean_ms,
+                "tokens_per_s": tokens / mean_ms * 1e3,
+                "flash_per_step": per_step, "peak_bytes": peak,
+                "base_bytes": base,
+                "busy_ms": busy_ms, "busy_share": busy_ms / mean_ms,
+                "top_kernels": top, "host_syncs": syncs,
+                "flash_fwd_ms": fwd_ms, "flash_bwd_plain_ms": bwd_ms,
+                "flash_fwd_bound": fwd_bound, "flash_bwd_bound": bwd_bound,
+                "attention_share": per_step_attn / mean_ms,
+                "ckpt_bytes": nbytes, **times, "resumed_losses": resumed,
+                "card": card})
+    record["train"] = rec
     return counts
 
 
@@ -4194,6 +4610,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ed_counts = serve_seamless(torch, dev, record, card)
     torch.cuda.empty_cache()
+    # phase 15: training, the serving weights freed
+    train_counts = train_granite(torch, dev, record, card)
+    kernels[0].update(train_fwd_ms=record["train"]["flash_fwd_ms"],
+                      train_bwd_plain_ms=record["train"]["flash_bwd_plain_ms"])
     kernels += time_stream_kernels(torch, dev, data, data3, errs3)
     del data
     record["streams"] = {"shape": [CPM_R, CPM_N], "used_len": data3["used"],
@@ -4209,7 +4629,8 @@ def main(argv=None) -> int:
              "pool_by_cost": pool2_counts,
              "hybrid_generate": hyb_counts, "hybrid_pool": hyb_pool_counts,
              "moe_generate": moe_counts, "xlstm_generate": xl_counts,
-             "xlstm_pool": xl_pool_counts, "seamless_generate": ed_counts}
+             "xlstm_pool": xl_pool_counts, "seamless_generate": ed_counts,
+             "train": train_counts}
     for k in kernels:
         # each kernel's count on the newest path that runs it (the pool for
         # the serving kernels, phase 7, 8 or 9 for the per-op ones)

@@ -1,9 +1,10 @@
 """Model configuration (a copy of ``repro.configs.base``'s dataclasses).
 
-``ModelConfig``, ``MoEConfig`` and ``smoke()`` are kept verbatim so that a
-config built here describes exactly the model the JAX package builds from
-the same fields; the port imports nothing of that package.  ``register`` /
-``get_config`` form the ``--arch`` registry.
+``ModelConfig``, ``MoEConfig``, ``smoke()``, ``ShapeConfig`` and the
+``SHAPES`` table (``launch/train.py`` reads ``train_4k``) are kept
+verbatim so that a config built here describes exactly the model the JAX
+package builds from the same fields; the port imports nothing of that
+package.  ``register`` / ``get_config`` form the ``--arch`` registry.
 """
 
 from __future__ import annotations
@@ -130,6 +131,21 @@ class ModelConfig:
                 + self.n_layers * (self.moe.top_k * per_expert
                                    + self.d_model * self.moe.n_experts))
 
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 _REGISTRY: dict[str, ModelConfig] = {}
 

@@ -21,6 +21,16 @@ Sq = Skv = 2,304 and window 2,048, rows up to 2,047 keep every causal
 key and rows from 2,048 on lose their first keys.  For CPU tensors it runs
 :func:`flash_attention_plain`, which repeats the TPU kernel's arithmetic
 tile by tile in PyTorch.
+
+Training differentiates the kernel through :class:`FlashAttentionFn`:
+its forward is :func:`flash_attention` (the same launch, counted), its
+backward :func:`flash_attention_bwd_plain`, plain PyTorch, because the
+TPU kernel has no backward (the JAX package differentiates its
+reference off the TPU and defines no ``custom_vjp``).  A backward kernel
+is later work.  The backward follows FlashAttention-2 over q tiles: each
+tile's scores are recomputed against the keys it can see, its rows'
+max and sum (their log-sum-exp) taken in their own passes, and dq, dk,
+dv formed from ``p`` and ``ds = p * (dO V^T - rowsum(dO * O))``.
 """
 
 from __future__ import annotations
@@ -156,3 +166,143 @@ def flash_attention(q, k, v, *, causal=True, window=None,
 
 
 flash_attention.launches = 0
+
+
+def _mm(a, b):
+    """``a @ b`` with float32 sums and a float32 result.  bf16 operands on
+    the card go through cuBLAS's bf16 product with a float32 output
+    (``out_dtype``), as the JAX reference's ``preferred_element_type``
+    einsums; anything else is a float32 product of the widened operands
+    (exact for bf16, so the two differ only in summation order)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        lead = a.shape[:-2]
+        out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
+                        b.reshape(-1, *b.shape[-2:]),
+                        out_dtype=torch.float32)
+        return out.reshape(*lead, a.shape[-2], b.shape[-1])
+    return a.float() @ b.float()
+
+
+#: the float32 bytes one tile of scores may take, for the default tile
+TILE_BYTES = 256 << 20
+
+
+def _tile_rows(b: int, h: int, sq: int, skv: int) -> int:
+    """The backward's default q tile: the largest power of two (at least
+    16, at most Sq's) whose (B, H, tile, Skv) float32 scores fit in
+    ``TILE_BYTES``."""
+    t = 16
+    while t < sq and 2 * t * b * h * skv * 4 <= TILE_BYTES:
+        t *= 2
+    return min(t, sq)
+
+
+def _key_span(i0: int, i1: int, skv: int, causal: bool, window):
+    """(lo, hi, whole): the keys rows ``i0 .. i1-1`` can see under the
+    kernel's absolute mask.  A row that keeps no key at all (a window
+    with Sq >= Skv + window) reads every key with equal weight in the
+    forward (its scores all ``NEG_INF``), so a tile holding one spans
+    every key; ``whole`` says so."""
+    if window is not None and (window < 1 or i1 - 1 >= skv - 1 + window):
+        return 0, skv, True
+    lo = 0 if window is None else max(0, i0 - window + 1)
+    hi = min(skv, i1) if causal else skv
+    return lo, hi, False
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, *, causal=True,
+                              window=None, tile_q: int | None = None):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` at ``(q, k,
+    v)`` given its output ``out`` and the output's gradient ``dout``,
+    with the kernel's absolute mask (``cols <= rows``, ``cols > rows -
+    window``) for any Sq and Skv.
+
+    FlashAttention-2's backward, plain PyTorch, over q tiles of
+    ``tile_q`` rows (default :func:`_tile_rows`): a tile's scores are
+    recomputed in float32 against only the keys it can see
+    (:func:`_key_span`), its rows' max and sum taken in their own passes
+    and ``p`` normalized by division (as the forward), then
+    ``dv += p^T dO``, ``dp = dO V^T``, ``ds = p * (dp - rowsum(dO * O))``,
+    ``dq = ds K * scale``, ``dk += ds^T Q * scale``.  The q heads of one
+    kv head are stacked on the tile's row axis, so every product runs
+    against the kv head itself and dk, dv come out summed over the group
+    (GQA).  At most two float32 (B, H, tile_q, keys) blocks live at a
+    time (``p`` and ``dp``, the latter turned into ``ds`` in place).
+
+    On bf16 inputs all five products take bf16 operands with float32
+    sums (:func:`_mm`): q k^T and dO V^T on the inputs themselves, p^T dO
+    on ``p`` rounded to bf16 (as the kernel rounds P before P V), and the
+    two ds products on ``ds`` rounded to bf16.  On float32 inputs every
+    product is float32.  The gradients come back in the inputs' dtypes."""
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = d ** -0.5
+    low = q.dtype
+    tq = tile_q or _tile_rows(b, h, sq, skv)
+    dev = q.device
+    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
+    dq = torch.empty((b, h, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, kvh, skv, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, kvh, skv, d), dtype=torch.float32, device=dev)
+    for i0 in range(0, sq, tq):
+        i1 = min(sq, i0 + tq)
+        t = i1 - i0
+        lo, hi, whole = _key_span(i0, i1, skv, causal, window)
+        n = hi - lo
+        # (B, KVH, G * t, .): a kv head's q heads stacked on the row axis
+        qi = q[:, :, i0:i1].reshape(b, kvh, g * t, d)
+        doi = dout[:, :, i0:i1].reshape(b, kvh, g * t, d)
+        kj, vj = k[:, :, lo:hi], v[:, :, lo:hi]
+        s = _mm(qi, kj.transpose(-1, -2)).mul_(scale)
+        rows = torch.arange(i0, i1, device=dev)[:, None]
+        cols = torch.arange(lo, hi, device=dev)[None, :]
+        keep = None
+        if causal or window is not None:
+            keep = torch.ones((t, n), dtype=torch.bool, device=dev)
+            if causal:
+                keep &= cols <= rows
+            if window is not None:
+                keep &= cols > rows - window
+            s.view(b, kvh, g, t, n).masked_fill_(~keep, NEG_INF)
+        p = s.sub_(s.amax(-1, keepdim=True)).exp_()
+        p = p.div_(p.sum(-1, keepdim=True))
+        dv[:, :, lo:hi] += _mm(p.to(low).transpose(-1, -2), doi)
+        ds = _mm(doi, vj.transpose(-1, -2))
+        ds.sub_(delta[:, :, i0:i1].reshape(b, kvh, g * t, 1)).mul_(p)
+        del p
+        if whole and keep is not None:
+            # a row with no key: its scores are constants, no gradient
+            ds.view(b, kvh, g, t, n).masked_fill_(~keep, 0.0)
+        ds = ds.to(low)
+        dq[:, :, i0:i1] = (_mm(ds, kj) * scale).view(b, kvh, g, t, d) \
+            .reshape(b, h, t, d)
+        dk[:, :, lo:hi] += _mm(ds.transpose(-1, -2), qi) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` under autograd: the forward launches the
+    kernel for CUDA tensors (counted in ``flash_attention.launches``; the
+    plain twin for CPU tensors) and saves q, k, v and the output; the
+    backward is :func:`flash_attention_bwd_plain`.  Whatever the kernel
+    refuses raises here too: nothing falls back to the twin on the card.
+
+    ``FlashAttentionFn.apply(q, k, v, causal, window, block_q, block_k)``.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=None, block_q=128,
+                block_k=128):
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_plain(
+            q, k, v, out, dout, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None, None

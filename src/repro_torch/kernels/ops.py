@@ -13,6 +13,8 @@ them.
 
 from __future__ import annotations
 
+import torch
+
 from . import cpm_kernels, flash_attention as fa, ref
 
 #: every hand-written kernel wrapper of the port, by kernel name
@@ -45,11 +47,21 @@ def _mode(impl, t) -> str:
 
 
 def attention(q, k, v, *, causal=True, window=None, impl=None, **kw):
-    """Prefill / forward attention: q (B, H, Sq, D), k, v (B, KVH, Skv, D)."""
+    """Prefill / forward attention: q (B, H, Sq, D), k, v (B, KVH, Skv, D).
+
+    On CUDA tensors with grad enabled and any of q, k, v requiring grad,
+    the kernel runs under :class:`FlashAttentionFn` (its backward plain
+    PyTorch); otherwise the bare kernel wrapper, so serving is untouched.
+    The reference (CPU tensors) is differentiated by autograd itself."""
     if _mode(impl, q) == "ref":
         return ref.flash_attention_ref(
             q, k, v, causal=causal, window=window,
             **{k_: v_ for k_, v_ in kw.items() if k_ == "block_k"})
+    if q.is_cuda and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return fa.FlashAttentionFn.apply(q, k, v, causal, window,
+                                         kw.get("block_q", 128),
+                                         kw.get("block_k", 128))
     return fa.flash_attention(q, k, v, causal=causal, window=window, **kw)
 
 

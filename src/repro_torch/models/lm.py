@@ -24,6 +24,7 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -332,23 +333,58 @@ def _encode(params: Params, cfg: ModelConfig, batch: dict, device):
 
 
 # ---------------------------------------------------------------------------
-# training-shaped forward and loss (forward only: no backward kernel)
+# training-shaped forward and loss (differentiated by autograd; on the card
+# attention runs the forward kernel under ops.attention's autograd Function)
 # ---------------------------------------------------------------------------
 
-def forward(params: Params, cfg: ModelConfig, batch: dict):
-    """Full-sequence forward.  Returns (x_final, aux_loss)."""
+def _split(tree, n: int) -> list:
+    """The ``n`` repeats of a stacked tree, each leaf split once by
+    ``unbind``: under autograd one node a leaf stacks the repeats'
+    gradients, where indexing every repeat would give each its own
+    zero-filled gradient of the whole stacked leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _split(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_split(v, n) for v in tree]
+        return [type(tree)(p[r] for p in parts) for r in range(n)]
+    return list(tree.unbind(0))
+
+
+def forward(params: Params, cfg: ModelConfig, batch: dict, *,
+            remat: bool = True):
+    """Full-sequence forward.  Returns (x_final, aux_loss).
+
+    ``remat`` runs each repeat of the layer unit under
+    ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, as
+    JAX wraps its scanned unit in ``jax.checkpoint``: only the unit's
+    input is kept, and the backward runs the unit's forward again (bit
+    for bit the first: the flash kernel uses no atomics).  The tail
+    layers and the encoder are not rematerialized, as in JAX.  JAX's
+    ``REPRO_REMAT_POLICY`` (a ``jax.checkpoint_policies`` name) has no
+    counterpart: the whole unit is recomputed."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(params, cfg, tokens, batch)
     positions = _positions(cfg, batch, s, b, tokens.device)
     enc_out = _encode(params, cfg, batch, tokens.device)
     unit, n_rep, tail = _layout(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for r in range(n_rep):
+
+    def unit_body(x, aux, blks):
         for u, kind in enumerate(unit):
-            x, a, _ = block_fwd(_rep(params["blocks"][u], r), x, kind, cfg,
-                                positions, enc_out=enc_out)
+            x, a, _ = block_fwd(blks[u], x, kind, cfg, positions,
+                                enc_out=enc_out)
             aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for blks in zip(*(_split(blk, n_rep) for blk in params["blocks"])):
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                unit_body, x, aux, blks, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, aux = unit_body(x, aux, blks)
     for blk, kind in zip(params["tail"], tail):
         x, a, _ = block_fwd(blk, x, kind, cfg, positions, enc_out=enc_out)
         aux = aux + a
@@ -357,11 +393,11 @@ def forward(params: Params, cfg: ModelConfig, batch: dict):
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
-            loss_chunk: int = 1024):
+            remat: bool = True, loss_chunk: int = 1024):
     """Next-token cross entropy with sequence-chunked logits (never
     materializes (B, S, V): a chunk is (B, C, V)) plus the MoE aux loss.
     Returns (loss, {"ce", "aux"})."""
-    x, aux = forward(params, cfg, batch)
+    x, aux = forward(params, cfg, batch, remat=remat)
     tokens = batch["tokens"]
     xs = x[:, :-1]
     labels = tokens[:, 1:].long()

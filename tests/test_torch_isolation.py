@@ -40,7 +40,10 @@ print("loaded=" + ",".join(bad))
 #: modules of the later slices; each must be among those imported
 _SLICE_MODULES = (
     "repro_torch.configs.archs", "repro_torch.serve.reference",
-    "repro_torch.serve.http",
+    "repro_torch.serve.http", "repro_torch.launch.train",
+    *(f"repro_torch.train.{m}" for m in ("optimizer", "train_step",
+                                         "checkpoint", "data",
+                                         "fault_tolerance")),
     *(f"repro_torch.obs.{m}" for m in ("export", "live", "slo",
                                        "promparse")),
     *(f"repro_torch.configs.{m}" for m in (
