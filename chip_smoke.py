@@ -245,6 +245,23 @@ Phases, in order; any failure exits non-zero:
      the state dropped, ``resume_or_init`` into fresh tensors from a
      ``meta`` skeleton and 3 more: params bit for bit the straight
      run's, losses equal.
+ 16. the CPM layer on a mesh of processes, after phase 15: a group of
+     one rank over NCCL (a ``FileStore`` under ``build/chip_smoke``,
+     ``device_id`` cuda:0; one card holds one NCCL rank, so no run
+     crosses cards).  (a) ``cpm_array(..., backend="mesh")`` on phase 7's
+     (64, 1,048,576) int32 and float32 rows with their per-row lengths,
+     and on one unbatched row: ``section_sum``, ``super_sum``,
+     ``global_limit`` and ``super_limit`` max / min, ``compare(2048,
+     "lt")``, held against the ``cuda`` backend (the kernels) and the
+     reference: ints, flags and limits bit for bit, float sums within
+     1e-5 x sum|x|; the mesh path launches no CPM kernel (JAX's mesh path
+     reaches no Pallas kernel); each op timed beside the ``cuda``
+     backend's; (b) the collectives on CUDA tensors over
+     ``make_host_mesh()``'s (1, 1) mesh: each returns its input unchanged
+     in a new tensor and leaves the input as it was; (c) the roofline of
+     phase 15's step (``roofline_terms`` / ``model_flops``) and the share
+     of the card's bf16 peak its measured step reaches.  The group is
+     destroyed at the end of the phase.
 
 The lines before the last are the launch floor beside the kernels that
 run at it, the card (``nvidia-smi`` name and power limit) and one JSON
@@ -372,6 +389,14 @@ STENCIL5 = (0.5, 0.0, 1.0, 0.0, -0.25)
 STENCIL63 = tuple(math.sin(k + 1.0) for k in range(63))
 PROBE_N = 16384
 STREAM_KERNELS = ("activate", "shift_range", "template_match", "stencil")
+# phase 16: the mesh backend's ops on phase 7's rows, and the bytes a
+# training step must move at least per parameter: AdamW reads params,
+# grads, mu and nu and writes params, mu and nu, float32 each
+MESH_OPS = (("section_sum", ()), ("super_sum", ()),
+            ("global_limit", ("max",)), ("global_limit", ("min",)),
+            ("super_limit", ("max",)), ("super_limit", ("min",)),
+            ("compare", (2048, "lt")))
+ADAMW_BYTES_PER_PARAM = 7 * 4
 
 
 def fail(msg: str) -> None:
@@ -4450,6 +4475,167 @@ def time_stream_kernels(torch, dev, data, sdata, errs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the CPM layer on a mesh of processes
+# ---------------------------------------------------------------------------
+
+def _mesh_ops_agree(torch, np, name, got, cuda, ref, x_np, ul_np):
+    """Phase 16 (a)'s rule: float sums within SUM_TOL x sum|x| of NumPy
+    (as the kernels' and the reference's), everything else bit for bit
+    with the cuda backend and the reference."""
+    if name in ("section_sum", "super_sum") and got.dtype.is_floating_point:
+        ok, worst = _float_sums_ok(np, got.cpu(), x_np, ul_np)
+        return ok, float((got - cuda).abs().max()), f"worst {worst:.3f} tol"
+    same = (torch.equal(_bits(torch, got), _bits(torch, cuda))
+            and torch.equal(_bits(torch, got), _bits(torch, ref)))
+    return same, 0.0, "bit for bit"
+
+
+def check_mesh(torch, np, dev, data, record, card):
+    """Phase 16 (see the module docstring).  Returns the launch counts of
+    the mesh path (no CPM kernel)."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.cpm import collectives as C, cpm_array, semantics
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    store = ROOT / "build" / "chip_smoke" / "mesh_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=dev,
+                            timeout=datetime.timedelta(seconds=60))
+    rec = {"group": f"nccl, 1 rank, {dist.get_backend()}"}
+    try:
+        # (a) the mesh backend against the kernels and the reference
+        xi, xf, ul = data["xi"], data["xf"], data["ul"]
+        rows = (("int32", xi, data["xi_np"]), ("float32", xf, data["xf_np"]))
+        ul_np = data["ul_np"]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = {(k, m, a): getattr(cpm_array(x, ul, backend="mesh"), m)(*a)
+               for k, x, _ in rows for m, a in MESH_OPS}
+        one = {(m, a): getattr(cpm_array(xi[1], ul[1], backend="mesh"),
+                               m)(*a) for m, a in MESH_OPS}
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if any(counts.values()):
+            fail(f"the mesh path launched CPM kernels: {counts}")
+        times = {}
+        for kind, x, x_np in rows:
+            for m, a in MESH_OPS:
+                arrs = {b: cpm_array(x, ul, backend=b)
+                        for b in ("mesh", "cuda", "reference")}
+                want = {b: getattr(arrs[b], m)(*a) for b in arrs}
+                ok, err, how = _mesh_ops_agree(
+                    torch, np, m, got[(kind, m, a)], want["cuda"],
+                    want["reference"], x_np, ul_np)
+                tag = f"{m}({', '.join(map(repr, a))}) {kind}"
+                if not ok:
+                    fail(f"mesh {tag} disagrees with the cuda backend / the "
+                         f"reference ({how}, max |err| {err})")
+                mesh_ms, src_m, _ = timed(
+                    lambda: getattr(arrs["mesh"], m)(*a), 10)
+                cuda_ms_, src_c, _ = timed(
+                    lambda: getattr(arrs["cuda"], m)(*a), 10)
+                times[tag] = {"mesh_ms": mesh_ms, "cuda_ms": cuda_ms_,
+                              "source": f"{src_m}/{src_c}", "check": how}
+                print(f"mesh {tag} at ({CPM_R}, {CPM_N}): {mesh_ms:.4f} ms "
+                      f"({src_m}) vs the cuda backend {cuda_ms_:.4f} ms "
+                      f"({src_c}); {how}; {card}")
+        for m, a in MESH_OPS:
+            ref = getattr(cpm_array(xi[1], ul[1], backend="reference"), m)(*a)
+            if not torch.equal(one[(m, a)], ref):
+                fail(f"mesh {m} on one row disagrees with the reference")
+        rec.update(shape=[CPM_R, CPM_N], path_s=path_s, times=times)
+        print(f"mesh backend: {len(got) + len(one)} ops on ({CPM_R}, "
+              f"{CPM_N}) rows and one row in {path_s:.3f}s, no CPM kernel "
+              f"launched; every op held against the cuda backend and the "
+              f"reference")
+
+        # (b) the collectives at n = 1 on CUDA tensors
+        mesh = make_host_mesh()
+        g = torch.Generator(device=dev).manual_seed(16)
+        xs = {"float32": torch.randn((64, 1024), generator=g, device=dev),
+              "int32": torch.randint(-2 ** 30, 2 ** 30, (64, 1024),
+                                     generator=g, device=dev,
+                                     dtype=torch.int32)}
+        calls = {
+            "ring_shift": lambda v: C.ring_shift(v, "data", 1),
+            "ring_allreduce": lambda v: C.ring_allreduce(v, "data"),
+            "tree_allreduce": lambda v: C.tree_allreduce(v, "data"),
+            "tree_allreduce_max": lambda v: C.tree_allreduce(
+                v, "data", semantics.maximum),
+            "tree_allreduce_min": lambda v: C.tree_allreduce(
+                v, "data", semantics.minimum),
+            "ring_reduce_scatter": lambda v: C.ring_reduce_scatter(
+                v, "data", 1),
+            "ring_allgather": lambda v: C.ring_allgather(v, "data", 1),
+            **{f"hierarchical_psum_{md}": (lambda v, md=md:
+                                           C.hierarchical_psum(
+                                               v, "data", "model", md))
+               for md in ("ring", "two_phase", "xla")},
+            "grad_sync": lambda v: C.grad_sync(
+                {"w": v, "b": [v[0], v[:, :3]]}, ("model", "data"))["b"][1],
+            "psum": lambda v: C.psum(v, ("data", "model")),
+            "pmax": lambda v: C.pmax(v, "data"),
+        }
+        with sh.use_sharding(sh.make_ctx(mesh)):
+            for name, fn in calls.items():
+                for kind, v in xs.items():
+                    before = v.clone()
+                    out = fn(v)
+                    want = v[:, :3] if name == "grad_sync" else v
+                    if not (torch.equal(_bits(torch, out), _bits(torch, want))
+                            and torch.equal(v, before)
+                            and out.data_ptr() != v.data_ptr()):
+                        fail(f"{name} on {kind} over NCCL at n = 1 did not "
+                             f"return its input unchanged in a new tensor")
+        torch.cuda.synchronize()
+        rec["collectives"] = sorted(calls)
+        print(f"collectives over NCCL at n = 1 on CUDA tensors, float32 and "
+              f"int32: {', '.join(calls)}: each returned its input in a new "
+              f"tensor and left it unchanged")
+    finally:
+        dist.destroy_process_group()
+
+    # (c) the roofline of phase 15's training step
+    tr = record["train"]
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=tr["layers"])
+    shape = ShapeConfig("train_4k", tr["seq"], tr["batch"], "train")
+    flops = roofline.model_flops(cfg, shape)
+    nbytes = ADAMW_BYTES_PER_PARAM * tr["params"]
+    terms = roofline.roofline_terms(flops, nbytes, 0.0)
+    step_s = tr["mean_step_ms"] / 1e3
+    share = flops / (step_s * roofline.HW["peak_flops"])
+    rec["roofline"] = {"model_flops": flops, "bytes": nbytes, **terms,
+                       "step_s": step_s, "peak_share": share, "hw": roofline.HW}
+    print(f"roofline of phase 15's step (granite-8b x {tr['layers']} layers, "
+          f"{tr['batch']} x {tr['seq']} tokens, {tr['params'] / 1e9:.3f}B "
+          f"params, one card): model_flops {flops:.4e} (6 N D), AdamW's "
+          f"{nbytes / 1e9:.2f} GB; terms compute {terms['compute_s']:.4f} s,"
+          f" memory {terms['memory_s']:.4f} s, collective "
+          f"{terms['collective_s']:.4f} s: bound by {terms['bound']}, "
+          f"{terms['step_s_lower_bound']:.4f} s at least; measured step "
+          f"{step_s:.4f} s = {share:.3f} of the card's "
+          f"{roofline.HW['peak_flops']:.3g} bf16 FLOP/s ({card})")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["card"] = card
+    print(f"mesh: phase 16 took {rec['phase_s']:.1f}s")
+    record["mesh"] = rec
+    return counts
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4615,6 +4801,8 @@ def main(argv=None) -> int:
     kernels[0].update(train_fwd_ms=record["train"]["flash_fwd_ms"],
                       train_bwd_plain_ms=record["train"]["flash_bwd_plain_ms"])
     kernels += time_stream_kernels(torch, dev, data, data3, errs3)
+    # phase 16: the CPM layer on a mesh of processes, on phase 7's rows
+    mesh_counts = check_mesh(torch, np, dev, data, record, card)
     del data
     record["streams"] = {"shape": [CPM_R, CPM_N], "used_len": data3["used"],
                          "path_s": data3["path_s"],
@@ -4630,7 +4818,7 @@ def main(argv=None) -> int:
              "hybrid_generate": hyb_counts, "hybrid_pool": hyb_pool_counts,
              "moe_generate": moe_counts, "xlstm_generate": xl_counts,
              "xlstm_pool": xl_pool_counts, "seamless_generate": ed_counts,
-             "train": train_counts}
+             "train": train_counts, "mesh": mesh_counts}
     for k in kernels:
         # each kernel's count on the newest path that runs it (the pool for
         # the serving kernels, phase 7, 8 or 9 for the per-op ones)

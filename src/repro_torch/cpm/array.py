@@ -7,8 +7,9 @@ A frozen value holding
                    the PE address axis,
   * ``used_len`` — the §4.2 logical-length register, a scalar or per-batch
                    int32 tensor ("memory managing itself"),
-  * ``backend``  — a routing hint: ``"auto"``, ``"reference"`` or
-                   ``"cuda"``.
+  * ``backend``  — a routing hint: ``"auto"``, ``"reference"``, ``"cuda"``
+                   or ``"mesh"`` (the §7-§8 reductions and ``compare``
+                   over ranks; see ``backends.mesh``).
 
 Every method is a recordable instruction (``repro_torch.cpm.program``):
 inside ``with record() as prog:`` the call is appended to the program
@@ -43,7 +44,7 @@ from .reference import movable, pe_array
 class CPMArray:
     data: torch.Tensor                 # (*batch, n) physical buffer
     used_len: torch.Tensor             # () or (*batch,) logical length
-    backend: str = "auto"              # "auto" | "reference" | "cuda"
+    backend: str = "auto"              # "auto" | "reference" | "cuda" | "mesh"
 
     @property
     def n(self) -> int:

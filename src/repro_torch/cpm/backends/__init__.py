@@ -10,10 +10,16 @@
     ``shift_range``, ``compare``, ``substring_match``, ``histogram``,
     ``template_match``, ``stencil``, ``compact``, ``section_sum``,
     ``global_limit``, ``super_sum``, ``super_limit`` and ``sort``).
+  * ``mesh``      — ranks as PEs: ``torch.distributed`` collectives over
+    a mesh axis (`repro_torch.cpm.collectives`), wired to the partition
+    rules of ``repro_torch.distributed.sharding`` when a sharding context
+    is active; the ops of the op table's ``mesh`` column.
 
 ``resolve`` honours the paper's pin-compatibility promise per op: a
-forced backend that cannot realize an op raises, and ``"auto"`` picks the
-reference for any op the kernel backend lacks.  ``"auto"`` sends rows to
+forced backend that cannot realize an op raises (the mesh backend before
+it is made: ``MeshBackend`` builds a device mesh, and may start a process
+group), and ``"auto"`` picks the reference for any op the kernel backend
+lacks.  ``"auto"`` sends rows to
 the kernels only when they lie on a GPU and are at least
 :func:`cuda_min_n` lanes long: a crossover that :func:`measure_crossover`
 measured on the card and kept in the tuning cache, else the JAX
@@ -61,22 +67,41 @@ class Backend(Protocol):
 
 
 def _registry():
-    from . import cuda, reference
+    from . import cuda, mesh, reference
     return {"reference": reference.ReferenceBackend,
-            "cuda": cuda.CudaBackend}
+            "cuda": cuda.CudaBackend,
+            "mesh": mesh.MeshBackend}
 
 
 _INSTANCES: dict = {}
 
 
-def get_backend(name: str) -> Backend:
-    """The (memoized) backend instance named ``reference`` or ``cuda``."""
+def get_backend(name: str, **kw) -> Backend:
+    """The backend named ``reference``, ``cuda`` or ``mesh``, made with
+    ``kw``.
+
+    Instances are memoized per (name, kwargs): ``resolve`` runs per op
+    call, and ``MeshBackend`` builds a device mesh, which must not be
+    repeated in eager loops.  A mesh backend's default mesh reads the
+    sharding context and the running process group, so its instance is
+    also keyed by both.  Unhashable kwargs build a fresh instance."""
     reg = _registry()
     if name not in reg:
         raise ValueError(f"unknown CPM backend {name!r}; have {sorted(reg)}")
-    if name not in _INSTANCES:
-        _INSTANCES[name] = reg[name]()
-    return _INSTANCES[name]
+    extra = ()
+    if name == "mesh":
+        import torch.distributed as dist
+
+        from repro_torch.distributed import sharding
+        extra = (sharding.current_ctx(), dist.group.WORLD)
+    key = (name, tuple(sorted(kw.items())), extra)
+    try:
+        hash(key)
+    except TypeError:                      # unhashable kwarg / context
+        return reg[name](**kw)
+    if key not in _INSTANCES:
+        _INSTANCES[key] = reg[name](**kw)
+    return _INSTANCES[key]
 
 
 def cuda_min_n(op: str | None = None, device=None) -> int:
@@ -164,9 +189,15 @@ def resolve(requested: str, op: str, data) -> Backend:
     if requested == "auto":
         bk = get_backend(auto_backend_name(data, op))
         return bk if bk.supports(op) else get_backend("reference")
-    bk = get_backend(requested)
-    if not bk.supports(op):
+    reg = _registry()
+    if requested not in reg:
+        raise ValueError(f"unknown CPM backend {requested!r}; have "
+                         f"{sorted(reg)}")
+    # the mesh backend's table check comes before the instance: making one
+    # builds a device mesh, and may start a process group
+    if not (reg[requested].supports(op) if requested == "mesh"
+            else get_backend(requested).supports(op)):
         raise NotImplementedError(
             f"op {op!r} is not realizable on the {requested!r} backend; "
             f"use backend='auto' for the reference")
-    return bk
+    return get_backend(requested)

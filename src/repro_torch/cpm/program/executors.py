@@ -1,5 +1,5 @@
 """Per-backend execution of CPM programs (a port of
-``repro.cpm.program.executors`` for the reference and cuda backends).
+``repro.cpm.program.executors``).
 
 One contract, bit-identical results:
 
@@ -17,6 +17,9 @@ One contract, bit-identical results:
     op on the per-op kernels — and so does a fused group whose CUDA rows
     the kernel does not take (a dtype other than int32 / float32, see
     :func:`fits_fused_stream`).
+  * ``mesh``      — replays every instruction through the mesh backend's
+    collectives; ops outside the op table's ``mesh`` column fall back to
+    the reference (the table's pin-compatibility contract is per op).
 
 Operand layout is described once (``_RANKS``): scalars are rank 0,
 needle/template/values vectors rank 1.  An operand whose leading dims
@@ -74,6 +77,11 @@ _TRANSFORMS = frozenset({"shift", "insert", "delete", "truncate"})
 _KERNEL_COLUMN = "pallas"
 
 
+def _column(backend: str) -> str:
+    """The op table's column that a forced ``backend`` realizes."""
+    return _KERNEL_COLUMN if backend == "cuda" else backend
+
+
 def _shape(v) -> tuple[int, ...]:
     return tuple(v.shape) if isinstance(v, torch.Tensor) else np.shape(v)
 
@@ -98,17 +106,17 @@ def _per_row_operands(instr: ir.Instruction, lead) -> bool:
 
 def apply_instruction(arr, instr: ir.Instruction, backend: str | None = None):
     """Execute one instruction eagerly on ``backend`` (default: the
-    array's).  As in the JAX executor, an op that the op table gives no
-    kernel at all replays on the reference (per-op pin compatibility);
-    on a forced ``cuda`` backend every other op runs its per-op kernel
-    (``count`` through ``compare``, ``insert`` / ``delete`` / ``shift``
-    through ``shift_range``, one call over a batched device's rows), and
-    a backend that lacked one would raise: a forced kernel backend never
-    substitutes another realization."""
+    array's).  As in the JAX executor, an op outside the forced backend's
+    op-table column (``pallas`` for ``cuda``) replays on the reference
+    (per-op pin compatibility); on a forced ``cuda`` backend every other
+    op runs its per-op kernel (``count`` through ``compare``, ``insert`` /
+    ``delete`` / ``shift`` through ``shift_range``, one call over a
+    batched device's rows), and a backend that lacked one would raise: a
+    forced kernel backend never substitutes another realization."""
     bk = backend or arr.backend
     spec = OP_TABLE.get(_DERIVED.get(instr.op, instr.op))
     if bk not in ("reference", "auto") and spec is not None \
-            and _KERNEL_COLUMN not in spec.backends:
+            and _column(bk) not in spec.backends:
         bk = "reference"
     a = dataclasses.replace(arr, backend=bk)
     lead = arr.batch_shape

@@ -41,6 +41,10 @@ print("loaded=" + ",".join(bad))
 _SLICE_MODULES = (
     "repro_torch.configs.archs", "repro_torch.serve.reference",
     "repro_torch.serve.http", "repro_torch.launch.train",
+    "repro_torch.launch.mesh", "repro_torch.cpm.collectives",
+    "repro_torch.cpm.backends.mesh", "repro_torch.distributed",
+    "repro_torch.distributed.sharding", "repro_torch.analysis",
+    "repro_torch.analysis.roofline",
     *(f"repro_torch.train.{m}" for m in ("optimizer", "train_step",
                                          "checkpoint", "data",
                                          "fault_tolerance")),
@@ -100,3 +104,22 @@ def test_chip_smoke_without_a_card_prints_no_result():
                          env=_env(), cwd=ROOT)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_mesh_on_cuda_without_a_card_raises():
+    """``make_host_mesh()`` and the mesh backend's default mesh ask for
+    NCCL on the card: without one they raise before any process group
+    starts, and nothing falls back to gloo or the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the meshes would start NCCL")
+    import torch.distributed as dist
+
+    from repro_torch.cpm import cpm_array
+    from repro_torch.launch import mesh
+
+    for make in (mesh.make_host_mesh, mesh.make_production_mesh,
+                 lambda: cpm_array([1, 2, 3], backend="mesh",
+                                   device="cpu").section_sum()):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            make()
+        assert not dist.is_initialized()
