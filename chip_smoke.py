@@ -241,10 +241,11 @@ Phases, in order; any failure exits non-zero:
      ``torch.profiler`` (busy share, top kernels), the peak memory, the
      forward kernel and the plain backward timed alone at the training
      shape; then 3 steps through ``run_loop`` with an async checkpoint
-     (under ``build/chip_smoke/train_ckpt``, timed and removed after),
+     (under ``build/chip_smoke/train_ckpt``, timed, kept for phase 17),
      the state dropped, ``resume_or_init`` into fresh tensors from a
      ``meta`` skeleton and 3 more: params bit for bit the straight
-     run's, losses equal.
+     run's, losses equal; their losses and the params' digest kept for
+     phase 17.
  16. the CPM layer on a mesh of processes, after phase 15: a group of
      one rank over NCCL (a ``FileStore`` under ``build/chip_smoke``,
      ``device_id`` cuda:0; one card holds one NCCL rank, so no run
@@ -262,6 +263,22 @@ Phases, in order; any failure exits non-zero:
      phase 15's step (``roofline_terms`` / ``model_flops``) and the share
      of the card's bf16 peak its measured step reaches.  The group is
      destroyed at the end of the phase.
+ 17. ZeRO-3 data-parallel training, after phase 16: a group of one NCCL
+     rank again (one card takes one rank, so no run crosses cards), the
+     host mesh's ``make_ctx``; phase 15's step-3 checkpoint restored
+     through ``resume_or_init(..., shardings=)`` into DTensors (each rank
+     its ``param_spec`` block of params, mu and nu), then steps 4-6 of
+     phase 15's run through the sharded trainer (every weight all-gathered
+     as its layer runs, every gradient reduce-scattered, over NCCL at n =
+     1): losses and the params' digest equal phase 15's bit for bit (if
+     not, the first step and the leaves that differ are printed, the
+     unsharded trainer runs the same steps and every leaf is held within
+     1e-3 of its largest value), 64 flash launches a step, the host
+     syncs of one step by site, the collectives' bytes a step by kind and
+     dtype equal to the partition rules' formula (PERF.md §6), step ms
+     and peak memory beside phase 15's, one more step under
+     ``torch.profiler`` (busy, NCCL kernels' time), the roofline share;
+     the checkpoint is removed at the end.
 
 The lines before the last are the launch floor beside the kernels that
 run at it, the card (``nvidia-smi`` name and power limit) and one JSON
@@ -1571,10 +1588,9 @@ def serve_pool(torch, dev, cfg, params, record, tag="pool",
     return counts
 
 
-def profile_top(torch, fn):
+def _device_events(torch, fn) -> list:
     """One call of ``fn`` under ``torch.profiler``, the device's activity
-    only: the summed device time of its kernels and copies (ms), and the
-    eight largest by device time as ``[name, ms, calls]``."""
+    only: its kernels and copies, largest device time first."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1584,10 +1600,25 @@ def profile_top(torch, fn):
     dev = [e for e in prof.key_averages()
            if str(e.device_type).endswith("CUDA")
            and e.self_device_time_total > 0]
-    dev.sort(key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in dev) / 1e3
-    return busy, [[e.key[:60], round(e.self_device_time_total / 1e3, 3),
-                   e.count] for e in dev[:8]]
+    return sorted(dev, key=lambda e: -e.self_device_time_total)
+
+
+def _ms(events) -> float:
+    return sum(e.self_device_time_total for e in events) / 1e3
+
+
+def _top(events) -> list:
+    """The eight largest events as ``[name, ms, calls]``."""
+    return [[e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count]
+            for e in events[:8]]
+
+
+def profile_top(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: the summed device time
+    of its kernels and copies (ms), and the eight largest by device time
+    as ``[name, ms, calls]``."""
+    dev = _device_events(torch, fn)
+    return _ms(dev), _top(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -2790,6 +2821,27 @@ def _sync_sites(torch, fn, *args):
     return out, sites
 
 
+def _digest(torch, tree) -> list:
+    """Per float32 leaf (a DTensor's block), two int64 sums of its bits,
+    plain and weighted by position (mod 65521), on the device in chunks,
+    then read back once: equal digests mean equal leaves, bit for bit,
+    but for a collision."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train._tree import leaves_with_path
+
+    out, chunk = [], 1 << 26
+    for _, x in leaves_with_path(tree):
+        bits = sh.local(x).detach().reshape(-1).view(torch.int32)
+        s = w = torch.zeros((), dtype=torch.int64, device=bits.device)
+        for i in range(0, bits.numel(), chunk):
+            c = bits[i:i + chunk].long()
+            pos = torch.arange(i, i + c.numel(), device=c.device) % 65521
+            s = s + c.sum()
+            w = w + (c * (pos + 1)).sum()
+        out.append(torch.stack([s, w]))
+    return torch.stack(out).cpu().tolist()
+
+
 def _ckpt_bytes(path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*")
                if f.is_file())
@@ -2984,8 +3036,11 @@ def train_granite(torch, dev, record, card):
         fail("train: 3 steps + checkpoint + resume + 3 steps differ from 6 "
              "steps without the restart")
     rec["resume_s"] = time.perf_counter() - t_resume
+    # the step-3 checkpoint, steps 4-6's losses and the params' digest stay
+    # for phase 17, which removes the checkpoint
+    rec["digest"] = _digest(torch, state["params"])
+    rec["ckpt_dir"] = str(ckpt_dir)
     del state, ref
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"train: phase 15 took {rec['phase_s']:.1f}s: (a) "
@@ -4636,6 +4691,267 @@ def check_mesh(torch, np, dev, data, record, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17: ZeRO-3 data-parallel training on one NCCL rank
+# ---------------------------------------------------------------------------
+
+def _zero3_bytes(cfg, like, ctx, micro: int) -> dict:
+    """The bytes each kind of collective carries in one bf16 train step of
+    ``micro`` microbatches with remat, by the partition rules (PERF.md
+    §6): a leaf split over the data axes is all-gathered whole in bf16 at
+    each use (twice a microbatch in the rematerialized layer unit, once
+    for the embedding and the unembedding) and its gradient
+    reduce-scattered once a microbatch (bf16; the embedding table's
+    float32); a replicated leaf's float32 gradient all-reduced once a
+    microbatch; the loss and its two metrics (float32) and the global
+    norm's per-leaf sums all-reduced once a step."""
+    from repro_torch.distributed import sharding as sh
+
+    gathered = scattered = reduced = leaves = 0
+
+    def walk(t, path):
+        nonlocal gathered, scattered, reduced, leaves
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}")
+            return
+        if isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v, path)
+            return
+        leaves += 1
+        spec = sh.param_spec(path, tuple(t.shape), ctx)
+        split = any(a in ctx.data_axes for e in spec if e is not None
+                    for a in (e if isinstance(e, tuple) else (e,)))
+        top = path.split("/")[1]
+        tied = top == "emb" and cfg.tie_embeddings
+        if split:
+            gathered += (1 + (top == "blocks" or tied)) * 2 * t.numel()
+            scattered += (4 if top == "emb" else 2) * t.numel()
+            scattered += 2 * t.numel() if tied else 0
+        else:
+            reduced += 4 * t.numel()
+
+    walk(like, "")
+    return {"all_gather": micro * gathered,
+            "reduce_scatter": micro * scattered,
+            "all_reduce": micro * reduced + 3 * 4 + 4 * leaves}
+
+
+def train_sharded(torch, dev, record, card):
+    """Phase 17 (see the module docstring).  Returns the launch counts of
+    its three steps."""
+    import dataclasses
+    import datetime
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import init_state, state_shardings
+    from repro_torch.train import (OptConfig, data, fault_tolerance as ft,
+                                   make_train_step)
+    from repro_torch.train._tree import leaves_with_path
+
+    t_phase = time.perf_counter()
+    tr = record["train"]
+    ckpt_dir = tr["ckpt_dir"]
+    half = TRAIN_STEPS // 2
+    store = ROOT / "build" / "chip_smoke" / "fsdp_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=dev,
+                            timeout=datetime.timedelta(seconds=60))
+    rec = {"group": f"nccl, 1 rank, {dist.get_backend()}"}
+    try:
+        mesh = make_host_mesh()
+        ctx = sh.make_ctx(mesh)
+        cfg = dataclasses.replace(get_config("granite-8b"),
+                                  n_layers=TRAIN_LAYERS)
+        seq = SHAPES["train_4k"].seq_len
+        shape = ShapeConfig("train_4k", seq, TRAIN_BATCH, "train")
+        with sh.use_sharding(ctx):
+            like = init_state(cfg, "meta")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            fcfg = ft.FaultConfig(ckpt_dir=ckpt_dir, ckpt_every=0)
+            state, extra, start = ft.resume_or_init(
+                fcfg, lambda: fail("phase 17: no checkpoint of phase 15"),
+                like=like, device=dev, shardings=state_shardings(like, ctx))
+            torch.cuda.synchronize()
+            rec["restore_s"] = time.perf_counter() - t0
+            sharded = [sh.is_distributed(x) for t in (
+                state["params"], state["opt"]["mu"], state["opt"]["nu"])
+                for _, x in leaves_with_path(t)]
+            if start != half or not all(sharded):
+                fail(f"phase 17: resumed at step {start} (want {half}) with "
+                     f"{sum(sharded)}/{len(sharded)} leaves DTensors")
+            pipe = data.make_pipeline(cfg, shape, seed=29,
+                                      process_index=sh.dp_rank(ctx),
+                                      process_count=sh.dp_size(ctx))
+            pipe.restore(extra["data"])
+            step = make_train_step(
+                cfg, OptConfig(warmup_steps=2, total_steps=TRAIN_STEPS),
+                num_microbatches=TRAIN_MICRO, remat=True, loss_chunk=1024)
+            losses, step_ms, flash, colls, syncs = [], [], [], [], []
+            ops.reset_launch_counts()
+            for i in range(half, TRAIN_STEPS):
+                batch = next(pipe)
+                sh.reset_collective_counts()
+                c0 = ops.launch_counts()["flash_attention"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == half + 1:
+                    (p, o, m), found = _sync_sites(
+                        torch, step, state["params"], state["opt"], batch)
+                    syncs.extend(found)
+                else:
+                    p, o, m = step(state["params"], state["opt"], batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                colls.append(sh.collective_counts())
+                flash.append(ops.launch_counts()["flash_attention"] - c0)
+                state = {"params": p, "opt": o}
+                losses.append(float(m["loss"]))
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            digest = _digest(torch, state["params"])
+            # one more step (7, compared with nothing) under the profiler
+            batch = next(pipe)
+            events = _device_events(torch, lambda: step(
+                state["params"], state["opt"], batch))
+            busy_ms, top = _ms(events), _top(events)
+            nccl_ms = _ms(e for e in events if "nccl" in e.key.lower())
+        want = 2 * TRAIN_LAYERS * TRAIN_MICRO
+        if any(n != want for n in flash):
+            fail(f"phase 17: flash launches a step {flash}, want {want}")
+        same_losses = losses == tr["resumed_losses"]
+        differ = [path for (path, _), a, b in zip(
+            leaves_with_path(state["params"]), digest, tr["digest"])
+            if a != b]
+        print(f"fsdp: granite-8b x {TRAIN_LAYERS} layers sharded on "
+              f"{rec['group']}, restored from phase 15's step-{half} "
+              f"checkpoint in {rec['restore_s']:.1f}s (each leaf a "
+              f"DTensor); steps {half + 1}-{TRAIN_STEPS} losses {losses} vs "
+              f"phase 15's {tr['resumed_losses']}: "
+              f"{'equal' if same_losses else 'DIFFER'}; params "
+              f"{len(digest) - len(differ)}/{len(digest)} leaves equal bit "
+              f"for bit (digest); {card}")
+        if not same_losses or differ:
+            params = state["params"]
+            del state, p, o, m
+            torch.cuda.empty_cache()
+            _hold_within_bounds(torch, dev, cfg, shape, ckpt_dir, params,
+                                losses, tr["resumed_losses"])
+        # the collectives of a step beside the partition rules' formula
+        want_bytes = _zero3_bytes(cfg, like["params"], ctx, TRAIN_MICRO)
+        got = {k: v["bytes"] for k, v in colls[-1].items()}
+        if got != want_bytes:
+            fail(f"phase 17: collective bytes a step {got}, the formula "
+                 f"gives {want_bytes}")
+        stats = roofline.collective_stats(colls[-1])
+        mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
+        flops = roofline.model_flops(cfg, ShapeConfig(
+            "train_4k", seq, TRAIN_BATCH, "train"))
+        terms = roofline.roofline_terms(flops, ADAMW_BYTES_PER_PARAM
+                                        * tr["params"], stats.per_chip_bytes)
+        share = flops / (mean_ms / 1e3 * roofline.HW["peak_flops"])
+        print(f"fsdp: step ms {[round(x, 1) for x in step_ms]} (mean of the "
+              f"last {len(step_ms) - 1}: {mean_ms:.1f}; phase 15's "
+              f"{tr['mean_step_ms']:.1f}); {flash} flash launches a step; "
+              f"peak {peak / 2**30:.2f} GiB allocated ({(peak - base) / 2**30:.2f}"
+              f" above the earlier phases' {base / 2**30:.2f}; phase 15's "
+              f"peak {tr['peak_bytes'] / 2**30:.2f}); host syncs in step "
+              f"{half + 2}: {len(syncs)} {syncs} (phase 15's step 3: "
+              f"{len(tr['host_syncs'])}); {card}")
+        print(f"fsdp: collectives a step (NCCL, 1 rank) "
+              + ", ".join(f"{k} {v['calls']} calls {v['bytes']} bytes "
+                          f"{v['dtypes']}" for k, v in colls[-1].items())
+              + f": equal to the formula {want_bytes}; each rank moves "
+              f"{stats.per_chip_bytes:.0f} bytes on a ring of 1 (at N ranks "
+              f"(N - 1) / N of the gathers' and scatters' bytes, 2 (N - 1) / N"
+              f" of the all-reduces'); roofline: compute "
+              f"{terms['compute_s']:.4f} s, memory {terms['memory_s']:.4f} s,"
+              f" collective {terms['collective_s']:.4f} s, bound by "
+              f"{terms['bound']}; the measured step reaches {share:.3f} of "
+              f"{roofline.HW['peak_flops']:.3g} bf16 FLOP/s ({card})")
+        print(f"fsdp: step {TRAIN_STEPS + 1} under torch.profiler: device "
+              f"busy {busy_ms:.1f} ms (share {busy_ms / mean_ms:.3f} of the "
+              f"{mean_ms:.1f} ms step; phase 15's busy {tr['busy_ms']:.1f}),"
+              f" NCCL kernels {nccl_ms:.1f} ms; top kernels {top}; {card}")
+        rec.update(busy_ms=busy_ms, nccl_ms=nccl_ms, top_kernels=top)
+        rec.update(losses=losses, step_ms=step_ms, mean_step_ms=mean_ms,
+                   flash_per_step=flash, peak_bytes=peak, base_bytes=base,
+                   host_syncs=syncs, collectives=colls[-1],
+                   formula=want_bytes, roofline={**terms, "peak_share": share,
+                                                 "model_flops": flops},
+                   equal_losses=same_losses, differing_leaves=differ)
+        del state
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["card"] = card
+    print(f"fsdp: phase 17 took {rec['phase_s']:.1f}s")
+    record["fsdp"] = rec
+    return counts
+
+
+def _hold_within_bounds(torch, dev, cfg, shape, ckpt_dir, params, losses,
+                        want_losses):
+    """Phase 17 when its steps are not phase 15's bit for bit: the
+    unsharded trainer runs the same steps from the same checkpoint, the
+    first step and the leaves that differ are printed, and every leaf is
+    held within 1e-3 of its largest value and every loss within 1e-3
+    relative (phase 15(b)'s card-against-CPU bound)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.train import init_state
+    from repro_torch.train import (OptConfig, data, fault_tolerance as ft,
+                                   make_train_step)
+    from repro_torch.train._tree import leaves_with_path
+
+    half = TRAIN_STEPS // 2
+    with sh.use_sharding(sh.ShardingCtx()):
+        state, extra, _ = ft.resume_or_init(
+            ft.FaultConfig(ckpt_dir=ckpt_dir, ckpt_every=0),
+            lambda: fail("phase 17: the checkpoint is gone"),
+            like=init_state(cfg, "meta"), device=dev)
+        pipe = data.make_pipeline(cfg, shape, seed=29)
+        pipe.restore(extra["data"])
+        step = make_train_step(
+            cfg, OptConfig(warmup_steps=2, total_steps=TRAIN_STEPS),
+            num_microbatches=TRAIN_MICRO, remat=True, loss_chunk=1024)
+        for _ in range(half, TRAIN_STEPS):
+            p, o, _ = step(state["params"], state["opt"], next(pipe))
+            state = {"params": p, "opt": o}
+    errs = {}
+    for (path, a), (_, b) in zip(leaves_with_path(params),
+                                 leaves_with_path(state["params"])):
+        a = sh.local(a)
+        if not torch.equal(a, b):
+            errs[path] = float((a - b).abs().max() / b.abs().max())
+    first = next((half + 1 + i for i, (a, b) in enumerate(
+        zip(losses, want_losses)) if a != b), None)
+    print(f"fsdp: NOT bit for bit: the first loss that differs is step "
+          f"{first}'s ({losses} vs {want_losses}); leaves against the "
+          f"unsharded trainer's, largest error over the largest value: "
+          f"{errs}")
+    bad_losses = [(a, b) for a, b in zip(losses, want_losses)
+                  if abs(a - b) > TRAIN_TOL * abs(b)]
+    bad = {k: v for k, v in errs.items() if v > TRAIN_TOL}
+    if bad or bad_losses:
+        fail(f"phase 17: beyond the bound {TRAIN_TOL}: leaves {bad}, "
+             f"losses {bad_losses}")
+    del state
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4803,6 +5119,8 @@ def main(argv=None) -> int:
     kernels += time_stream_kernels(torch, dev, data, data3, errs3)
     # phase 16: the CPM layer on a mesh of processes, on phase 7's rows
     mesh_counts = check_mesh(torch, np, dev, data, record, card)
+    # phase 17: phase 15's steps 4-6 from its checkpoint, sharded
+    fsdp_counts = train_sharded(torch, dev, record, card)
     del data
     record["streams"] = {"shape": [CPM_R, CPM_N], "used_len": data3["used"],
                          "path_s": data3["path_s"],
@@ -4818,7 +5136,8 @@ def main(argv=None) -> int:
              "hybrid_generate": hyb_counts, "hybrid_pool": hyb_pool_counts,
              "moe_generate": moe_counts, "xlstm_generate": xl_counts,
              "xlstm_pool": xl_pool_counts, "seamless_generate": ed_counts,
-             "train": train_counts, "mesh": mesh_counts}
+             "train": train_counts, "mesh": mesh_counts,
+             "train_sharded": fsdp_counts}
     for k in kernels:
         # each kernel's count on the newest path that runs it (the pool for
         # the serving kernels, phase 7, 8 or 9 for the per-op ones)

@@ -9,18 +9,48 @@ Three terms per step, each in seconds per step per card:
 
 The figures are NVIDIA's data sheet for the H100 SXM at its full 700 W
 power limit; a card set below it runs slower, so a share of these peaks
-goes with the card's ``nvidia-smi`` power limit.  The JAX module's
-``parse_hlo`` reads compiled XLA text, which the port has no counterpart
-of; it waits with the dry run (ROADMAP Queue 1 item 5).
+goes with the card's ``nvidia-smi`` power limit.
+
+The JAX module's ``parse_hlo`` reads the collective bytes of a compiled
+step from XLA's text.  The port has no compiled program: its collectives
+are the calls ``repro_torch.distributed.sharding`` makes, which count
+themselves, so :func:`collective_stats` reads those counters (set to 0
+before the step, read after) with ``parse_hlo``'s per-chip ring model:
+all-gather ``out (g - 1) / g``, reduce-scatter ``in (g - 1) / g``,
+all-reduce ``2 in (g - 1) / g`` over a group of ``g`` ranks.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 HW = {
     "peak_flops": 989e12,      # dense bf16 per card
     "hbm_bw": 3.35e12,         # HBM3 bytes/s per card
     "nvlink_bw": 450e9,        # NVLink 4 bytes/s per card, one direction
 }
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """``parse_hlo``'s result: the bytes each card moves, in all and by
+    kind, and the number of collectives by kind."""
+    per_chip_bytes: float = 0.0
+    by_kind: dict = dataclasses.field(default_factory=dict)
+    op_counts: dict = dataclasses.field(default_factory=dict)
+
+
+def collective_stats(counts: dict | None = None) -> CollectiveStats:
+    """The collectives counted by ``sharding.collective_counts()`` (or
+    ``counts``, a result of it) as ``parse_hlo`` reports a step's."""
+    from repro_torch.distributed import sharding
+
+    counts = sharding.collective_counts() if counts is None else counts
+    kinds = {k.replace("_", "-"): v for k, v in counts.items()}
+    return CollectiveStats(
+        per_chip_bytes=sum(v["ring_bytes"] for v in kinds.values()),
+        by_kind={k: v["ring_bytes"] for k, v in kinds.items()},
+        op_counts={k: v["calls"] for k, v in kinds.items()})
 
 
 def roofline_terms(flops_per_chip: float, bytes_per_chip: float,

@@ -49,11 +49,12 @@ from .reference.computable import sum_dtype
 _FLAT: dict = {}
 
 
-def _group(axis_name):
-    """The process group of ``axis_name`` (see the module docstring)."""
+def _group(axis_name, mesh=None):
+    """The process group of ``axis_name`` (see the module docstring) on
+    ``mesh``, default the current sharding context's."""
     if isinstance(axis_name, dist.ProcessGroup):
         return axis_name
-    mesh = sharding.current_ctx().mesh
+    mesh = sharding.current_ctx().mesh if mesh is None else mesh
     if not hasattr(mesh, "get_group"):
         raise ValueError(f"axis {axis_name!r} needs a sharding context "
                          f"whose mesh is a DeviceMesh, or pass a process "

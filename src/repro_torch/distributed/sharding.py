@@ -15,9 +15,29 @@ tuple with JAX's meaning (an entry per tensor dim: ``None``, a mesh axis
 name, or a tuple of names sharding that dim major to minor) and JAX's
 normalisation (a one-name tuple is the name, an empty one ``None``), so a
 spec equals the tuple of the JAX spec's entries.  :func:`placements` turns
-a spec into the DTensor placements of a ``DeviceMesh`` (the counterpart of
-``named_shardings``).  The context's mesh is a ``DeviceMesh`` or anything
-with ``axis_names`` and a ``shape`` mapping (spec building only).
+a spec into the DTensor placements of a ``DeviceMesh``.  The context's
+mesh is a ``DeviceMesh`` or anything with ``axis_names`` and a ``shape``
+mapping (spec building only).
+
+Data parallelism (ZeRO-3 / FSDP, plain DP and ``pure_dp``) runs on the
+data axes.  :func:`distribute_params` stores each leaf as a ``DTensor``
+holding only this rank's block of its :func:`param_spec` (JAX's
+``device_put`` with ``named_shardings``); :func:`compute_view` casts a
+block to the compute dtype and all-gathers it over the data axes into a
+plain tensor, whole on the data axes, whose backward reduce-scatters the
+gradient back onto the block (all-reduces it for a leaf replicated over
+dp) and divides by the group's size: the gradient of the mean of the
+ranks' losses.  Activations are the rank's own batch rows, so
+:func:`shard` checks the context and returns its input.  A mesh axis
+longer than 1 other than the data axes (tensor parallelism) raises
+``NotImplementedError``: it is ROADMAP Queue 1 item 5.
+
+Every collective of this module adds to :func:`collective_counts`, by
+kind: calls, the bytes it carries (all-gather: its output; reduce-scatter
+and all-reduce: their input) and the bytes each rank moves on a ring of
+``g`` ranks, as ``repro.analysis.roofline.parse_hlo`` counts them:
+all-gather ``out (g - 1) / g``, reduce-scatter ``in (g - 1) / g``,
+all-reduce ``2 in (g - 1) / g``.
 """
 
 from __future__ import annotations
@@ -26,6 +46,9 @@ import contextlib
 import math
 import os
 from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
 
 
 class PartitionSpec(tuple):
@@ -164,6 +187,50 @@ def act_spec(kind: str, shape: tuple[int, ...] | None = None,
     return spec
 
 
+def _entry_axes(entry) -> tuple:
+    return () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+
+
+def check_data_only(ctx: ShardingCtx | None = None, spec=None,
+                    what: str = "this mesh") -> None:
+    """Raise ``NotImplementedError`` where ``spec`` (default: any axis of
+    the mesh) names a mesh axis longer than 1 that is not a data axis:
+    tensor parallelism, ROADMAP Queue 1 item 5.  Never skips such an
+    axis silently."""
+    c = ctx or _CTX
+    if c.mesh is None:
+        return
+    names = (axis_names(c.mesh) if spec is None else
+             tuple(a for e in spec for a in _entry_axes(e)))
+    for a in names:
+        if a not in c.data_axes and c.axis_size(a) > 1:
+            raise NotImplementedError(
+                f"{what} shards over mesh axis {a!r} of size "
+                f"{c.axis_size(a)}: tensor parallelism (an axis longer "
+                f"than 1 besides the data axes {c.data_axes}) is ROADMAP "
+                f"Queue 1 item 5")
+
+
+def shard(x, kind: str, ctx: ShardingCtx | None = None):
+    """``with_sharding_constraint`` by logical kind.  Each rank holds its
+    own batch rows, which is the data axes' part of every activation
+    spec, so ``x`` comes back as it is; a spec naming another axis longer
+    than 1 raises (:func:`check_data_only`), as do the expert-parallel
+    and capacity-over-dp MoE layouts (``REPRO_EP_DATA``,
+    ``REPRO_MOE_CAP_DP``) under more than one data rank."""
+    c = ctx or _CTX
+    if c.mesh is None:
+        return x
+    check_data_only(c, act_spec(kind, None, c), f"activation {kind!r}")
+    if kind in ("ecd", "ecf") and (_EP_AXIS_DATA or _MOE_CAP_DP) \
+            and dp_size(c) > 1:
+        raise NotImplementedError(
+            "REPRO_EP_DATA / REPRO_MOE_CAP_DP shard the MoE dispatch over "
+            "the data axes: expert parallelism is ROADMAP Queue 1 item 5")
+    return x
+
+
 # ---------------------------------------------------------------------------
 # parameter partition rules
 # ---------------------------------------------------------------------------
@@ -271,3 +338,413 @@ def placements(spec, mesh) -> list:
                                  f"of {spec!r}")
             out[m] = Shard(d)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the data axes: their size, this rank's coordinate and their group
+# ---------------------------------------------------------------------------
+
+def dp_size(ctx: ShardingCtx | None = None) -> int:
+    """The number of ranks over the data axes (1 without a mesh)."""
+    c = ctx or _CTX
+    if c.mesh is None or not c.data_axes:
+        return 1
+    return c.axis_size(c.data_axes)
+
+
+def dp_rank(ctx: ShardingCtx | None = None) -> int:
+    """This rank's coordinate over the data axes, major to minor (JAX's
+    host index over them): the block of every dp-sharded leaf and of the
+    global batch that it holds."""
+    c = ctx or _CTX
+    if c.mesh is None or not c.data_axes:
+        return 0
+    r = 0
+    for a in c.data_axes:
+        r = r * c.axis_size(a) + c.mesh.get_local_rank(a)
+    return r
+
+
+def dp_group(ctx: ShardingCtx | None = None):
+    """The process group over the data axes, its ranks in coordinate
+    order (one mesh dimension's group, or one made over several, once)."""
+    from repro_torch.cpm.collectives import _group
+
+    c = ctx or _CTX
+    return _group(tuple(c.data_axes), c.mesh)
+
+
+# ---------------------------------------------------------------------------
+# counted collectives
+# ---------------------------------------------------------------------------
+
+_KINDS = ("all_gather", "reduce_scatter", "all_reduce")
+_COUNTS: dict = {}
+
+
+def collective_counts() -> dict:
+    """Per kind: ``calls``, ``bytes`` carried (all-gather: its output;
+    reduce-scatter, all-reduce: their input), those bytes by element
+    type (``dtypes``) and ``ring_bytes``, what each rank moves on a ring
+    (module docstring), since the last :func:`reset_collective_counts`."""
+    return {k: dict(v, dtypes=dict(v["dtypes"])) for k, v in _COUNTS.items()}
+
+
+def reset_collective_counts() -> None:
+    for k in _KINDS:
+        _COUNTS[k] = {"calls": 0, "bytes": 0, "ring_bytes": 0.0,
+                      "dtypes": {}}
+
+
+reset_collective_counts()
+
+
+def _count(kind: str, t: torch.Tensor, g: int) -> None:
+    nbytes = t.numel() * t.element_size()
+    share = (g - 1) / g
+    c = _COUNTS[kind]
+    c["calls"] += 1
+    c["bytes"] += nbytes
+    c["ring_bytes"] += nbytes * share * (2 if kind == "all_reduce" else 1)
+    name = str(t.dtype).removeprefix("torch.")
+    c["dtypes"][name] = c["dtypes"].get(name, 0) + nbytes
+
+
+def _around(shape, dim: int) -> tuple[int, int, int]:
+    """(elements before ``dim``, its size, elements after it)."""
+    return (math.prod(shape[:dim]), shape[dim], math.prod(shape[dim + 1:]))
+
+
+def _all_gather(x: torch.Tensor, dim: int, group, g: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in group order, laid
+    out row-major as an unsharded tensor (a GEMM's rounding follows its
+    operands' layout).  The blocks arrive stacked, so putting them side
+    by side along ``dim`` copies runs of whole rows (none at ``g`` 1)."""
+    pre, n, post = _around(x.shape, dim)
+    out = x.new_empty((g * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    _count("all_gather", out, g)
+    shape = (*x.shape[:dim], g * n, *x.shape[dim + 1:])
+    return out.view(g, pre, n, post).permute(1, 0, 2, 3).reshape(shape)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group,
+                    g: int) -> torch.Tensor:
+    """The sum of the ranks' ``x``, this rank's block along ``dim``: the
+    ``g`` blocks stacked for the collective (runs of whole rows copied;
+    none at ``g`` 1)."""
+    pre, n, post = _around(x.shape, dim)
+    out = x.new_empty((*x.shape[:dim], n // g, *x.shape[dim + 1:]))
+    xs = x.reshape(pre, g, n // g, post).permute(1, 0, 2, 3).contiguous()
+    xs = xs.view(g * out.shape[0], *out.shape[1:])
+    dist.reduce_scatter_tensor(out, xs, group=group)
+    _count("reduce_scatter", xs, g)
+    return out
+
+
+def _all_reduce(x: torch.Tensor, group, g: int) -> torch.Tensor:
+    """The sum of the ranks' ``x``, in a new tensor."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    _count("all_reduce", out, g)
+    return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``lax.psum`` under autograd: the sum over the group, whose
+    backward is the same sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group, g):
+        ctx.group, ctx.g = group, g
+        return _all_reduce(x, group, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group, ctx.g), None, None
+
+
+def dp_sum(x: torch.Tensor, ctx: ShardingCtx | None = None) -> torch.Tensor:
+    """The sum of every data rank's ``x`` (differentiable), or ``x``
+    without a mesh."""
+    c = ctx or _CTX
+    if c.mesh is None:
+        return x
+    return _AllReduceSum.apply(x, dp_group(c), dp_size(c))
+
+
+def dp_mean(x: torch.Tensor,
+            ctx: ShardingCtx | None = None) -> torch.Tensor:
+    """The mean of every data rank's ``x`` (differentiable)."""
+    c = ctx or _CTX
+    n = dp_size(c)
+    s = dp_sum(x, c)
+    return s if n == 1 else s / n
+
+
+@torch.no_grad()
+def dp_gather(x: torch.Tensor, ctx: ShardingCtx | None = None):
+    """Every data rank's ``x`` stacked on a new leading axis, in
+    coordinate order (no gradient)."""
+    c = ctx or _CTX
+    if c.mesh is None:
+        return x[None]
+    return _all_gather(x[None], 0, dp_group(c), dp_size(c))
+
+
+# ---------------------------------------------------------------------------
+# distributed parameters: DTensors by the partition rules
+# ---------------------------------------------------------------------------
+
+def _dtensor_cls():
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
+def is_distributed(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` (a leaf stored by its spec)."""
+    return isinstance(x, _dtensor_cls())
+
+
+def local(x):
+    """The local block of a ``DTensor`` (its storage: updating it in place
+    updates the leaf), or ``x`` itself."""
+    if not is_distributed(x):
+        return x
+    with torch.no_grad():
+        return x.to_local()
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """``jax.sharding.NamedSharding``: a mesh (``DeviceMesh``) and a
+    spec."""
+    mesh: object
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> list:
+        return placements(self.spec, self.mesh)
+
+
+def _walk(fn, tree, prefix: str = "", is_leaf=None):
+    """``fn(path, leaf)`` over nested dicts / lists / tuples, paths in
+    :func:`param_specs`' ``/a/b`` form."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(prefix, tree)
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, f"{prefix}/{k}", is_leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(fn, v, prefix, is_leaf) for v in tree)
+    return fn(prefix, tree)
+
+
+def named_shardings(tree_of_specs, mesh):
+    """A tree of :class:`NamedSharding` matching a tree of specs."""
+    return _walk(lambda _, s: NamedSharding(mesh, s), tree_of_specs,
+                 is_leaf=lambda x: isinstance(x, PartitionSpec))
+
+
+def local_block(full, placements_, mesh):
+    """This rank's block of ``full`` (a tensor, or a NumPy array such as a
+    memory-mapped ``.npy``) under ``placements_`` on ``mesh``: every
+    ``Shard(d)`` mesh dimension cuts dim ``d`` in equal blocks, in mesh
+    order, so several of them shard a dim major to minor.  A view."""
+    from torch.distributed.tensor import Shard
+
+    x = full
+    for m, p in enumerate(placements_):
+        if isinstance(p, Shard):
+            n, i = mesh.size(m), mesh.get_local_rank(m)
+            size = x.shape[p.dim]
+            if size % n:
+                raise ValueError(f"dim {p.dim} of {tuple(full.shape)} does "
+                                 f"not split into {n} blocks")
+            cut = [slice(None)] * len(x.shape)
+            cut[p.dim] = slice(i * size // n, (i + 1) * size // n)
+            x = x[tuple(cut)]
+    return x
+
+
+def shard_from_full(full, sharding: NamedSharding, device=None,
+                    dtype=None):
+    """A ``DTensor`` of ``sharding`` holding this rank's block of
+    ``full`` (a tensor or a NumPy array), copied into a new contiguous
+    tensor on ``device`` (default ``full``'s, or the CPU for an array):
+    the whole never reaches the device."""
+    pl = sharding.placements
+    block = local_block(full, pl, sharding.mesh)
+    if not isinstance(block, torch.Tensor):
+        import numpy as np
+
+        block = torch.from_numpy(np.ascontiguousarray(block))
+    dev = block.device if device is None else torch.device(device)
+    out = torch.empty(tuple(block.shape), dtype=dtype or block.dtype,
+                      device=dev)
+    out.copy_(block)
+    return _dtensor_cls().from_local(out, sharding.mesh, pl,
+                                     run_check=False)
+
+
+def distribute_leaf(path: str, full, ctx: ShardingCtx | None = None):
+    """One leaf as a ``DTensor`` by its :func:`param_spec` (the rank keeps
+    its block; the full tensor can be freed)."""
+    c = ctx or _CTX
+    check_data_only(c)
+    spec = param_spec(path, tuple(full.shape), c)
+    return shard_from_full(full, NamedSharding(c.mesh, spec))
+
+
+def distribute_params(tree, ctx: ShardingCtx | None = None):
+    """Full tensors to ``DTensor``s by the partition rules, leaf by leaf
+    (the counterpart of ``device_put`` with ``named_shardings``): each
+    rank keeps its block of each, on the device of that leaf."""
+    c = ctx or _CTX
+    return _walk(lambda path, x: distribute_leaf(path, x, c), tree)
+
+
+def _dp_dim(w, ctx: ShardingCtx):
+    """The tensor dim of DTensor ``w`` sharded over the data axes, or
+    None where it is replicated over them."""
+    from torch.distributed.tensor import Shard
+
+    if ctx.mesh is None:
+        raise ValueError("a DTensor leaf needs the sharding context of its "
+                         "mesh (use_sharding / set_sharding_ctx)")
+    names = axis_names(w.device_mesh)
+    dims = {p.dim if isinstance(p, Shard) else None
+            for name, p in zip(names, w.placements)
+            if name in ctx.data_axes}
+    if len(dims) > 1:
+        raise ValueError(f"placements {w.placements} split the data axes "
+                         f"{ctx.data_axes} over several dims")
+    return dims.pop() if dims else None
+
+
+def dp_sharded(w, ctx: ShardingCtx | None = None) -> bool:
+    """Whether DTensor ``w`` is split over the data axes (its local
+    blocks sum to the whole; a replicated leaf's count once)."""
+    return is_distributed(w) and _dp_dim(w, ctx or _CTX) is not None
+
+
+def unbind_leading(w) -> list:
+    """``w.unbind(0)`` of a DTensor whose leading (stacked-layer) axis is
+    not sharded: one DTensor a repeat, each block a view of ``w``'s, under
+    autograd (a gradient reaches ``w``'s block through every repeat)."""
+    from torch.distributed.tensor import Shard
+
+    pl = []
+    for p in w.placements:
+        if isinstance(p, Shard):
+            if p.dim == 0:
+                raise ValueError("a stacked-layer axis is never sharded")
+            p = Shard(p.dim - 1)
+        pl.append(p)
+    cls = _dtensor_cls()
+    return [cls.from_local(t, w.device_mesh, pl, run_check=False)
+            for t in w.to_local().unbind(0)]
+
+
+def _whole(block, dtype, dim, group, g: int) -> torch.Tensor:
+    """``block`` cast to ``dtype`` (None: kept), then all-gathered along
+    ``dim`` over the data group (``dim`` None: the leaf is replicated
+    there and nothing moves)."""
+    x = block if dtype is None else block.to(dtype)
+    return x.view_as(x) if dim is None else _all_gather(x, dim, group, g)
+
+
+def _reduced(grad, dim, group, g: int, dtype) -> torch.Tensor:
+    """The ranks' ``grad`` summed (in its dtype) onto the block along
+    ``dim`` (all-reduced for ``dim`` None), cast to ``dtype`` and divided
+    by the group's size: the gradient of the mean of the ranks' losses."""
+    red = (_all_reduce(grad, group, g) if dim is None
+           else _reduce_scatter(grad, dim, group, g)).to(dtype)
+    return red / g if g > 1 else red
+
+
+class _GatherView(torch.autograd.Function):
+    """A shard's compute view (:func:`_whole`), whose backward reduces the
+    compute-dtype gradient back onto the shard (:func:`_reduced`)."""
+
+    @staticmethod
+    def forward(ctx, block, dtype, dim, group, g):
+        ctx.dim, ctx.group, ctx.g, ctx.dtype = dim, group, g, block.dtype
+        return _whole(block, dtype, dim, group, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_reduced(grad, ctx.dim, ctx.group, ctx.g, ctx.dtype),
+                None, None, None, None)
+
+
+def compute_view(params, dtype=None, ctx: ShardingCtx | None = None):
+    """Cast >=2-D float32 weights to ``dtype`` and make every leaf whole
+    on the data axes: the single place the ZeRO-3 weight all-gathers
+    happen (JAX's constraint to :func:`compute_spec`), once a block
+    application.  A ``DTensor`` leaf comes back as a plain tensor (the
+    gather of its cast block, see :class:`_GatherView`); a plain tensor is
+    only cast."""
+    c = ctx or _CTX
+    check_data_only(c, what="compute_view")
+    group = n = None
+
+    def view(_, w):
+        nonlocal group, n
+        cast = (dtype if dtype is not None and w.ndim >= 2
+                and w.dtype == torch.float32 else None)
+        if not is_distributed(w):
+            return w if cast is None else w.to(cast)
+        if group is None:
+            group, n = dp_group(c), dp_size(c)
+        return _GatherView.apply(w.to_local(), cast, _dp_dim(w, c), group,
+                                 n)
+
+    return _walk(view, params)
+
+
+class _EmbedRows(torch.autograd.Function):
+    """Rows of a distributed table: the table whole (:func:`_whole`), then
+    indexed.  The backward accumulates the rows' gradients into a zero
+    table of the block's dtype, as indexing the float32 table and casting
+    the rows would (so one rank trains bit for bit as a plain table), and
+    reduces that onto the block (:func:`_reduced`)."""
+
+    @staticmethod
+    def forward(ctx, block, index, dtype, dim, group, g):
+        ctx.save_for_backward(index)
+        ctx.dim, ctx.group, ctx.g, ctx.dtype = dim, group, g, block.dtype
+        x = _whole(block, dtype, dim, group, g)
+        ctx.shape = x.shape
+        return x[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, = ctx.saved_tensors
+        table = grad.new_zeros(ctx.shape, dtype=ctx.dtype)
+        table.index_put_((index,), grad.to(ctx.dtype), accumulate=True)
+        return (_reduced(table, ctx.dim, ctx.group, ctx.g, ctx.dtype),
+                None, None, None, None, None)
+
+
+def embed_rows(table, index: torch.Tensor, dtype,
+               ctx: ShardingCtx | None = None) -> torch.Tensor:
+    """``table[index]`` cast to ``dtype`` for a distributed ``table`` (see
+    :class:`_EmbedRows`)."""
+    c = ctx or _CTX
+    check_data_only(c)
+    return _EmbedRows.apply(table.to_local(), index, dtype,
+                            _dp_dim(table, c), dp_group(c), dp_size(c))
+
+
+def full_tensor(w, ctx: ShardingCtx | None = None) -> torch.Tensor:
+    """The whole of DTensor ``w`` on every data rank (an all-gather over
+    the data axes; no gradient): the checkpoint's view of a leaf."""
+    c = ctx or _CTX
+    check_data_only(c)
+    block, dim = local(w), _dp_dim(w, c)
+    if dim is None:
+        return block
+    with torch.no_grad():
+        return _all_gather(block, dim, dp_group(c), dp_size(c)).contiguous()

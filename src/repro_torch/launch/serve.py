@@ -13,7 +13,9 @@ encoder-decoder (seamless-m4t) is served from Python:
 ``Engine.generate({"tokens": ..., "src_embeds": ...}, gen)``.
 
 Weights are random, drawn from ``--seed``; prompts repeat a seeded n-gram
-so that prompt-lookup drafts find matches.
+so that prompt-lookup drafts find matches.  As JAX's, the command runs
+under the host mesh's sharding context (``make_host_mesh()``: a group of
+one when run alone), which leaves the tokens as they are without it.
 """
 
 from __future__ import annotations
@@ -22,9 +24,12 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import all_configs, get_config
+from repro_torch.distributed import sharding as shlib
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm
 from repro_torch.serve import Engine, GenConfig
 
@@ -64,6 +69,17 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    started = not dist.is_initialized()
+    mesh = make_host_mesh(device=dev.type)
+    try:
+        with shlib.use_sharding(shlib.make_ctx(mesh)):
+            _serve(args, dev)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _serve(args, dev):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()

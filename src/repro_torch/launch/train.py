@@ -4,17 +4,28 @@
         --device cpu --steps 4 --ckpt-dir build/train_ckpt/smoke
     python -m repro_torch.launch.train --arch granite-8b --seq-len 4096 \\
         --global-batch 8 --microbatches 4
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch granite-8b --seq-len 4096 --global-batch 32
 
 The flags of ``repro.launch.train`` plus ``--device``.  ``--mesh host``
-(one device) is the only mesh: the production meshes come with
-distribution (ROADMAP Queue 1 item 5).  Weights start from seed 0 and
-the data is the synthetic token stream of ``repro_torch.train.data``;
-the run resumes from the newest checkpoint in ``--ckpt-dir`` (default
-``build/train_ckpt/<arch>`` under the working directory).  Besides the
-periodic checkpoints of the loop, the last step is checkpointed too, so
-a later run with more ``--steps`` resumes where this one ended.  Loss, lr
-and tokens/s are logged every ``--log-every`` steps, the only host reads
-of the metrics.
+trains data-parallel over the running group: ``make_host_mesh()`` =
+(world, 1) ("data", "model") over the ranks ``torchrun`` starts, or a
+group of one this process starts itself.  Each rank holds only its
+``param_spec`` block of the params, ``mu`` and ``nu`` (ZeRO-3), reads
+the rows of its data coordinate and all-gathers each block's weights as
+it runs it (``sharding.compute_view``).  The production meshes need
+tensor parallelism over their "model" axis (ROADMAP Queue 1 item 5).
+Weights start from seed 0, drawn leaf by leaf: every rank draws each
+whole leaf from the same generator on its device and keeps its block, so
+one rank's init is the unsharded one's and no rank holds the whole
+state.  The data is the synthetic token stream of
+``repro_torch.train.data``; the run resumes from the newest checkpoint
+in ``--ckpt-dir`` (default ``build/train_ckpt/<arch>`` under the working
+directory), re-sharded onto the running group whatever its size.
+Besides the periodic checkpoints of the loop, the last step is
+checkpointed too, so a later run with more ``--steps`` resumes where
+this one ended; rank 0 writes them and logs.  Loss, lr and tokens/s are
+logged every ``--log-every`` steps, the only host reads of the metrics.
 """
 
 from __future__ import annotations
@@ -25,10 +36,13 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import SHAPES, ShapeConfig, all_configs, get_config
-from repro_torch.models import lm
+from repro_torch.distributed import sharding as shlib
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import layers as L, lm
 from repro_torch.train import (OptConfig, checkpoint, data,
                                fault_tolerance as ft, init_opt_state,
                                make_train_step)
@@ -36,13 +50,30 @@ from repro_torch.train import (OptConfig, checkpoint, data,
 log = logging.getLogger("repro_torch.launch.train")
 
 
-def init_state(cfg, device, seed: int = 0) -> dict:
+def init_state(cfg, device, seed: int = 0, ctx=None) -> dict:
     """Fresh params (``lm.init_params`` from ``seed``) and optimizer state
-    on ``device``; on ``meta`` a skeleton of shapes and dtypes only."""
+    on ``device``; on ``meta`` a skeleton of shapes and dtypes only.  With
+    a sharding context whose mesh is running, every leaf becomes a
+    ``DTensor`` of this rank's block as soon as it is drawn."""
     dev = torch.device(device)
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
-    params = lm.init_params(cfg, gen.manual_seed(seed), dev)
+    gen.manual_seed(seed)
+    if ctx is None or ctx.mesh is None or dev.type == "meta":
+        params = lm.init_params(cfg, gen, dev)
+    else:
+        with L.leaf_hook(lambda name, t: shlib.distribute_leaf(name, t,
+                                                               ctx)):
+            params = lm.init_params(cfg, gen, dev)
     return {"params": params, "opt": init_opt_state(params)}
+
+
+def state_shardings(like, ctx) -> dict:
+    """Where each leaf of a train state goes (``checkpoint.restore``'s
+    ``shardings``): params, ``mu`` and ``nu`` by the partition rules, the
+    step whole."""
+    specs = shlib.param_specs(like["params"], ctx)
+    one = shlib.named_shardings(specs, ctx.mesh)
+    return {"params": one, "opt": {"mu": one, "nu": one, "step": None}}
 
 
 def main(argv=None):
@@ -65,20 +96,40 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
-    logging.basicConfig(level=logging.INFO)
     if args.mesh != "host":
-        raise SystemExit(f"--mesh {args.mesh}: repro_torch trains on one "
-                         f"device ('host'); the production meshes come "
-                         f"with distribution (ROADMAP Queue 1 item 5)")
+        raise SystemExit(f"--mesh {args.mesh}: repro_torch trains data-"
+                         f"parallel on the host mesh only; the production "
+                         f"meshes need tensor parallelism over 'model' "
+                         f"(ROADMAP Queue 1 item 5)")
     dev = resolve_device(args.device)
+    started = not dist.is_initialized()
+    mesh = make_host_mesh(device=dev.type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    ctx = shlib.make_ctx(mesh)
+    shlib.set_sharding_ctx(ctx)
+    logging.basicConfig(level=logging.INFO if checkpoint.writes()
+                        else logging.WARNING)
+    try:
+        _train(args, dev, ctx)
+    finally:
+        shlib.set_sharding_ctx(shlib.ShardingCtx())
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, dev, ctx):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     shape = SHAPES[args.shape]
     seq = args.seq_len or (64 if args.smoke else shape.seq_len)
     gbs = args.global_batch or (8 if args.smoke else shape.global_batch)
-    log.info("device %s | arch %s (%.2fB params) | %d x %d tokens a step",
-             dev, cfg.name, cfg.param_count() / 1e9, gbs, seq)
+    log.info("device %s | mesh %s %s | arch %s (%.2fB params) | %d x %d "
+             "tokens a step", dev, tuple(ctx.mesh.shape),
+             ctx.mesh.mesh_dim_names, cfg.name, cfg.param_count() / 1e9,
+             gbs, seq)
 
     opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps,
                         warmup_steps=max(1, args.steps // 20))
@@ -86,11 +137,13 @@ def main(argv=None):
                            loss_chunk=min(1024, seq))
     fcfg = ft.FaultConfig(ckpt_dir=args.ckpt_dir or os.path.join(
         "build", "train_ckpt", cfg.name), ckpt_every=args.ckpt_every)
+    like = init_state(cfg, "meta")
     state, extra, start = ft.resume_or_init(
-        fcfg, lambda: init_state(cfg, dev), like=init_state(cfg, "meta"),
-        device=dev)
-    pipe = data.make_pipeline(cfg, ShapeConfig(shape.name, seq, gbs,
-                                               shape.kind))
+        fcfg, lambda: init_state(cfg, dev, ctx=ctx), like=like, device=dev,
+        shardings=state_shardings(like, ctx))
+    pipe = data.make_pipeline(
+        cfg, ShapeConfig(shape.name, seq, gbs, shape.kind),
+        process_index=shlib.dp_rank(ctx), process_count=shlib.dp_size(ctx))
     if extra.get("data"):
         pipe.restore(extra["data"])
 
@@ -101,7 +154,7 @@ def main(argv=None):
         return {"params": p, "opt": o}, m
 
     def on_metrics(s, m):
-        if (s + 1) % args.log_every == 0:
+        if (s + 1) % args.log_every == 0 and checkpoint.writes():
             loss, lr = float(m["loss"]), float(m["lr"])   # syncs the card
             dt = time.perf_counter() - t0
             toks = (s + 1 - start) * gbs * seq

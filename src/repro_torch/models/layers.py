@@ -9,13 +9,23 @@ Pure functions on tensors: ``init_*`` builds parameter dicts that mirror
 the JAX pytree one to one, ``apply_*`` / ``*_fwd`` / ``*_step`` consume
 them.  Parameters stay float32 and are cast to ``COMPUTE_DTYPE``
 (bfloat16) where they are used, at the JAX package's casting points
-(``compute_view`` casts every >=2-D float32 weight per block).  The
-sharding constraints of the JAX package are dropped (distribution is
-ROADMAP Queue 1 item 5), and with them the sLSTM's ``shard_map`` branch.
+(``compute_view`` casts every >=2-D float32 weight per block).
+
+Under a data-parallel sharding context (``repro_torch.distributed.
+sharding``) each rank runs its own batch rows: ``compute_view`` turns the
+params' ``DTensor`` blocks into whole weights (the ZeRO-3 all-gather,
+reduce-scattered in the backward), ``shard`` stands where JAX constrains
+activations, and the MoE routes the global batch (capacity from the
+global token count, queue positions after the lower ranks' tokens, the
+dispatch buffer summed over the data ranks, load and importance averaged
+over them).  The sLSTM, a ``shard_map`` over the batch in JAX, runs its
+time loop on the rank's own rows with no collective inside.  Tensor
+parallelism raises (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -23,10 +33,34 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.cpm.reference import comparable
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels import ops
 
 Params = dict
 COMPUTE_DTYPE = torch.bfloat16
+
+#: where set (:func:`leaf_hook`), every parameter leaf passes through it
+_LEAF_HOOK = None
+
+
+@contextlib.contextmanager
+def leaf_hook(fn):
+    """Within the block, every parameter leaf the ``init_*`` functions draw
+    goes through ``fn(name, tensor)`` as soon as it is drawn (``name`` its
+    dict key, which is all ``param_spec`` reads of a path), and ``fn``'s
+    result takes its place: a rank keeps its block of each leaf before the
+    next is drawn, in the generator's order."""
+    global _LEAF_HOOK
+    prev, _LEAF_HOOK = _LEAF_HOOK, fn
+    try:
+        yield
+    finally:
+        _LEAF_HOOK = prev
+
+
+def _keep(name: str, t: torch.Tensor):
+    return t if _LEAF_HOOK is None else _LEAF_HOOK(name, t)
 
 
 
@@ -43,19 +77,21 @@ def _dense_init(shape, generator: torch.Generator, device, scale=None,
     return w.mul_(scale)
 
 
+def _dense_leaves(generator, device, reps, leaves) -> Params:
+    """``{name: _dense_init(shape, scale=scale)}`` of ``(name, shape,
+    scale)`` triples, drawn in order, each through the leaf hook."""
+    return {name: _keep(name, _dense_init(shape, generator, device,
+                                          scale=scale, reps=reps))
+            for name, shape, scale in leaves}
+
+
 def compute_view(p, dtype=None):
     """Cast every >=2-D float32 weight of a param tree to ``dtype``
     (default ``COMPUTE_DTYPE``, read at the call as the JAX callers pass
-    ``L.COMPUTE_DTYPE``; the JAX ``compute_view`` without its sharding
-    constraints)."""
-    dtype = COMPUTE_DTYPE if dtype is None else dtype
-    if isinstance(p, dict):
-        return {k: compute_view(v, dtype) for k, v in p.items()}
-    if isinstance(p, (list, tuple)):
-        return type(p)(compute_view(v, dtype) for v in p)
-    if p.ndim >= 2 and p.dtype == torch.float32:
-        return p.to(dtype)
-    return p
+    ``L.COMPUTE_DTYPE``) and make every leaf whole on the data axes:
+    ``sharding.compute_view``."""
+    return sharding.compute_view(p, COMPUTE_DTYPE if dtype is None
+                                 else dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -67,11 +103,13 @@ def _lead(reps, *shape):
 
 
 def init_norm(cfg: ModelConfig, d: int, device, reps=None) -> Params:
-    p = {"scale": torch.ones(_lead(reps, d), dtype=torch.float32,
-                             device=device)}
+    p = {"scale": _keep("scale", torch.ones(_lead(reps, d),
+                                            dtype=torch.float32,
+                                            device=device))}
     if cfg.norm == "ln":
-        p["bias"] = torch.zeros(_lead(reps, d), dtype=torch.float32,
-                                device=device)
+        p["bias"] = _keep("bias", torch.zeros(_lead(reps, d),
+                                              dtype=torch.float32,
+                                              device=device))
     return p
 
 
@@ -130,18 +168,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 def init_attention(cfg: ModelConfig, generator, device,
                    reps=None) -> Params:
     d, dh, h, kvh = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads
-    p = {
-        "wq": _dense_init((d, h * dh), generator, device, reps=reps),
-        "wk": _dense_init((d, kvh * dh), generator, device, reps=reps),
-        "wv": _dense_init((d, kvh * dh), generator, device, reps=reps),
-        "wo": _dense_init((h * dh, d), generator, device,
-                          scale=1.0 / math.sqrt(h * dh), reps=reps),
-    }
+    p = _dense_leaves(generator, device, reps, (
+        ("wq", (d, h * dh), None), ("wk", (d, kvh * dh), None),
+        ("wv", (d, kvh * dh), None),
+        ("wo", (h * dh, d), 1.0 / math.sqrt(h * dh))))
     if cfg.qkv_bias:
         for name, width in (("bq", h * dh), ("bk", kvh * dh),
                             ("bv", kvh * dh)):
-            p[name] = torch.zeros(_lead(reps, width), dtype=torch.float32,
-                                  device=device)
+            p[name] = _keep(name, torch.zeros(_lead(reps, width),
+                                              dtype=torch.float32,
+                                              device=device))
     return p
 
 
@@ -179,12 +215,12 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         kpos = positions if kv_positions is None else kv_positions
         k = apply_rope(k, kpos, cfg.rope_theta, cfg.mrope_sections)
-    q = q.transpose(1, 2)                                # (B, H, S, dh)
-    k = k.transpose(1, 2)
-    v = v.transpose(1, 2)
+    q = shard(q.transpose(1, 2), "bhsd")                 # (B, H, S, dh)
+    k = shard(k.transpose(1, 2), "bhsd")
+    v = shard(v.transpose(1, 2), "bhsd")
     o = ops.attention(q, k, v, causal=causal, window=window)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.dh)
-    y = o @ p["wo"].to(x.dtype)
+    o = shard(o, "bhsd").transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.dh)
+    y = shard(o @ p["wo"].to(x.dtype), "btd")
     if not with_cache:
         return y
     cache = {"k": k, "v": v,
@@ -229,7 +265,7 @@ def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
         o = ops.decode_attention(q, cross_kv["k"], cross_kv["v"],
                                  cache_len=cross_kv["len"])
         o = o.transpose(1, 2).reshape(b, 1, h * dh)
-        return o @ p["wo"].to(x_t.dtype), cache
+        return shard(o @ p["wo"].to(x_t.dtype), "btd"), cache
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x_t.device)
     per_row = pos.ndim == 1
     posb = pos[:, None] if per_row else pos.expand(b, 1)
@@ -251,7 +287,7 @@ def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
     live = pos + 1 if window is None else torch.clamp(pos + 1, max=slots)
     o = ops.decode_attention(q, ck, cv, cache_len=live)
     o = o.transpose(1, 2).reshape(b, 1, h * dh)
-    y = o @ p["wo"].to(x_t.dtype)
+    y = shard(o @ p["wo"].to(x_t.dtype), "btd")
     return y, {"k": ck, "v": cv, "len": pos + 1}
 
 
@@ -261,12 +297,9 @@ def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
 
 def init_ffn(cfg: ModelConfig, generator, device, reps=None) -> Params:
     d, f = cfg.d_model, cfg.d_ff
-    if cfg.ffn == "swiglu":
-        return {"w_gate": _dense_init((d, f), generator, device, reps=reps),
-                "w_in": _dense_init((d, f), generator, device, reps=reps),
-                "w_out": _dense_init((f, d), generator, device, reps=reps)}
-    return {"w_in": _dense_init((d, f), generator, device, reps=reps),
-            "w_out": _dense_init((f, d), generator, device, reps=reps)}
+    gate = (("w_gate", (d, f), None),) if cfg.ffn == "swiglu" else ()
+    return _dense_leaves(generator, device, reps, gate + (
+        ("w_in", (d, f), None), ("w_out", (f, d), None)))
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -281,7 +314,8 @@ def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         act = _gelu if cfg.ffn == "gelu" else F.relu
         h = act(x @ p["w_in"].to(dt))
-    return h @ p["w_out"].to(dt)
+    h = shard(h, "btf")
+    return shard(h @ p["w_out"].to(dt), "btd")
 
 
 # ---------------------------------------------------------------------------
@@ -290,13 +324,9 @@ def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def init_moe(cfg: ModelConfig, generator, device, reps=None) -> Params:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
-    return {
-        "router": _dense_init((d, e), generator, device, scale=0.02,
-                              reps=reps),
-        "expert_gate": _dense_init((e, d, f), generator, device, reps=reps),
-        "expert_in": _dense_init((e, d, f), generator, device, reps=reps),
-        "expert_out": _dense_init((e, f, d), generator, device, reps=reps),
-    }
+    return _dense_leaves(generator, device, reps, (
+        ("router", (d, e), 0.02), ("expert_gate", (e, d, f), None),
+        ("expert_in", (e, d, f), None), ("expert_out", (e, f, d), None)))
 
 
 def moe_route(probs: torch.Tensor, k: int, cap: int):
@@ -306,7 +336,12 @@ def moe_route(probs: torch.Tensor, k: int, cap: int):
     (token, slot)'s queue position inside its expert in token order (an
     exact int32 prefix sum, as JAX's ``associative_scan`` of ``add``) and
     whether it fits the expert's ``cap`` slots.  Returns
-    ``(mask, eidx, pos, keep)``."""
+    ``(mask, eidx, pos, keep)``.
+
+    Over several data ranks the tokens are the rank's block of the global
+    batch, which lists the ranks' blocks in coordinate order: each queue
+    position counts the lower ranks' (token, slot)s of its expert first
+    (one all-gather of the per-expert counts)."""
     t, e = probs.shape
     mask = comparable.topk_mask(probs, k)                # (T, E)
     masked = torch.where(mask, -probs, torch.inf)
@@ -315,6 +350,10 @@ def moe_route(probs: torch.Tensor, k: int, cap: int):
     oh = F.one_hot(flat, e).to(torch.int32)              # (T*k, E)
     pos_flat = torch.cumsum(oh, dim=0, dtype=torch.int32) - 1
     pos = pos_flat.gather(1, flat[:, None])[:, 0].reshape(t, k)
+    if sharding.dp_size() > 1:
+        every = sharding.dp_gather(oh.sum(0, dtype=torch.int32))  # (n, E)
+        lower = every[:sharding.dp_rank()].sum(0, dtype=torch.int32)
+        pos = pos + lower[eidx]
     return mask, eidx, pos, pos < cap
 
 
@@ -323,21 +362,31 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
     queues, SwiGLU experts and a gate-weighted combine.  Tokens past an
     expert's capacity are dropped: their (zero) values are added at
     ``(E-1, cap-1)``, exactly as JAX's ``.at[].add``.  Returns
-    ``(y, aux_loss)``."""
+    ``(y, aux_loss)``.
+
+    Over several data ranks the routing is the global batch's, as JAX's
+    (the dispatch is replicated over dp there): ``cap`` from the global
+    token count, queue positions after the lower ranks' (``moe_route``),
+    every rank's dispatch summed before the experts run (each slot holds
+    one rank's token, so the sum is exact), and load and importance the
+    means over the ranks before their product."""
     b, s, d = x.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     t = b * s
     dt = x.dtype
+    n = sharding.dp_size()
     xt = x.reshape(t, d)
     scores = xt.float() @ p["router"].float()
     probs = torch.softmax(scores, dim=-1)                # (T, E)
-    cap = max(int(cfg.moe.capacity_factor * t * k / e), 4)
+    cap = max(int(cfg.moe.capacity_factor * t * n * k / e), 4)
     mask, eidx, pos, keep = moe_route(probs, k, cap)
 
     # load-balance loss: the fraction routed to each expert times its mean
-    # probability
+    # probability, each over the global batch (equal blocks a rank)
     load = mask.float().mean(0)
     importance = probs.mean(0)
+    if n > 1:
+        load, importance = sharding.dp_mean(load), sharding.dp_mean(importance)
     aux = cfg.moe.router_aux_weight * e * torch.sum(load * importance)
 
     gates_k = probs.gather(1, eidx)                      # (T, k)
@@ -349,15 +398,19 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
     sc_c = torch.where(keep, pos.long(), cap - 1)
     expert_x = torch.zeros((e, cap, d), dtype=dt, device=x.device)
     expert_x.index_put_((sc_e, sc_c), vals, accumulate=True)
+    if n > 1:
+        expert_x = sharding.dp_sum(expert_x)
+    expert_x = shard(expert_x, "ecd")
 
     hg = torch.bmm(expert_x, p["expert_gate"].to(dt))
     hi = torch.bmm(expert_x, p["expert_in"].to(dt))
-    eo = torch.bmm(F.silu(hg) * hi, p["expert_out"].to(dt))   # (E, cap, d)
+    h = shard(F.silu(hg) * hi, "ecf")
+    eo = shard(torch.bmm(h, p["expert_out"].to(dt)), "ecd")  # (E, cap, d)
 
     gathered = eo[sc_e, sc_c]                            # (T, k, d)
     w = torch.where(keep, gates_k, 0.0).to(dt)
     out = torch.einsum("tkd,tk->td", gathered, w)
-    return out.reshape(b, s, d), aux
+    return shard(out.reshape(b, s, d), "btd"), aux
 
 
 # ---------------------------------------------------------------------------
@@ -371,15 +424,13 @@ def init_rglru(cfg: ModelConfig, generator, device, reps=None) -> Params:
     u = torch.empty(_lead(reps, w), dtype=torch.float32, device=device)
     u.uniform_(0.9, 0.999, generator=generator)
     return {
-        "wx": _dense_init((d, w), generator, device, reps=reps),
-        "wg": _dense_init((d, w), generator, device, reps=reps),
-        "wy": _dense_init((w, d), generator, device, reps=reps),
-        "conv_w": _dense_init((cfg.conv_width, w), generator, device,
-                              scale=0.1, reps=reps),
-        "a_param": torch.log(u / (1 - u)),
+        **_dense_leaves(generator, device, reps, (
+            ("wx", (d, w), None), ("wg", (d, w), None), ("wy", (w, d), None),
+            ("conv_w", (cfg.conv_width, w), 0.1))),
+        "a_param": _keep("a_param", torch.log(u / (1 - u))),
         # [input gate, recurrence gate], diagonal
-        "w_input_gate": torch.zeros(_lead(reps, 2, w), dtype=torch.float32,
-                                    device=device),
+        "w_input_gate": _keep("w_input_gate", torch.zeros(
+            _lead(reps, 2, w), dtype=torch.float32, device=device)),
     }
 
 
@@ -431,7 +482,7 @@ def rglru_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
     ig = conv * torch.sigmoid(p["w_input_gate"][0])
     rg = conv * torch.sigmoid(p["w_input_gate"][1])
     h = _rglru_scan(conv, p["a_param"], ig, rg)
-    y = (h.to(dt) * gate.to(dt)) @ p["wy"].to(dt)
+    y = shard((h.to(dt) * gate.to(dt)) @ p["wy"].to(dt), "btd")
     if not with_cache:
         return y
     cw = cfg.conv_width
@@ -462,7 +513,7 @@ def rglru_step(p: Params, x_t: torch.Tensor, cache: Params,
     a, bterm = _rglru_coeffs(conv, p["a_param"], ig, rg)
     h = a * cache["h"] + bterm
     y = ((h * gate).to(dt) @ p["wy"].to(dt))[:, None]
-    return y, {"h": h, "conv_buf": hist[:, 1:]}
+    return shard(y, "btd"), {"h": h, "conv_buf": hist[:, 1:]}
 
 
 # ---------------------------------------------------------------------------
@@ -475,21 +526,13 @@ def init_mlstm(cfg: ModelConfig, generator, device, reps=None) -> Params:
     h = cfg.n_heads
     dh = up // h
     hs = 1 / math.sqrt(dh)
-    return {
-        "w_up": _dense_init((d, up), generator, device, reps=reps),
-        "w_up_gate": _dense_init((d, up), generator, device, reps=reps),
-        # head-block-diagonal q/k/v (xLSTM's per-head projections)
-        "wq": _dense_init((h, dh, dh), generator, device, scale=hs,
-                          reps=reps),
-        "wk": _dense_init((h, dh, dh), generator, device, scale=hs,
-                          reps=reps),
-        "wv": _dense_init((h, dh, dh), generator, device, scale=hs,
-                          reps=reps),
-        # input and forget gates
-        "w_if": _dense_init((up, 2 * h), generator, device, scale=0.02,
-                            reps=reps),
-        "w_down": _dense_init((up, d), generator, device, reps=reps),
-    }
+    # head-block-diagonal q/k/v (xLSTM's per-head projections), then the
+    # input and forget gates
+    return _dense_leaves(generator, device, reps, (
+        ("w_up", (d, up), None), ("w_up_gate", (d, up), None),
+        ("wq", (h, dh, dh), hs), ("wk", (h, dh, dh), hs),
+        ("wv", (h, dh, dh), hs), ("w_if", (up, 2 * h), 0.02),
+        ("w_down", (up, d), None)))
 
 
 def _mlstm_chunk_scan(q, k, v, log_f, log_i, chunk: int):
@@ -565,9 +608,10 @@ def mlstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
     h = cfg.n_heads
     up = p["w_up"].shape[-1]
     dh = up // h
-    z = x @ p["w_up"].to(dt)                             # (B, S, up)
+    z = shard(x @ p["w_up"].to(dt), "btf")              # (B, S, up)
     gate = F.silu(x @ p["w_up_gate"].to(dt))
-    q, k, v = _mlstm_qkv(p, z.reshape(b, s, h, dh), dh)  # (B, S, H, dh)
+    q, k, v = (shard(t, "bthd") for t in                 # (B, S, H, dh)
+               _mlstm_qkv(p, z.reshape(b, s, h, dh), dh))
     gif = (z @ p["w_if"].to(dt)).float()                 # (B, S, 2H)
     log_i = F.logsigmoid(gif[..., :h]).transpose(1, 2)
     log_f = F.logsigmoid(gif[..., h:]).transpose(1, 2)
@@ -575,7 +619,7 @@ def mlstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
         q.transpose(1, 2).float(), k.transpose(1, 2).float(),
         v.transpose(1, 2).float(), log_f, log_i, min(chunk, s))
     out = out.transpose(1, 2).reshape(b, s, up).to(dt)
-    y = (out * gate) @ p["w_down"].to(dt)
+    y = shard((out * gate) @ p["w_down"].to(dt), "btd")
     if not with_cache:
         return y
     return y, {"C": C, "n": nrm,
@@ -612,7 +656,7 @@ def mlstm_step(p: Params, x_t: torch.Tensor, cache: Params,
     den = torch.clamp(torch.einsum("bhd,bhd->bh", q, nrm).abs(), min=1.0)
     out = (num / den[..., None]).reshape(b, up).to(dt)
     y = ((out * gate) @ p["w_down"].to(dt))[:, None]
-    return y, {"C": C, "n": nrm, "len": cache["len"] + 1}
+    return shard(y, "btd"), {"C": C, "n": nrm, "len": cache["len"] + 1}
 
 
 # ---------------------------------------------------------------------------
@@ -623,12 +667,9 @@ def init_slstm(cfg: ModelConfig, generator, device, reps=None) -> Params:
     d = cfg.d_model
     h = cfg.n_heads
     dh = d // h
-    return {
-        "wx": _dense_init((d, 4 * d), generator, device, reps=reps),  # z i f o
-        "rec_w": _dense_init((h, dh, 4 * dh), generator, device,
-                             scale=0.02, reps=reps),
-        "w_down": _dense_init((d, d), generator, device, reps=reps),
-    }
+    return _dense_leaves(generator, device, reps, (
+        ("wx", (d, 4 * d), None),                        # z i f o
+        ("rec_w", (h, dh, 4 * dh), 0.02), ("w_down", (d, d), None)))
 
 
 def _slstm_cell(p, cfg: ModelConfig, x_pre, state):
@@ -665,7 +706,9 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> Params:
 
 def slstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
               with_cache=False):
-    """The sLSTM over a sequence: one cell step a position, in order."""
+    """The sLSTM over a sequence: one cell step a position, in order, on
+    the rank's own batch rows (JAX's ``shard_map`` over the data axes):
+    no collective runs inside the time loop."""
     b, s, d = x.shape
     dt = x.dtype
     x_pre = (x @ p["wx"].to(dt)).float()                 # (B, S, 4D)
@@ -677,7 +720,7 @@ def slstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
         state = _slstm_cell(pp, cfg, x_pre[:, t], state)
         hs.append(state[2])
     out = torch.stack(hs, dim=1).reshape(b, s, d)
-    y = out.to(dt) @ p["w_down"].to(dt)
+    y = shard(out.to(dt) @ p["w_down"].to(dt), "btd")
     if not with_cache:
         return y
     return y, dict(zip(("c", "n", "h", "m"), state))
@@ -691,4 +734,4 @@ def slstm_step(p: Params, x_t: torch.Tensor, cache: Params,
     c, n, h, m = _slstm_cell(p, cfg, x_pre, state)
     out = h.reshape(x_t.shape[0], -1).to(dt)
     y = (out @ p["w_down"].to(dt))[:, None]
-    return y, {"c": c, "n": n, "h": h, "m": m}
+    return shard(y, "btd"), {"c": c, "n": n, "h": h, "m": m}

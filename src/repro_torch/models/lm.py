@@ -16,6 +16,12 @@ Decode writes the stacked cache buffers in place (K/V and ring slots by
 one ``index_put_`` per layer, recurrent states and lengths by a copy into
 the repeat's row) instead of returning copies; the returned cache trees
 share that storage.
+
+Under a data-parallel sharding context the params are ``DTensor``s
+(``sharding.distribute_params``) and each rank runs its own batch rows:
+every weight is used through ``L.compute_view`` (the blocks, the
+embedding, the unembedding, the final norm), which gathers it whole;
+``shard`` stands at JAX's constraints.  Serving keeps plain tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import shard
 from . import layers as L
 
 Params = dict
@@ -125,13 +133,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     unit, n_rep, tail = _layout(cfg)
     vp = padded_vocab(cfg)
 
-    def emb():
+    def emb(name):
         w = torch.empty((vp, cfg.d_model), dtype=torch.float32, device=dev)
-        return w.normal_(0.0, 1.0, generator=generator).mul_(0.02)
+        return L._keep(name, w.normal_(0.0, 1.0, generator=generator)
+                       .mul_(0.02))
 
-    p: Params = {"emb": emb()}
+    p: Params = {"emb": emb("emb")}
     if not cfg.tie_embeddings:
-        p["unemb"] = emb()
+        p["unemb"] = emb("unemb")
     p["final_norm"] = L.init_norm(cfg, cfg.d_model, dev)
     cross = cfg.enc_dec
     p["blocks"] = [init_block(cfg, kind, generator, dev, reps=n_rep,
@@ -193,7 +202,7 @@ def block_fwd(p: Params, x, kind: str, cfg: ModelConfig, positions, *,
         x, aux = _ffn(p, x, cfg)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux, cache
+    return shard(x, "btd"), aux, cache
 
 
 def _cross_kv(p: Params, enc_out, cfg: ModelConfig):
@@ -271,15 +280,21 @@ def _write_back(stacked: dict, views: dict, new: dict, r: int) -> None:
 def _embed(params: Params, cfg: ModelConfig, tokens,
            batch: dict | None = None):
     # gather, then cast: elementwise identical to casting the table first
-    x = params["emb"][tokens.long()].to(L.COMPUTE_DTYPE) * math.sqrt(
-        cfg.d_model)
+    # (a distributed table: its bf16 cast gathered whole, the rows'
+    # gradients accumulated in float32 all the same)
+    emb = params["emb"]
+    if sharding.is_distributed(emb):
+        rows = sharding.embed_rows(emb, tokens.long(), L.COMPUTE_DTYPE)
+    else:
+        rows = emb[tokens.long()].to(L.COMPUTE_DTYPE)
+    x = rows * math.sqrt(cfg.d_model)
     if (cfg.mrope_sections is not None and batch is not None
             and "patch_embeds" in batch):
         # vision patches replace the token embeddings at patch_pos
         pe = torch.as_tensor(batch["patch_embeds"]).to(x.device, x.dtype)
         pp = torch.as_tensor(batch["patch_pos"]).to(x.device).long()
         x[torch.arange(x.shape[0], device=x.device)[:, None], pp] = pe
-    return x
+    return shard(x, "btd")
 
 
 def _mask_pad(logits, cfg: ModelConfig):
@@ -292,11 +307,17 @@ def _mask_pad(logits, cfg: ModelConfig):
 
 def _unemb(params: Params, cfg: ModelConfig):
     name = "emb" if cfg.tie_embeddings else "unemb"
-    return params[name].to(L.COMPUTE_DTYPE)
+    return L.compute_view({name: params[name]})[name]
+
+
+def _norm(p: Params, cfg: ModelConfig, x):
+    """A norm outside the blocks (final, encoder), through its view."""
+    return L.apply_norm(L.compute_view(p), x, cfg.norm_eps)
 
 
 def _logits(params: Params, cfg: ModelConfig, x):
-    return _mask_pad(x @ _unemb(params, cfg).to(x.dtype).T, cfg)
+    return _mask_pad(shard(x @ _unemb(params, cfg).to(x.dtype).T, "btv"),
+                     cfg)
 
 
 def _positions(cfg: ModelConfig, batch: dict, s: int, b: int, device):
@@ -314,15 +335,15 @@ def _run_encoder(params: Params, cfg: ModelConfig, src_embeds, device):
     """The encoder stack over ``src_embeds`` (B, Ts, d), cast to
     ``COMPUTE_DTYPE``: bidirectional attention blocks at positions
     ``0 .. Ts-1``, then the encoder norm."""
-    x = torch.as_tensor(src_embeds).to(device, L.COMPUTE_DTYPE)
+    x = shard(torch.as_tensor(src_embeds).to(device, L.COMPUTE_DTYPE),
+              "btd")
     b, ts, _ = x.shape
     pos = torch.arange(ts, dtype=torch.int32, device=device)[None].expand(
         b, ts)
     enc = params["encoder"]
-    for r in range(cfg.n_enc_layers):
-        x, _, _ = block_fwd(_rep(enc["blocks"], r), x, "attn", cfg, pos,
-                            causal=False)
-    return L.apply_norm(enc["norm"], x, cfg.norm_eps)
+    for blk in _split(enc["blocks"], cfg.n_enc_layers):
+        x, _, _ = block_fwd(blk, x, "attn", cfg, pos, causal=False)
+    return _norm(enc["norm"], cfg, x)
 
 
 def _encode(params: Params, cfg: ModelConfig, batch: dict, device):
@@ -348,6 +369,8 @@ def _split(tree, n: int) -> list:
     if isinstance(tree, (list, tuple)):
         parts = [_split(v, n) for v in tree]
         return [type(tree)(p[r] for p in parts) for r in range(n)]
+    if sharding.is_distributed(tree):
+        return sharding.unbind_leading(tree)
     return list(tree.unbind(0))
 
 
@@ -388,8 +411,7 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, *,
     for blk, kind in zip(params["tail"], tail):
         x, a, _ = block_fwd(blk, x, kind, cfg, positions, enc_out=enc_out)
         aux = aux + a
-    x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
-    return x, aux
+    return _norm(params["final_norm"], cfg, x), aux
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
@@ -410,7 +432,8 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
     cnt = 0
     for i in range(n // chunk):                          # ce_chunk
         sl = slice(i * chunk, (i + 1) * chunk)
-        logits = _mask_pad((xs[:, sl] @ w.to(xs.dtype).T).float(), cfg)
+        logits = _mask_pad(shard(xs[:, sl] @ w.to(xs.dtype).T, "btv")
+                           .float(), cfg)
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels[:, sl, None])[..., 0]
         tot = tot + torch.sum(lse - gold)

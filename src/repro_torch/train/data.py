@@ -5,8 +5,12 @@ every seed, step and process index).
 A real deployment swaps ``SyntheticTokens`` for a tokenized corpus
 reader; the interface (a stateful iterator with ``state()`` /
 ``restore()`` for the checkpoint, per-host sharding by process index) is
-what the trainer depends on.  Tokens are a counter-based hash of (seed,
-process, step), so a restored pipeline reproduces the exact stream.
+what the trainer depends on.  Under data parallelism ``process_index``
+/ ``process_count`` are the rank's coordinate on the data axes and their
+size (``sharding.dp_rank`` / ``dp_size``), as JAX's host index is, so
+the ranks of one model group read the same rows.  Tokens are a
+counter-based hash of (seed, process, step), so a restored pipeline
+reproduces the exact stream.
 """
 
 from __future__ import annotations

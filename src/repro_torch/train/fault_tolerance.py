@@ -2,12 +2,14 @@
 straggler detection (a port of ``repro.train.fault_tolerance``).
 
 Failure model: a process dies mid-step (survived by the atomic
-checkpoint protocol of ``checkpoint.py``) or stalls (flagged by the
-per-step heartbeat deadline; the response is to restart and restore).
-The JAX version also re-shards on restore for an elastic re-mesh; its
-``shardings`` argument is dropped here until distribution (ROADMAP Queue
-1 item 5): a restored state lands on one device.  Its ``FaultConfig``
-field ``max_restarts``, which nothing reads, is left out.
+checkpoint protocol of ``checkpoint.py``), stalls (flagged by the
+per-step heartbeat deadline; the response is to restart and restore) or
+comes back on another topology (elastic: checkpoints hold full arrays,
+so a restore with ``shardings`` re-shards them onto the mesh running
+now, any world size).  Under a process group every rank restores and
+checkpoints (the gathers are collective); only rank 0 writes and logs.
+The JAX ``FaultConfig`` field ``max_restarts``, which nothing reads, is
+left out.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ class Heartbeat:
         return late
 
 
-def resume_or_init(fcfg: FaultConfig, init_fn, like=None, device=None):
+def resume_or_init(fcfg: FaultConfig, init_fn, like=None, device=None,
+                   shardings=None):
     """Restore the latest complete checkpoint or initialize fresh.
 
     Returns ``(state_tree, extra, start_step)``.  ``init_fn()`` builds the
@@ -58,13 +61,18 @@ def resume_or_init(fcfg: FaultConfig, init_fn, like=None, device=None):
     of shapes and dtypes (a ``meta``-device init, with ``device`` naming
     where the leaves go), so that resuming builds the state once.
     Without it the fresh state is built and serves as the skeleton (JAX
-    uses ``jax.eval_shape``, which builds nothing)."""
+    uses ``jax.eval_shape``, which builds nothing).  ``shardings``
+    (``checkpoint.restore``'s) puts each rank's block of each leaf on its
+    device."""
     step = checkpoint.latest_step(fcfg.ckpt_dir)
     if step is None:
         return init_fn(), {}, 0
     like = like if like is not None else init_fn()
-    state, extra = checkpoint.restore(fcfg.ckpt_dir, step, like, device)
-    log.info("restored checkpoint step %d from %s", step, fcfg.ckpt_dir)
+    state, extra = checkpoint.restore(fcfg.ckpt_dir, step, like, device,
+                                      shardings)
+    if checkpoint.writes():
+        log.info("restored checkpoint step %d from %s", step,
+                 fcfg.ckpt_dir)
     return state, extra, step
 
 

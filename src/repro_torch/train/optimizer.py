@@ -1,12 +1,17 @@
-"""AdamW with a cosine schedule and global-norm clipping (a port of
-``repro.train.optimizer``): float32 throughout, in JAX's order of
-operations.  The JAX version's states inherit the params' sharding; here
-they live on the params' device (distribution is ROADMAP Queue 1 item 5).
+"""AdamW with fully sharded (ZeRO-3) states, a cosine schedule and
+global-norm clipping (a port of ``repro.train.optimizer``): float32
+throughout, in JAX's order of operations.  ``mu`` and ``nu`` take the
+params' placements: a ``DTensor`` param (``sharding.distribute_params``)
+gets ``DTensor`` moments holding the same block, a plain one plain
+moments on its device.
 
 :func:`apply_updates` works in place under ``torch.no_grad()`` (JAX's
-returns new arrays): params, ``mu`` and ``nu`` are updated leaf by leaf,
-so the step needs one leaf's temporaries on top of the state, and it
-reads nothing back to the host.
+returns new arrays): params, ``mu`` and ``nu`` are updated leaf by leaf
+on the rank's local blocks, so the step needs one leaf's temporaries on
+top of the state, and it reads nothing back to the host.  The global
+norm of distributed gradients sums the ranks' local sums of squares in
+one all-reduce over the data axes, a leaf replicated over them counted
+once.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models.lm import tree_map
 from ._tree import leaves_with_path
 
@@ -32,12 +38,22 @@ class OptConfig:
     min_lr_frac: float = 0.1
 
 
+def _zeros_like(p):
+    """Zeros shaped and placed as ``p`` (a ``DTensor`` of the same
+    placements holding a zero block, for a ``DTensor``)."""
+    if not sharding.is_distributed(p):
+        return torch.zeros_like(p)
+    return type(p).from_local(torch.zeros_like(sharding.local(p)),
+                              p.device_mesh, p.placements, run_check=False)
+
+
 def init_opt_state(params) -> dict:
-    """Zero first and second moments shaped as ``params``, and ``step``, an
-    int32 0-d tensor on the params' device."""
-    dev = leaves_with_path(params)[0][1].device
-    return {"mu": tree_map(torch.zeros_like, params),
-            "nu": tree_map(torch.zeros_like, params),
+    """Zero first and second moments shaped and placed as ``params``, and
+    ``step``, an int32 0-d tensor on the params' device (the same on
+    every rank)."""
+    dev = sharding.local(leaves_with_path(params)[0][1]).device
+    return {"mu": tree_map(_zeros_like, params),
+            "nu": tree_map(_zeros_like, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
@@ -53,10 +69,24 @@ def schedule(cfg: OptConfig, step):
     return cfg.lr * warm * cos
 
 
+@torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float()))
-              for _, x in leaves_with_path(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """The L2 norm of every leaf together.  Of ``DTensor`` leaves each
+    rank squares its block; a leaf replicated over the data axes counts
+    on data coordinate 0 only (zero elsewhere), and one all-reduce over
+    them sums the per-leaf terms before they are added in leaf order."""
+    leaves = [x for _, x in leaves_with_path(tree)]
+    sums = [torch.sum(torch.square(sharding.local(x).float()))
+            for x in leaves]
+    if not any(sharding.is_distributed(x) for x in leaves):
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    if sharding.current_ctx().mesh is None:
+        raise ValueError("distributed leaves need the sharding context "
+                         "of their mesh (sharding.use_sharding)")
+    if sharding.dp_rank():
+        sums = [s if sharding.dp_sharded(x) else torch.zeros_like(s)
+                for s, x in zip(sums, leaves)]
+    return torch.sqrt(torch.sum(sharding.dp_sum(torch.stack(sums))))
 
 
 def _clip_scale(norm, max_norm: float):
@@ -69,7 +99,14 @@ def _clip_scale(norm, max_norm: float):
 def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
     scale = _clip_scale(norm, max_norm)
-    return tree_map(lambda g: g * scale, grads), norm
+
+    def clip(g):
+        if not sharding.is_distributed(g):
+            return g * scale
+        return type(g).from_local(sharding.local(g) * scale, g.device_mesh,
+                                  g.placements, run_check=False)
+
+    return tree_map(clip, grads), norm
 
 
 _NO_DECAY = ("scale", "bias", "a_param", "w_input_gate", "norm")
@@ -85,7 +122,9 @@ def apply_updates(params, grads, state, cfg: OptConfig):
     "grad_norm"})``: the same param and moment tensors, updated, a new
     ``step`` and the metrics as 0-d device tensors.  The gradients are
     clipped leaf by leaf as they are used (the same products as clipping
-    the whole tree first) and are not modified."""
+    the whole tree first) and are not modified.  ``DTensor`` leaves
+    (params, gradients, moments of the same placements) are updated
+    through their local blocks."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     step = state["step"] + 1
@@ -99,6 +138,7 @@ def apply_updates(params, grads, state, cfg: OptConfig):
     flat_nu = [n for _, n in leaves_with_path(state["nu"])]
     for (path, p), g, mu, nu in zip(leaves_with_path(params), flat_g,
                                     flat_mu, flat_nu):
+        p, g, mu, nu = (sharding.local(x) for x in (p, g, mu, nu))
         g = g.float() * scale
         mu.mul_(b1).add_(g * (1 - b1))
         nu.mul_(b2).add_(torch.square(g) * (1 - b2))

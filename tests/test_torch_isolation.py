@@ -41,6 +41,8 @@ print("loaded=" + ",".join(bad))
 _SLICE_MODULES = (
     "repro_torch.configs.archs", "repro_torch.serve.reference",
     "repro_torch.serve.http", "repro_torch.launch.train",
+    "repro_torch.launch.serve", "repro_torch.models.layers",
+    "repro_torch.models.lm",
     "repro_torch.launch.mesh", "repro_torch.cpm.collectives",
     "repro_torch.cpm.backends.mesh", "repro_torch.distributed",
     "repro_torch.distributed.sharding", "repro_torch.analysis",
