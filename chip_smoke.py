@@ -265,7 +265,8 @@ Phases, in order; any failure exits non-zero:
      destroyed at the end of the phase.
  17. ZeRO-3 data-parallel training, after phase 16: a group of one NCCL
      rank again (one card takes one rank, so no run crosses cards), the
-     host mesh's ``make_ctx``; phase 15's step-3 checkpoint restored
+     host mesh's ``make_ctx(mesh, pure_dp=True)`` (the data axes only, no
+     model-axis code); phase 15's step-3 checkpoint restored
      through ``resume_or_init(..., shardings=)`` into DTensors (each rank
      its ``param_spec`` block of params, mu and nu), then steps 4-6 of
      phase 15's run through the sharded trainer (every weight all-gathered
@@ -277,8 +278,20 @@ Phases, in order; any failure exits non-zero:
      syncs of one step by site, the collectives' bytes a step by kind and
      dtype equal to the partition rules' formula (PERF.md §6), step ms
      and peak memory beside phase 15's, one more step under
-     ``torch.profiler`` (busy, NCCL kernels' time), the roofline share;
-     the checkpoint is removed at the end.
+     ``torch.profiler`` (busy, NCCL kernels' time), the roofline share.
+ 18. tensor and expert parallelism, after phase 17: (a) flash attention at
+     granite-8b's training microbatch with a rank's heads of a 4-way model
+     axis, (2, 32/4 over 8/4, 4,096, 128), causal, bf16, output and
+     gradients under autograd against the plain twin, the forward timed;
+     (b) phase 17's run on the model-parallel path: a group of one NCCL
+     rank, the host mesh's ``make_ctx(mesh)`` with its "model" axis of
+     size 1 (every region operator's collective runs at n = 1, none is
+     skipped), phase 15's checkpoint restored, steps 4-6: losses and the
+     params' digest against phase 15's (bit for bit, else within 1e-3 as
+     in phase 17), 64 flash launches and the host syncs a step, the data
+     axes' bytes against phase 17's formula and the model axis's by kind
+     and dtype against PERF.md's, step ms, busy, NCCL time and peak
+     memory beside phase 15's; the checkpoint is removed at the end.
 
 The lines before the last are the launch floor beside the kernels that
 run at it, the card (``nvidia-smi`` name and power limit) and one JSON
@@ -360,6 +373,10 @@ TRAIN_GRAD_CASES = (
     ("seamless-encoder", 4, 16, 16, 1024, 1024, 64, False, None, "bfloat16"),
     ("seamless-cross", 4, 16, 16, 64, 1024, 64, False, None, "bfloat16"),
     ("granite", 2, 32, 8, 1024, 1024, 128, True, None, "float32"))
+#: phase 18: granite-8b's training microbatch at a rank's heads of a
+#: 4-way model axis (32 / 4 q heads, 8 / 4 KV heads)
+TP_FLASH_CASES = (
+    ("granite-train-tp4", 2, 8, 2, 4096, 4096, 128, True, None, "bfloat16"),)
 FLASH_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_SMALL = (2, 2, 128)
 TRAIN_TOL = 1e-3
@@ -2675,17 +2692,18 @@ def _max_rel(got, want) -> float:
     return num / den if den else num
 
 
-def check_flash_grads(torch, dev):
+def check_flash_grads(torch, dev, cases=TRAIN_GRAD_CASES):
     """Phase 15(a): ``ops.attention`` under autograd on the card goes
     through ``FlashAttentionFn`` (one forward launch a call) and its
-    dq, dk, dv agree with autograd of the plain twin on the same inputs,
-    within 2e-2 (bf16) or 1e-4 (float32) of each gradient's largest
-    value, at the serving shapes and at one microbatch of (c)'s
-    4,096-token sequences.  Returns a record."""
+    output and dq, dk, dv agree with the plain twin's (autograd of it)
+    on the same inputs, within 2e-2 (bf16) or 1e-4 (float32) of each
+    one's largest value, at the serving shapes and at one microbatch of
+    (c)'s 4,096-token sequences (phase 18: ``cases``, a rank's share of
+    it).  Returns a record."""
     from repro_torch.kernels import flash_attention as fa, ops
 
     out = []
-    for name, b, h, kvh, sq, skv, d, causal, window, dt in TRAIN_GRAD_CASES:
+    for name, b, h, kvh, sq, skv, d, causal, window, dt in cases:
         g = torch.Generator(device=dev).manual_seed(sq + d)
         dtype = getattr(torch, dt)
         # the main path's layout: (B, S, heads, D) viewed as (B, heads, S, D)
@@ -2703,21 +2721,23 @@ def check_flash_grads(torch, dev):
             fail(f"flash gradients {name}: ops.attention under grad ran "
                  f"{type(o.grad_fn).__name__} with {launches} launches")
         got = torch.autograd.grad(o, (q, k, v), do)
-        want = torch.autograd.grad(
-            fa.flash_attention_plain(q, k, v, causal=causal, window=window),
-            (q, k, v), do)
+        plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+        want = torch.autograd.grad(plain, (q, k, v), do)
         torch.cuda.synchronize()
+        fwd_err = _max_rel(o.detach(), plain.detach())
         errs = [_max_rel(x, y) for x, y in zip(got, want)]
         tol = FLASH_GRAD_TOL[dt]
         print(f"flash_attention gradients {name} {dt} (B={b} H={h} KVH={kvh}"
               f" Sq={sq} Skv={skv} D={d} causal={causal} window={window}): "
-              f"dq/dk/dv err {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} of "
-              f"the largest value, tol {tol}; {launches} forward launch")
-        if any(e > tol for e in errs):
-            fail(f"flash gradients {name} {dt} disagree with autograd of "
-                 f"the plain twin: {errs}")
+              f"output err {fwd_err:.2e}, dq/dk/dv err {errs[0]:.2e}/"
+              f"{errs[1]:.2e}/{errs[2]:.2e} of the largest value, tol {tol};"
+              f" {launches} forward launch")
+        if fwd_err > tol or any(e > tol for e in errs):
+            fail(f"flash {name} {dt} disagrees with the plain twin: output "
+                 f"{fwd_err}, gradients {errs}")
         out.append({"case": name, "dtype": dt, "errs": errs,
-                    "launches": launches})
+                    "fwd_err": fwd_err, "launches": launches})
     return out
 
 
@@ -4696,18 +4716,20 @@ def check_mesh(torch, np, dev, data, record, card):
 # ---------------------------------------------------------------------------
 
 def _zero3_bytes(cfg, like, ctx, micro: int) -> dict:
-    """The bytes each kind of collective carries in one bf16 train step of
-    ``micro`` microbatches with remat, by the partition rules (PERF.md
-    §6): a leaf split over the data axes is all-gathered whole in bf16 at
-    each use (twice a microbatch in the rematerialized layer unit, once
-    for the embedding and the unembedding) and its gradient
-    reduce-scattered once a microbatch (bf16; the embedding table's
-    float32); a replicated leaf's float32 gradient all-reduced once a
-    microbatch; the loss and its two metrics (float32) and the global
-    norm's per-leaf sums all-reduced once a step."""
+    """The bytes each kind of collective carries over the data axes in one
+    bf16 train step of ``micro`` microbatches with remat, by the partition
+    rules (PERF.md §6): a leaf split over the data axes is all-gathered
+    whole in bf16 at each use (twice a microbatch in the rematerialized
+    layer unit, once for the embedding and the unembedding) and its
+    gradient reduce-scattered once a microbatch (bf16; the embedding
+    table's float32); a replicated leaf's float32 gradient all-reduced
+    once a microbatch; the loss and its two metrics (float32) and the
+    global norm's per-leaf sums all-reduced once a step.  A leaf split
+    over the model axis moves its model block."""
     from repro_torch.distributed import sharding as sh
 
     gathered = scattered = reduced = leaves = 0
+    m = sh.model_size(ctx)
 
     def walk(t, path):
         nonlocal gathered, scattered, reduced, leaves
@@ -4721,16 +4743,18 @@ def _zero3_bytes(cfg, like, ctx, micro: int) -> dict:
             return
         leaves += 1
         spec = sh.param_spec(path, tuple(t.shape), ctx)
-        split = any(a in ctx.data_axes for e in spec if e is not None
-                    for a in (e if isinstance(e, tuple) else (e,)))
+        axes = [a for e in spec if e is not None
+                for a in (e if isinstance(e, tuple) else (e,))]
+        split = any(a in ctx.data_axes for a in axes)
+        n = t.numel() // (m if ctx.model_axis in axes else 1)
         top = path.split("/")[1]
         tied = top == "emb" and cfg.tie_embeddings
         if split:
-            gathered += (1 + (top == "blocks" or tied)) * 2 * t.numel()
-            scattered += (4 if top == "emb" else 2) * t.numel()
-            scattered += 2 * t.numel() if tied else 0
+            gathered += (1 + (top == "blocks" or tied)) * 2 * n
+            scattered += (4 if top == "emb" else 2) * n
+            scattered += 2 * n if tied else 0
         else:
-            reduced += 4 * t.numel()
+            reduced += 4 * n
 
     walk(like, "")
     return {"all_gather": micro * gathered,
@@ -4738,12 +4762,51 @@ def _zero3_bytes(cfg, like, ctx, micro: int) -> dict:
             "all_reduce": micro * reduced + 3 * 4 + 4 * leaves}
 
 
-def train_sharded(torch, dev, record, card):
-    """Phase 17 (see the module docstring).  Returns the launch counts of
-    its three steps."""
+def _model_bytes(cfg, like, m: int, rows: int, seq: int, micro: int,
+                 dtype: str = "bfloat16") -> dict:
+    """The bytes the model axis's collectives carry in one train step of a
+    dense attention model whose rematerialized units are one layer each
+    (granite-8b), by kind and element type (PERF.md §6): ``rows``
+    sequences of ``seq`` tokens a rank and microbatch, T = rows seq, T' =
+    rows (seq - 1), L layers, c bytes a compute element.  A microbatch
+    all-reduces each layer's two row-parallel outputs (T d c each; again
+    in the recompute but for the FFN's, which no saved tensor needs) and
+    the gradients entering them, the embedding's rows, the loss's input
+    gradient (T' d c) and three float32 numbers a position; it
+    all-gathers the final norm's float32 scale and, where the axis does
+    not divide the KV heads, ``wk`` and ``wv`` (twice), reduce-scattering
+    their gradients once.  A step all-reduces the global norm's float32
+    sums, one a leaf."""
+    from repro_torch.train._tree import leaves_with_path
+
+    c = {"bfloat16": 2, "float32": 4}[dtype]
+    d, n = cfg.d_model, cfg.n_layers
+    t, t1 = rows * seq, rows * (seq - 1)
+    leaves = len(leaves_with_path(like))
+    act = micro * (5 * n * t * d + t * d + t1 * d) * c
+    f32 = micro * 3 * t1 * 4 + 4 * leaves
+    out = {"all_reduce:model": ({dtype: act, "float32": f32}
+                                if dtype != "float32"
+                                else {"float32": act + f32}),
+           "all_gather:model": {"float32": micro * 4 * d}}
+    if cfg.n_kv_heads % m:
+        kv = 2 * d * cfg.n_kv_heads * cfg.dh * c
+        ag = out["all_gather:model"]
+        ag[dtype] = ag.get(dtype, 0) + micro * n * 2 * kv
+        out["reduce_scatter:model"] = {dtype: micro * n * kv}
+    return out
+
+
+def _resume_sharded(torch, dev, record, card, tag: str, phase: int,
+                    **ctx_kw):
+    """Phases 17 and 18 (see the module docstring): a group of one NCCL
+    rank, ``make_host_mesh()``'s (1, 1) mesh under ``make_ctx(mesh,
+    **ctx_kw)``, phase 15's step-3 checkpoint restored sharded, steps 4-6
+    timed and checked against phase 15's, one more step profiled.
+    Returns (the launch counts of the three steps, the record, the
+    context's collective counts of the last step, the meta skeleton)."""
     import dataclasses
     import datetime
-    import shutil
 
     import torch.distributed as dist
 
@@ -4757,11 +4820,10 @@ def train_sharded(torch, dev, record, card):
                                    make_train_step)
     from repro_torch.train._tree import leaves_with_path
 
-    t_phase = time.perf_counter()
     tr = record["train"]
     ckpt_dir = tr["ckpt_dir"]
     half = TRAIN_STEPS // 2
-    store = ROOT / "build" / "chip_smoke" / "fsdp_store"
+    store = ROOT / "build" / "chip_smoke" / f"{tag}_store"
     store.unlink(missing_ok=True)
     dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
                             world_size=1, device_id=dev,
@@ -4769,7 +4831,9 @@ def train_sharded(torch, dev, record, card):
     rec = {"group": f"nccl, 1 rank, {dist.get_backend()}"}
     try:
         mesh = make_host_mesh()
-        ctx = sh.make_ctx(mesh)
+        ctx = sh.make_ctx(mesh, **ctx_kw)
+        rec["ctx"] = {"data_axes": list(ctx.data_axes),
+                      "model_axis": ctx.model_axis}
         cfg = dataclasses.replace(get_config("granite-8b"),
                                   n_layers=TRAIN_LAYERS)
         seq = SHAPES["train_4k"].seq_len
@@ -4782,7 +4846,8 @@ def train_sharded(torch, dev, record, card):
             t0 = time.perf_counter()
             fcfg = ft.FaultConfig(ckpt_dir=ckpt_dir, ckpt_every=0)
             state, extra, start = ft.resume_or_init(
-                fcfg, lambda: fail("phase 17: no checkpoint of phase 15"),
+                fcfg, lambda: fail(f"phase {phase}: no checkpoint of phase "
+                                   f"15"),
                 like=like, device=dev, shardings=state_shardings(like, ctx))
             torch.cuda.synchronize()
             rec["restore_s"] = time.perf_counter() - t0
@@ -4790,8 +4855,8 @@ def train_sharded(torch, dev, record, card):
                 state["params"], state["opt"]["mu"], state["opt"]["nu"])
                 for _, x in leaves_with_path(t)]
             if start != half or not all(sharded):
-                fail(f"phase 17: resumed at step {start} (want {half}) with "
-                     f"{sum(sharded)}/{len(sharded)} leaves DTensors")
+                fail(f"phase {phase}: resumed at step {start} (want {half})"
+                     f" with {sum(sharded)}/{len(sharded)} leaves DTensors")
             pipe = data.make_pipeline(cfg, shape, seed=29,
                                       process_index=sh.dp_rank(ctx),
                                       process_count=sh.dp_size(ctx))
@@ -4827,19 +4892,23 @@ def train_sharded(torch, dev, record, card):
             events = _device_events(torch, lambda: step(
                 state["params"], state["opt"], batch))
             busy_ms, top = _ms(events), _top(events)
-            nccl_ms = _ms(e for e in events if "nccl" in e.key.lower())
+            nccl = [e for e in events if "nccl" in e.key.lower()]
+            nccl_ms = _ms(nccl)
+            nccl_by = {}
+            for e in nccl:
+                nccl_by[e.key] = nccl_by.get(e.key, 0.0) + _ms([e])
         want = 2 * TRAIN_LAYERS * TRAIN_MICRO
         if any(n != want for n in flash):
-            fail(f"phase 17: flash launches a step {flash}, want {want}")
+            fail(f"phase {phase}: flash launches a step {flash}, want {want}")
         same_losses = losses == tr["resumed_losses"]
         differ = [path for (path, _), a, b in zip(
             leaves_with_path(state["params"]), digest, tr["digest"])
             if a != b]
-        print(f"fsdp: granite-8b x {TRAIN_LAYERS} layers sharded on "
-              f"{rec['group']}, restored from phase 15's step-{half} "
-              f"checkpoint in {rec['restore_s']:.1f}s (each leaf a "
-              f"DTensor); steps {half + 1}-{TRAIN_STEPS} losses {losses} vs "
-              f"phase 15's {tr['resumed_losses']}: "
+        print(f"{tag}: granite-8b x {TRAIN_LAYERS} layers sharded on "
+              f"{rec['group']} ({rec['ctx']}), restored from phase 15's "
+              f"step-{half} checkpoint in {rec['restore_s']:.1f}s (each "
+              f"leaf a DTensor); steps {half + 1}-{TRAIN_STEPS} losses "
+              f"{losses} vs phase 15's {tr['resumed_losses']}: "
               f"{'equal' if same_losses else 'DIFFER'}; params "
               f"{len(digest) - len(differ)}/{len(digest)} leaves equal bit "
               f"for bit (digest); {card}")
@@ -4848,13 +4917,14 @@ def train_sharded(torch, dev, record, card):
             del state, p, o, m
             torch.cuda.empty_cache()
             _hold_within_bounds(torch, dev, cfg, shape, ckpt_dir, params,
-                                losses, tr["resumed_losses"])
-        # the collectives of a step beside the partition rules' formula
+                                losses, tr["resumed_losses"], tag, phase)
+        # the data axes' collectives of a step beside the partition rules'
         want_bytes = _zero3_bytes(cfg, like["params"], ctx, TRAIN_MICRO)
-        got = {k: v["bytes"] for k, v in colls[-1].items()}
+        got = {k: v["bytes"] for k, v in colls[-1].items()
+               if ":" not in k}
         if got != want_bytes:
-            fail(f"phase 17: collective bytes a step {got}, the formula "
-                 f"gives {want_bytes}")
+            fail(f"phase {phase}: collective bytes a step {got}, the formula"
+                 f" gives {want_bytes}")
         stats = roofline.collective_stats(colls[-1])
         mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
         flops = roofline.model_flops(cfg, ShapeConfig(
@@ -4862,30 +4932,32 @@ def train_sharded(torch, dev, record, card):
         terms = roofline.roofline_terms(flops, ADAMW_BYTES_PER_PARAM
                                         * tr["params"], stats.per_chip_bytes)
         share = flops / (mean_ms / 1e3 * roofline.HW["peak_flops"])
-        print(f"fsdp: step ms {[round(x, 1) for x in step_ms]} (mean of the "
-              f"last {len(step_ms) - 1}: {mean_ms:.1f}; phase 15's "
+        print(f"{tag}: step ms {[round(x, 1) for x in step_ms]} (mean of "
+              f"the last {len(step_ms) - 1}: {mean_ms:.1f}; phase 15's "
               f"{tr['mean_step_ms']:.1f}); {flash} flash launches a step; "
               f"peak {peak / 2**30:.2f} GiB allocated ({(peak - base) / 2**30:.2f}"
               f" above the earlier phases' {base / 2**30:.2f}; phase 15's "
               f"peak {tr['peak_bytes'] / 2**30:.2f}); host syncs in step "
               f"{half + 2}: {len(syncs)} {syncs} (phase 15's step 3: "
               f"{len(tr['host_syncs'])}); {card}")
-        print(f"fsdp: collectives a step (NCCL, 1 rank) "
+        print(f"{tag}: collectives a step (NCCL, 1 rank) "
               + ", ".join(f"{k} {v['calls']} calls {v['bytes']} bytes "
                           f"{v['dtypes']}" for k, v in colls[-1].items())
-              + f": equal to the formula {want_bytes}; each rank moves "
-              f"{stats.per_chip_bytes:.0f} bytes on a ring of 1 (at N ranks "
-              f"(N - 1) / N of the gathers' and scatters' bytes, 2 (N - 1) / N"
-              f" of the all-reduces'); roofline: compute "
+              + f": the data axes' equal to the formula {want_bytes}; each "
+              f"rank moves {stats.per_chip_bytes:.0f} bytes on a ring of 1 "
+              f"(at N ranks (N - 1) / N of the gathers' and scatters' bytes,"
+              f" 2 (N - 1) / N of the all-reduces'); roofline: compute "
               f"{terms['compute_s']:.4f} s, memory {terms['memory_s']:.4f} s,"
               f" collective {terms['collective_s']:.4f} s, bound by "
               f"{terms['bound']}; the measured step reaches {share:.3f} of "
               f"{roofline.HW['peak_flops']:.3g} bf16 FLOP/s ({card})")
-        print(f"fsdp: step {TRAIN_STEPS + 1} under torch.profiler: device "
+        print(f"{tag}: step {TRAIN_STEPS + 1} under torch.profiler: device "
               f"busy {busy_ms:.1f} ms (share {busy_ms / mean_ms:.3f} of the "
               f"{mean_ms:.1f} ms step; phase 15's busy {tr['busy_ms']:.1f}),"
-              f" NCCL kernels {nccl_ms:.1f} ms; top kernels {top}; {card}")
-        rec.update(busy_ms=busy_ms, nccl_ms=nccl_ms, top_kernels=top)
+              f" NCCL kernels {nccl_ms:.1f} ms {nccl_by}; top kernels {top};"
+              f" {card}")
+        rec.update(busy_ms=busy_ms, nccl_ms=nccl_ms, nccl_by_kernel=nccl_by,
+                   top_kernels=top)
         rec.update(losses=losses, step_ms=step_ms, mean_step_ms=mean_ms,
                    flash_per_step=flash, peak_bytes=peak, base_bytes=base,
                    host_syncs=syncs, collectives=colls[-1],
@@ -4895,8 +4967,16 @@ def train_sharded(torch, dev, record, card):
         del state
     finally:
         dist.destroy_process_group()
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
         torch.cuda.empty_cache()
+    return counts, rec, colls[-1], like
+
+
+def train_sharded(torch, dev, record, card):
+    """Phase 17 (see the module docstring).  Returns the launch counts of
+    its three steps."""
+    t_phase = time.perf_counter()
+    counts, rec, _, _ = _resume_sharded(torch, dev, record, card, "fsdp",
+                                        17, pure_dp=True)
     rec["phase_s"] = time.perf_counter() - t_phase
     rec["card"] = card
     print(f"fsdp: phase 17 took {rec['phase_s']:.1f}s")
@@ -4904,9 +4984,66 @@ def train_sharded(torch, dev, record, card):
     return counts
 
 
+def train_tensor_parallel(torch, dev, record, card):
+    """Phase 18 (see the module docstring).  Returns the launch counts of
+    its three steps."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    try:
+        # (a) flash attention at a rank's shapes of a 4-way model axis
+        flash = check_flash_grads(torch, dev, TP_FLASH_CASES)
+        _, b, h, kvh, sq, skv, d, causal, window, dt = TP_FLASH_CASES[0]
+        g = torch.Generator(device=dev).manual_seed(33)
+        q = torch.randn((b, h, sq, d), generator=g, device=dev).to(
+            getattr(torch, dt))
+        k, v = (torch.randn((b, kvh, skv, d), generator=g, device=dev).to(
+            q.dtype) for _ in range(2))
+        fwd_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+        pairs = b * h * sq * (sq + 1) // 2
+        # q, k, v read and the output written, bf16; 4 D flops a pair
+        fwd_bound = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                          4 * d * pairs)
+        del q, k, v
+        print(f"tp: flash_attention forward at a rank's shape of a 4-way "
+              f"model axis (B={b} H={h} KVH={kvh} S={sq} D={d}, causal, "
+              f"{dt}): {fwd_ms:.4f} ms, bound {fwd_bound[0]:.4f} ms by "
+              f"{fwd_bound[1]}; {card}")
+        # (b) the model-parallel path on the (1, 1) mesh
+        counts, rec, last, like = _resume_sharded(torch, dev, record, card,
+                                                  "tp", 18)
+    finally:
+        shutil.rmtree(record["train"]["ckpt_dir"], ignore_errors=True)
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=TRAIN_LAYERS)
+    rows = TRAIN_BATCH // TRAIN_MICRO
+    want = _model_bytes(cfg, like["params"], 1, rows,
+                        SHAPES["train_4k"].seq_len, TRAIN_MICRO)
+    got = {k: v["dtypes"] for k, v in last.items() if k.endswith(":model")}
+    print(f"tp: the model axis's collectives a step (m = 1, NCCL): "
+          + ", ".join(f"{k} {v['calls']} calls {v['bytes']} bytes"
+                      for k, v in last.items() if k.endswith(":model"))
+          + f"; by dtype {got}, the formula {want}: "
+          f"{'equal' if got == want else 'DIFFER'}")
+    if got != want:
+        fail(f"phase 18: model-axis bytes a step {got}, the formula gives "
+             f"{want}")
+    rec.update(model_formula=want, flash=flash, flash_fwd_ms=fwd_ms,
+               flash_fwd_bound_ms=fwd_bound[0])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["card"] = card
+    print(f"tp: phase 18 took {rec['phase_s']:.1f}s")
+    record["tp"] = rec
+    return counts
+
+
 def _hold_within_bounds(torch, dev, cfg, shape, ckpt_dir, params, losses,
-                        want_losses):
-    """Phase 17 when its steps are not phase 15's bit for bit: the
+                        want_losses, tag, phase):
+    """Phases 17 and 18 when their steps are not phase 15's bit for bit: the
     unsharded trainer runs the same steps from the same checkpoint, the
     first step and the leaves that differ are printed, and every leaf is
     held within 1e-3 of its largest value and every loss within 1e-3
@@ -4921,7 +5058,7 @@ def _hold_within_bounds(torch, dev, cfg, shape, ckpt_dir, params, losses,
     with sh.use_sharding(sh.ShardingCtx()):
         state, extra, _ = ft.resume_or_init(
             ft.FaultConfig(ckpt_dir=ckpt_dir, ckpt_every=0),
-            lambda: fail("phase 17: the checkpoint is gone"),
+            lambda: fail(f"phase {phase}: the checkpoint is gone"),
             like=init_state(cfg, "meta"), device=dev)
         pipe = data.make_pipeline(cfg, shape, seed=29)
         pipe.restore(extra["data"])
@@ -4939,7 +5076,7 @@ def _hold_within_bounds(torch, dev, cfg, shape, ckpt_dir, params, losses,
             errs[path] = float((a - b).abs().max() / b.abs().max())
     first = next((half + 1 + i for i, (a, b) in enumerate(
         zip(losses, want_losses)) if a != b), None)
-    print(f"fsdp: NOT bit for bit: the first loss that differs is step "
+    print(f"{tag}: NOT bit for bit: the first loss that differs is step "
           f"{first}'s ({losses} vs {want_losses}); leaves against the "
           f"unsharded trainer's, largest error over the largest value: "
           f"{errs}")
@@ -4947,7 +5084,7 @@ def _hold_within_bounds(torch, dev, cfg, shape, ckpt_dir, params, losses,
                   if abs(a - b) > TRAIN_TOL * abs(b)]
     bad = {k: v for k, v in errs.items() if v > TRAIN_TOL}
     if bad or bad_losses:
-        fail(f"phase 17: beyond the bound {TRAIN_TOL}: leaves {bad}, "
+        fail(f"phase {phase}: beyond the bound {TRAIN_TOL}: leaves {bad}, "
              f"losses {bad_losses}")
     del state
 
@@ -5121,6 +5258,10 @@ def main(argv=None) -> int:
     mesh_counts = check_mesh(torch, np, dev, data, record, card)
     # phase 17: phase 15's steps 4-6 from its checkpoint, sharded
     fsdp_counts = train_sharded(torch, dev, record, card)
+    # phase 18: the same steps on the model-parallel path
+    tp_counts = train_tensor_parallel(torch, dev, record, card)
+    kernels[0].update(tp_rank_fwd_ms=record["tp"]["flash_fwd_ms"],
+                      tp_rank_fwd_bound_ms=record["tp"]["flash_fwd_bound_ms"])
     del data
     record["streams"] = {"shape": [CPM_R, CPM_N], "used_len": data3["used"],
                          "path_s": data3["path_s"],
@@ -5137,7 +5278,7 @@ def main(argv=None) -> int:
              "moe_generate": moe_counts, "xlstm_generate": xl_counts,
              "xlstm_pool": xl_pool_counts, "seamless_generate": ed_counts,
              "train": train_counts, "mesh": mesh_counts,
-             "train_sharded": fsdp_counts}
+             "train_sharded": fsdp_counts, "train_tp": tp_counts}
     for k in kernels:
         # each kernel's count on the newest path that runs it (the pool for
         # the serving kernels, phase 7, 8 or 9 for the per-op ones)

@@ -8,8 +8,10 @@ Three terms per step, each in seconds per step per card:
     collective = collective_bytes / 450e9        [NVLink 4, per direction]
 
 The figures are NVIDIA's data sheet for the H100 SXM at its full 700 W
-power limit; a card set below it runs slower, so a share of these peaks
-goes with the card's ``nvidia-smi`` power limit.
+power limit (NVLink: 900 GB/s to the other cards of the host, all to
+all, so 450 GB/s each way, whichever mesh axis a collective runs on); a
+card set below it runs slower, so a share of these peaks goes with the
+card's ``nvidia-smi`` power limit.
 
 The JAX module's ``parse_hlo`` reads the collective bytes of a compiled
 step from XLA's text.  The port has no compiled program: its collectives
@@ -17,7 +19,8 @@ are the calls ``repro_torch.distributed.sharding`` makes, which count
 themselves, so :func:`collective_stats` reads those counters (set to 0
 before the step, read after) with ``parse_hlo``'s per-chip ring model:
 all-gather ``out (g - 1) / g``, reduce-scatter ``in (g - 1) / g``,
-all-reduce ``2 in (g - 1) / g`` over a group of ``g`` ranks.
+all-reduce ``2 in (g - 1) / g`` over a group of ``g`` ranks, by kind
+and by mesh axis (the data axes, "model").
 """
 
 from __future__ import annotations
@@ -34,10 +37,12 @@ HW = {
 @dataclasses.dataclass
 class CollectiveStats:
     """``parse_hlo``'s result: the bytes each card moves, in all and by
-    kind, and the number of collectives by kind."""
+    kind, and the number of collectives by kind; and the bytes by mesh
+    axis (``"data"``: the data axes, ``"model"``)."""
     per_chip_bytes: float = 0.0
     by_kind: dict = dataclasses.field(default_factory=dict)
     op_counts: dict = dataclasses.field(default_factory=dict)
+    by_axis: dict = dataclasses.field(default_factory=dict)
 
 
 def collective_stats(counts: dict | None = None) -> CollectiveStats:
@@ -47,10 +52,15 @@ def collective_stats(counts: dict | None = None) -> CollectiveStats:
 
     counts = sharding.collective_counts() if counts is None else counts
     kinds = {k.replace("_", "-"): v for k, v in counts.items()}
+    by_axis: dict = {}
+    for k, v in kinds.items():
+        axis = k.partition(":")[2] or "data"
+        by_axis[axis] = by_axis.get(axis, 0.0) + v["ring_bytes"]
     return CollectiveStats(
         per_chip_bytes=sum(v["ring_bytes"] for v in kinds.values()),
         by_kind={k: v["ring_bytes"] for k, v in kinds.items()},
-        op_counts={k: v["calls"] for k, v in kinds.items()})
+        op_counts={k: v["calls"] for k, v in kinds.items()},
+        by_axis=by_axis)
 
 
 def roofline_terms(flops_per_chip: float, bytes_per_chip: float,

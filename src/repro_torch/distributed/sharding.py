@@ -27,17 +27,36 @@ block to the compute dtype and all-gathers it over the data axes into a
 plain tensor, whole on the data axes, whose backward reduce-scatters the
 gradient back onto the block (all-reduces it for a leaf replicated over
 dp) and divides by the group's size: the gradient of the mean of the
-ranks' losses.  Activations are the rank's own batch rows, so
-:func:`shard` checks the context and returns its input.  A mesh axis
-longer than 1 other than the data axes (tensor parallelism) raises
-``NotImplementedError``: it is ROADMAP Queue 1 item 5.
+ranks' losses.
+
+Tensor and expert parallelism run on the "model" axis (JAX's GSPMD over
+the same rules).  At each of JAX's ``shard(x, kind)`` sites a rank holds
+the part of ``x`` that ``act_spec(kind, x.shape)`` gives it, so
+:func:`shard` returns its input: the model code computes only the rank's
+heads, ``d_ff`` columns, channels, experts and vocabulary rows where the
+spec splits them over "model" (:func:`model_splits`), and all of a dim
+where the divisibility fallback replicates it.  A weight's model block is
+used in place where its split lines up with the activations;
+:func:`compute_view`'s ``rule`` names the leaves a layer wants otherwise
+(whole over "model", or another block).  Four autograd Functions carry
+activations across the model axis, Megatron's region operators:
+:func:`enter_model` (identity, all-reduce backward), :func:`leave_model`
+(all-reduce, identity backward), :func:`gather_model` (all-gather;
+reduce-scatter backward, or the rank's block where every model rank
+computes the same) and :func:`slice_model` (the rank's block, all-gather
+backward).  Each collective runs at any size, 1 included.  Sequence
+parallelism (``REPRO_SP``, ``seq_shard``), the data-axis expert layouts
+(``REPRO_EP_DATA``, ``REPRO_MOE_CAP_DP``) and serving under a model axis
+longer than 1 raise ``NotImplementedError`` (:func:`check_data_only`):
+ROADMAP Queue 1 items 5c, 5d and 5a.
 
 Every collective of this module adds to :func:`collective_counts`, by
-kind: calls, the bytes it carries (all-gather: its output; reduce-scatter
-and all-reduce: their input) and the bytes each rank moves on a ring of
-``g`` ranks, as ``repro.analysis.roofline.parse_hlo`` counts them:
-all-gather ``out (g - 1) / g``, reduce-scatter ``in (g - 1) / g``,
-all-reduce ``2 in (g - 1) / g``.
+kind, under the kind's name for the data axes and ``"<kind>:model"`` for
+the model axis: calls, the bytes it carries (all-gather: its output;
+reduce-scatter and all-reduce: their input) and the bytes each rank
+moves on a ring of ``g`` ranks, as ``repro.analysis.roofline.parse_hlo``
+counts them: all-gather ``out (g - 1) / g``, reduce-scatter ``in (g - 1)
+/ g``, all-reduce ``2 in (g - 1) / g``.
 """
 
 from __future__ import annotations
@@ -187,47 +206,47 @@ def act_spec(kind: str, shape: tuple[int, ...] | None = None,
     return spec
 
 
-def _entry_axes(entry) -> tuple:
-    return () if entry is None else (
-        entry if isinstance(entry, tuple) else (entry,))
-
-
-def check_data_only(ctx: ShardingCtx | None = None, spec=None,
-                    what: str = "this mesh") -> None:
-    """Raise ``NotImplementedError`` where ``spec`` (default: any axis of
-    the mesh) names a mesh axis longer than 1 that is not a data axis:
-    tensor parallelism, ROADMAP Queue 1 item 5.  Never skips such an
-    axis silently."""
+def check_data_only(ctx: ShardingCtx | None = None,
+                    what: str = "this mesh", serving: bool = False,
+                    kind: str | None = None) -> None:
+    """Raise ``NotImplementedError`` where the context asks for a layout
+    the port does not run, never skipping it silently: sequence
+    parallelism on a model axis longer than 1 (``REPRO_SP`` or
+    ``make_ctx(seq_shard=True)``; ROADMAP Queue 1 item 5c), the
+    data-axis expert layouts (``REPRO_EP_DATA``, ``REPRO_MOE_CAP_DP``)
+    at the MoE's activation kinds on any mesh longer than 1 (item 5d)
+    and, with ``serving``, a model axis longer than 1 (prefill, decode
+    and their caches; item 5a)."""
     c = ctx or _CTX
     if c.mesh is None:
         return
-    names = (axis_names(c.mesh) if spec is None else
-             tuple(a for e in spec for a in _entry_axes(e)))
-    for a in names:
-        if a not in c.data_axes and c.axis_size(a) > 1:
-            raise NotImplementedError(
-                f"{what} shards over mesh axis {a!r} of size "
-                f"{c.axis_size(a)}: tensor parallelism (an axis longer "
-                f"than 1 besides the data axes {c.data_axes}) is ROADMAP "
-                f"Queue 1 item 5")
+    m = model_size(c)
+    if serving and m > 1:
+        raise NotImplementedError(
+            f"{what} under a model axis of size {m}: serving under tensor "
+            f"parallelism is ROADMAP Queue 1 item 5a")
+    seq = act_spec("btd", None, c)[1]
+    if seq is not None and c.axis_size(seq) > 1:
+        raise NotImplementedError(
+            f"{what} shards the sequence over {seq!r}: sequence "
+            f"parallelism (REPRO_SP, seq_shard) is ROADMAP Queue 1 item 5c")
+    if kind in ("ecd", "ecf") and (_EP_AXIS_DATA or _MOE_CAP_DP) \
+            and (dp_size(c) > 1 or m > 1):
+        raise NotImplementedError(
+            f"{what}: REPRO_EP_DATA / REPRO_MOE_CAP_DP lay the MoE dispatch "
+            f"over the data axes: ROADMAP Queue 1 item 5d")
 
 
 def shard(x, kind: str, ctx: ShardingCtx | None = None):
-    """``with_sharding_constraint`` by logical kind.  Each rank holds its
-    own batch rows, which is the data axes' part of every activation
-    spec, so ``x`` comes back as it is; a spec naming another axis longer
-    than 1 raises (:func:`check_data_only`), as do the expert-parallel
-    and capacity-over-dp MoE layouts (``REPRO_EP_DATA``,
-    ``REPRO_MOE_CAP_DP``) under more than one data rank."""
+    """``with_sharding_constraint`` by logical kind.  The model code hands
+    each site the rank's part of ``x`` under ``act_spec(kind, shape)``
+    (its batch rows; its heads, columns, experts or vocabulary rows where
+    the spec splits them over "model"), so ``x`` comes back as it is,
+    after :func:`check_data_only`."""
     c = ctx or _CTX
     if c.mesh is None:
         return x
-    check_data_only(c, act_spec(kind, None, c), f"activation {kind!r}")
-    if kind in ("ecd", "ecf") and (_EP_AXIS_DATA or _MOE_CAP_DP) \
-            and dp_size(c) > 1:
-        raise NotImplementedError(
-            "REPRO_EP_DATA / REPRO_MOE_CAP_DP shard the MoE dispatch over "
-            "the data axes: expert parallelism is ROADMAP Queue 1 item 5")
+    check_data_only(c, f"activation {kind!r}", kind=kind)
     return x
 
 
@@ -375,6 +394,47 @@ def dp_group(ctx: ShardingCtx | None = None):
 
 
 # ---------------------------------------------------------------------------
+# the model axis: its size, this rank's coordinate, its group
+# ---------------------------------------------------------------------------
+
+def model_parallel(ctx: ShardingCtx | None = None) -> bool:
+    """Whether the context has a model axis (of any size, 1 included):
+    the model code then computes the rank's part of every split kind and
+    runs the model-axis collectives."""
+    c = ctx or _CTX
+    return c.mesh is not None and c.model_axis is not None
+
+
+def model_size(ctx: ShardingCtx | None = None) -> int:
+    """The number of ranks on the model axis (1 without one)."""
+    c = ctx or _CTX
+    return c.axis_size(c.model_axis) if model_parallel(c) else 1
+
+
+def model_rank(ctx: ShardingCtx | None = None) -> int:
+    """This rank's coordinate on the model axis: the block of every
+    model-split leaf and activation that it holds."""
+    c = ctx or _CTX
+    return c.mesh.get_local_rank(c.model_axis) if model_parallel(c) else 0
+
+
+def model_group(ctx: ShardingCtx | None = None):
+    """The process group of the model axis."""
+    from repro_torch.cpm.collectives import _group
+
+    c = ctx or _CTX
+    return _group(c.model_axis, c.mesh)
+
+
+def model_splits(n: int, ctx: ShardingCtx | None = None) -> bool:
+    """Whether an activation dim of size ``n`` that ``act_spec`` puts on
+    the model axis is split there (a model axis, and ``n`` divisible by
+    its size), as against replicated by the divisibility fallback."""
+    c = ctx or _CTX
+    return model_parallel(c) and n % model_size(c) == 0
+
+
+# ---------------------------------------------------------------------------
 # counted collectives
 # ---------------------------------------------------------------------------
 
@@ -386,11 +446,14 @@ def collective_counts() -> dict:
     """Per kind: ``calls``, ``bytes`` carried (all-gather: its output;
     reduce-scatter, all-reduce: their input), those bytes by element
     type (``dtypes``) and ``ring_bytes``, what each rank moves on a ring
-    (module docstring), since the last :func:`reset_collective_counts`."""
+    (module docstring), since the last :func:`reset_collective_counts`.
+    The data axes' kinds are keyed by name; the model axis's, by
+    ``"<kind>:model"``, appear once one has run."""
     return {k: dict(v, dtypes=dict(v["dtypes"])) for k, v in _COUNTS.items()}
 
 
 def reset_collective_counts() -> None:
+    _COUNTS.clear()
     for k in _KINDS:
         _COUNTS[k] = {"calls": 0, "bytes": 0, "ring_bytes": 0.0,
                       "dtypes": {}}
@@ -399,10 +462,12 @@ def reset_collective_counts() -> None:
 reset_collective_counts()
 
 
-def _count(kind: str, t: torch.Tensor, g: int) -> None:
+def _count(kind: str, t: torch.Tensor, g: int, axis: str | None = None):
     nbytes = t.numel() * t.element_size()
     share = (g - 1) / g
-    c = _COUNTS[kind]
+    key = kind if axis is None else f"{kind}:{axis}"
+    c = _COUNTS.setdefault(key, {"calls": 0, "bytes": 0, "ring_bytes": 0.0,
+                                 "dtypes": {}})
     c["calls"] += 1
     c["bytes"] += nbytes
     c["ring_bytes"] += nbytes * share * (2 if kind == "all_reduce" else 1)
@@ -415,7 +480,8 @@ def _around(shape, dim: int) -> tuple[int, int, int]:
     return (math.prod(shape[:dim]), shape[dim], math.prod(shape[dim + 1:]))
 
 
-def _all_gather(x: torch.Tensor, dim: int, group, g: int) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, dim: int, group, g: int,
+                axis: str | None = None) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in group order, laid
     out row-major as an unsharded tensor (a GEMM's rounding follows its
     operands' layout).  The blocks arrive stacked, so putting them side
@@ -423,13 +489,13 @@ def _all_gather(x: torch.Tensor, dim: int, group, g: int) -> torch.Tensor:
     pre, n, post = _around(x.shape, dim)
     out = x.new_empty((g * x.shape[0], *x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-    _count("all_gather", out, g)
+    _count("all_gather", out, g, axis)
     shape = (*x.shape[:dim], g * n, *x.shape[dim + 1:])
     return out.view(g, pre, n, post).permute(1, 0, 2, 3).reshape(shape)
 
 
-def _reduce_scatter(x: torch.Tensor, dim: int, group,
-                    g: int) -> torch.Tensor:
+def _reduce_scatter(x: torch.Tensor, dim: int, group, g: int,
+                    axis: str | None = None) -> torch.Tensor:
     """The sum of the ranks' ``x``, this rank's block along ``dim``: the
     ``g`` blocks stacked for the collective (runs of whole rows copied;
     none at ``g`` 1)."""
@@ -438,15 +504,16 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group,
     xs = x.reshape(pre, g, n // g, post).permute(1, 0, 2, 3).contiguous()
     xs = xs.view(g * out.shape[0], *out.shape[1:])
     dist.reduce_scatter_tensor(out, xs, group=group)
-    _count("reduce_scatter", xs, g)
+    _count("reduce_scatter", xs, g, axis)
     return out
 
 
-def _all_reduce(x: torch.Tensor, group, g: int) -> torch.Tensor:
-    """The sum of the ranks' ``x``, in a new tensor."""
+def _all_reduce(x: torch.Tensor, group, g: int, axis: str | None = None,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) of the ranks' ``x``, in a new tensor."""
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
-    _count("all_reduce", out, g)
+    dist.all_reduce(out, op=op, group=group)
+    _count("all_reduce", out, g, axis)
     return out
 
 
@@ -490,6 +557,131 @@ def dp_gather(x: torch.Tensor, ctx: ShardingCtx | None = None):
     if c.mesh is None:
         return x[None]
     return _all_gather(x[None], 0, dp_group(c), dp_size(c))
+
+
+# ---------------------------------------------------------------------------
+# the model axis's region operators (Megatron's f and g, and the gather and
+# slice between a split and a whole tensor), each an autograd Function
+# ---------------------------------------------------------------------------
+
+def _block(x: torch.Tensor, dim: int, g: int, r: int) -> torch.Tensor:
+    """Block ``r`` of ``g`` equal blocks of ``x`` along ``dim`` (a view)."""
+    n = x.shape[dim] // g
+    return x.narrow(dim, r * n, n)
+
+
+class _EnterModel(torch.autograd.Function):
+    """Identity; the backward sums the model ranks' gradients, each the
+    part its share of a split computation sent back to the input."""
+
+    @staticmethod
+    def forward(ctx, x, group, g):
+        ctx.group, ctx.g = group, g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group, ctx.g, "model"), None, None
+
+
+class _LeaveModel(torch.autograd.Function):
+    """The sum of the model ranks' partial results; the backward hands
+    the gradient, the same on every rank, to each rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, group, g):
+        return _all_reduce(x, group, g, "model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """The model ranks' blocks along ``dim`` put together.  The backward
+    reduce-scatters the gradient where each rank's computation reached
+    only a part of the whole (``partial``), and takes this rank's block
+    of it where every model rank computed the same from the whole."""
+
+    @staticmethod
+    def forward(ctx, x, dim, partial, group, g, r):
+        ctx.dim, ctx.partial = dim, partial
+        ctx.group, ctx.g, ctx.r = group, g, r
+        return _all_gather(x, dim, group, g, "model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.partial:
+            out = _reduce_scatter(grad, ctx.dim, ctx.group, ctx.g, "model")
+        else:
+            out = _block(grad, ctx.dim, ctx.g, ctx.r)
+        return out, None, None, None, None, None
+
+
+class _SliceModel(torch.autograd.Function):
+    """This rank's block along ``dim`` of a tensor every model rank holds
+    whole; the backward all-gathers the ranks' gradients of their blocks
+    into the whole's, the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, g, r):
+        ctx.dim, ctx.group, ctx.g = dim, group, g
+        return _block(x, dim, g, r)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_all_gather(grad, ctx.dim, ctx.group, ctx.g, "model"),
+                None, None, None, None)
+
+
+def _dim(x: torch.Tensor, dim: int) -> int:
+    return dim % x.ndim
+
+
+def enter_model(x: torch.Tensor, ctx: ShardingCtx | None = None):
+    """Enter a model-parallel region: ``x`` (the same on every model
+    rank) as it is, its gradient summed over the model axis."""
+    c = ctx or _CTX
+    return _EnterModel.apply(x, model_group(c), model_size(c))
+
+
+def leave_model(x: torch.Tensor, ctx: ShardingCtx | None = None):
+    """Leave a model-parallel region: the sum of the model ranks' ``x``
+    (a row-parallel product's partial sums), the gradient passed on."""
+    c = ctx or _CTX
+    return _LeaveModel.apply(x, model_group(c), model_size(c))
+
+
+def gather_model(x: torch.Tensor, dim: int, partial: bool = True,
+                 ctx: ShardingCtx | None = None):
+    """The model ranks' blocks of ``x`` along ``dim``, whole (see
+    :class:`_GatherModel` for ``partial``)."""
+    c = ctx or _CTX
+    return _GatherModel.apply(x, _dim(x, dim), partial, model_group(c),
+                              model_size(c), model_rank(c))
+
+
+def slice_model(x: torch.Tensor, dim: int, ctx: ShardingCtx | None = None):
+    """This rank's block of ``x`` along ``dim`` (``x`` the same on every
+    model rank); the gradient all-gathered (:class:`_SliceModel`)."""
+    c = ctx or _CTX
+    return _SliceModel.apply(x, _dim(x, dim), model_group(c), model_size(c),
+                             model_rank(c))
+
+
+@torch.no_grad()
+def model_sum(x: torch.Tensor, ctx: ShardingCtx | None = None):
+    """The sum of the model ranks' ``x`` (no gradient)."""
+    c = ctx or _CTX
+    return _all_reduce(x, model_group(c), model_size(c), "model")
+
+
+@torch.no_grad()
+def model_max(x: torch.Tensor, ctx: ShardingCtx | None = None):
+    """The elementwise maximum of the model ranks' ``x`` (no gradient)."""
+    c = ctx or _CTX
+    return _all_reduce(x, model_group(c), model_size(c), "model",
+                       dist.ReduceOp.MAX)
 
 
 # ---------------------------------------------------------------------------
@@ -592,7 +784,6 @@ def distribute_leaf(path: str, full, ctx: ShardingCtx | None = None):
     """One leaf as a ``DTensor`` by its :func:`param_spec` (the rank keeps
     its block; the full tensor can be freed)."""
     c = ctx or _CTX
-    check_data_only(c)
     spec = param_spec(path, tuple(full.shape), c)
     return shard_from_full(full, NamedSharding(c.mesh, spec))
 
@@ -623,10 +814,28 @@ def _dp_dim(w, ctx: ShardingCtx):
     return dims.pop() if dims else None
 
 
+def _model_dim(w, ctx: ShardingCtx):
+    """The tensor dim of DTensor ``w`` sharded over the model axis, or
+    None (a plain tensor, or a leaf replicated there)."""
+    from torch.distributed.tensor import Shard
+
+    if not is_distributed(w) or not model_parallel(ctx):
+        return None
+    for name, p in zip(axis_names(w.device_mesh), w.placements):
+        if name == ctx.model_axis and isinstance(p, Shard):
+            return p.dim
+    return None
+
+
 def dp_sharded(w, ctx: ShardingCtx | None = None) -> bool:
     """Whether DTensor ``w`` is split over the data axes (its local
     blocks sum to the whole; a replicated leaf's count once)."""
     return is_distributed(w) and _dp_dim(w, ctx or _CTX) is not None
+
+
+def model_sharded(w, ctx: ShardingCtx | None = None) -> bool:
+    """Whether DTensor ``w`` is split over the model axis."""
+    return _model_dim(w, ctx or _CTX) is not None
 
 
 def unbind_leading(w) -> list:
@@ -679,72 +888,130 @@ class _GatherView(torch.autograd.Function):
                 None, None, None, None)
 
 
-def compute_view(params, dtype=None, ctx: ShardingCtx | None = None):
+def _model_view(x: torch.Tensor, mdim, want, c: ShardingCtx):
+    """A leaf's view on the model axis: ``x`` holds the leaf whole on the
+    data axes, split over "model" on dim ``mdim`` (None: whole there).
+    ``want`` (:func:`compute_view`'s ``rule``) is None for the whole leaf,
+    every model rank computing the same from it; ``"partial"`` for the
+    whole leaf, each rank's computation reaching a part of it (its
+    gradient summed over the model axis); or a dim, for the rank's block
+    along it (in place where the storage splits that dim)."""
+    if not model_parallel(c):
+        return x
+    if want is None:
+        return x if mdim is None else gather_model(x, mdim, False, c)
+    if want == "partial":
+        return (enter_model(x, c) if mdim is None
+                else gather_model(x, mdim, True, c))
+    d = want % x.ndim
+    if mdim == d:
+        return x
+    if mdim is None:
+        return slice_model(x, d, c)
+    return _block(gather_model(x, mdim, True, c), d, model_size(c),
+                  model_rank(c))
+
+
+def compute_view(params, dtype=None, ctx: ShardingCtx | None = None,
+                 rule=None):
     """Cast >=2-D float32 weights to ``dtype`` and make every leaf whole
     on the data axes: the single place the ZeRO-3 weight all-gathers
     happen (JAX's constraint to :func:`compute_spec`), once a block
     application.  A ``DTensor`` leaf comes back as a plain tensor (the
     gather of its cast block, see :class:`_GatherView`); a plain tensor is
-    only cast."""
+    only cast.  Under a model axis, ``rule(path)`` says how the layer
+    uses each leaf (:func:`_model_view`; ``path`` as in
+    :func:`param_specs`, from this tree's root; no rule: every leaf
+    whole): a block that lines up with the split activations stays in
+    place, and a leaf the layer reads whole is gathered over "model"."""
     c = ctx or _CTX
-    check_data_only(c, what="compute_view")
+    check_data_only(c, "compute_view")
     group = n = None
 
-    def view(_, w):
+    def view(path, w):
         nonlocal group, n
         cast = (dtype if dtype is not None and w.ndim >= 2
                 and w.dtype == torch.float32 else None)
+        want = rule(path) if rule is not None else None
         if not is_distributed(w):
-            return w if cast is None else w.to(cast)
+            x = w if cast is None else w.to(cast)
+            return _model_view(x, None, want, c)
         if group is None:
             group, n = dp_group(c), dp_size(c)
-        return _GatherView.apply(w.to_local(), cast, _dp_dim(w, c), group,
-                                 n)
+        x = _GatherView.apply(w.to_local(), cast, _dp_dim(w, c), group, n)
+        return _model_view(x, _model_dim(w, c), want, c)
 
     return _walk(view, params)
 
 
 class _EmbedRows(torch.autograd.Function):
-    """Rows of a distributed table: the table whole (:func:`_whole`), then
-    indexed.  The backward accumulates the rows' gradients into a zero
+    """Rows of a distributed table: the table whole on the data axes
+    (:func:`_whole`), then indexed.  With ``lo`` (vocabulary-parallel:
+    the table holds rows ``lo`` onward) a token outside the block gives a
+    zero row.  The backward accumulates the rows' gradients into a zero
     table of the block's dtype, as indexing the float32 table and casting
     the rows would (so one rank trains bit for bit as a plain table), and
     reduces that onto the block (:func:`_reduced`)."""
 
     @staticmethod
-    def forward(ctx, block, index, dtype, dim, group, g):
-        ctx.save_for_backward(index)
-        ctx.dim, ctx.group, ctx.g, ctx.dtype = dim, group, g, block.dtype
+    def forward(ctx, block, index, dtype, dim, group, g, lo):
         x = _whole(block, dtype, dim, group, g)
+        own = None
+        if lo is not None:
+            index = index - lo
+            own = (index >= 0) & (index < x.shape[0])
+            index = index.clamp(0, x.shape[0] - 1)
+        ctx.save_for_backward(index, own)
+        ctx.dim, ctx.group, ctx.g, ctx.dtype = dim, group, g, block.dtype
         ctx.shape = x.shape
-        return x[index]
+        rows = x[index]
+        return rows if own is None else torch.where(
+            own[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                              device=rows.device))
 
     @staticmethod
     def backward(ctx, grad):
-        index, = ctx.saved_tensors
+        index, own = ctx.saved_tensors
+        if own is not None:
+            grad = torch.where(own[..., None], grad,
+                               torch.zeros((), dtype=grad.dtype,
+                                           device=grad.device))
         table = grad.new_zeros(ctx.shape, dtype=ctx.dtype)
         table.index_put_((index,), grad.to(ctx.dtype), accumulate=True)
         return (_reduced(table, ctx.dim, ctx.group, ctx.g, ctx.dtype),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def embed_rows(table, index: torch.Tensor, dtype,
                ctx: ShardingCtx | None = None) -> torch.Tensor:
     """``table[index]`` cast to ``dtype`` for a distributed ``table`` (see
-    :class:`_EmbedRows`)."""
+    :class:`_EmbedRows`).  Split over the model axis on its rows (the
+    vocabulary), each rank looks up the tokens in its range and the rows
+    are summed over the model axis; split on its columns, the rows are
+    gathered whole over it."""
     c = ctx or _CTX
-    check_data_only(c)
-    return _EmbedRows.apply(table.to_local(), index, dtype,
-                            _dp_dim(table, c), dp_group(c), dp_size(c))
+    mdim = _model_dim(table, c)
+    lo = None
+    if mdim == 0:
+        lo = model_rank(c) * local(table).shape[0]
+    rows = _EmbedRows.apply(table.to_local(), index, dtype,
+                            _dp_dim(table, c), dp_group(c), dp_size(c), lo)
+    if mdim == 0:
+        return leave_model(rows, c)
+    return _model_view(rows, None if mdim is None else rows.ndim - 1, None,
+                       c)
 
 
 def full_tensor(w, ctx: ShardingCtx | None = None) -> torch.Tensor:
-    """The whole of DTensor ``w`` on every data rank (an all-gather over
-    the data axes; no gradient): the checkpoint's view of a leaf."""
+    """The whole of DTensor ``w`` on every rank (all-gathers over the data
+    axes, then the model axis; no gradient): the checkpoint's view of a
+    leaf."""
     c = ctx or _CTX
-    check_data_only(c)
-    block, dim = local(w), _dp_dim(w, c)
-    if dim is None:
-        return block
+    block, dim, mdim = local(w), _dp_dim(w, c), _model_dim(w, c)
     with torch.no_grad():
-        return _all_gather(block, dim, dp_group(c), dp_size(c)).contiguous()
+        if dim is not None:
+            block = _all_gather(block, dim, dp_group(c), dp_size(c))
+        if mdim is not None:
+            block = _all_gather(block, mdim, model_group(c), model_size(c),
+                                "model")
+        return block.contiguous()

@@ -12,6 +12,11 @@ constants, so that importing touches no process group:
     over the ranks of the running group, as JAX's is over the devices
     that exist.
 
+Each axis of a ``DeviceMesh`` has its process group (``get_group``): on
+(d, m), rank ``i`` is at (``i // m``, ``i % m``), its "model" group the
+``m`` ranks of its row and its "data" group the ``d`` of its column, on
+gloo and NCCL alike.
+
 Where no default process group is running, :func:`ensure_group` starts
 one: from the ``torchrun`` environment (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``) when ``RANK`` is set, otherwise as a

@@ -8,13 +8,16 @@
         --arch granite-8b --seq-len 4096 --global-batch 32
 
 The flags of ``repro.launch.train`` plus ``--device``.  ``--mesh host``
-trains data-parallel over the running group: ``make_host_mesh()`` =
-(world, 1) ("data", "model") over the ranks ``torchrun`` starts, or a
-group of one this process starts itself.  Each rank holds only its
+trains over the running group: ``make_host_mesh()`` = (world, 1)
+("data", "model") over the ranks ``torchrun`` starts, or a group of one
+this process starts itself.  ``--mesh production`` / ``production-multi``
+build ``make_production_mesh``'s (16, 16) ("data", "model") / (2, 16,
+16) ("pod", "data", "model") over a running group of 256 / 512 ranks
+(another size exits, naming them): tensor and expert parallel over
+"model", data-parallel over the rest.  Each rank holds only its
 ``param_spec`` block of the params, ``mu`` and ``nu`` (ZeRO-3), reads
-the rows of its data coordinate and all-gathers each block's weights as
-it runs it (``sharding.compute_view``).  The production meshes need
-tensor parallelism over their "model" axis (ROADMAP Queue 1 item 5).
+the rows of its data coordinate and all-gathers each block's weights
+over the data axes as it runs it (``sharding.compute_view``).
 Weights start from seed 0, drawn leaf by leaf: every rank draws each
 whole leaf from the same generator on its device and keeps its block, so
 one rank's init is the unsharded one's and no rank holds the whole
@@ -41,7 +44,8 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.configs import SHAPES, ShapeConfig, all_configs, get_config
 from repro_torch.distributed import sharding as shlib
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import (ensure_group, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.models import layers as L, lm
 from repro_torch.train import (OptConfig, checkpoint, data,
                                fault_tolerance as ft, init_opt_state,
@@ -76,6 +80,26 @@ def state_shardings(like, ctx) -> dict:
     return {"params": one, "opt": {"mu": one, "nu": one, "step": None}}
 
 
+#: the ranks each production mesh needs
+MESH_RANKS = {"production": 256, "production-multi": 512}
+
+
+def build_mesh(kind: str, device: str):
+    """The ``DeviceMesh`` of ``--mesh kind`` over the running group (one
+    started for ``device`` where none runs).  A production mesh needs its
+    256 or 512 ranks: a group of another size exits, naming them."""
+    if kind == "host":
+        return make_host_mesh(device=device)
+    ensure_group(device)
+    need, have = MESH_RANKS[kind], dist.get_world_size()
+    if have != need:
+        raise SystemExit(f"--mesh {kind} needs a group of {need} ranks "
+                         f"(make_production_mesh); the running group has "
+                         f"{have}")
+    return make_production_mesh(multi_pod=kind == "production-multi",
+                                device=device)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True, choices=sorted(all_configs()))
@@ -96,26 +120,21 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
-    if args.mesh != "host":
-        raise SystemExit(f"--mesh {args.mesh}: repro_torch trains data-"
-                         f"parallel on the host mesh only; the production "
-                         f"meshes need tensor parallelism over 'model' "
-                         f"(ROADMAP Queue 1 item 5)")
     dev = resolve_device(args.device)
     started = not dist.is_initialized()
-    mesh = make_host_mesh(device=dev.type)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-        torch.cuda.set_device(dev)
-    ctx = shlib.make_ctx(mesh)
-    shlib.set_sharding_ctx(ctx)
-    logging.basicConfig(level=logging.INFO if checkpoint.writes()
-                        else logging.WARNING)
     try:
+        mesh = build_mesh(args.mesh, dev.type)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
+        ctx = shlib.make_ctx(mesh)
+        shlib.set_sharding_ctx(ctx)
+        logging.basicConfig(level=logging.INFO if checkpoint.writes()
+                            else logging.WARNING)
         _train(args, dev, ctx)
     finally:
         shlib.set_sharding_ctx(shlib.ShardingCtx())
-        if started:
+        if started and dist.is_initialized():
             dist.destroy_process_group()
 
 

@@ -11,16 +11,26 @@ them.  Parameters stay float32 and are cast to ``COMPUTE_DTYPE``
 (bfloat16) where they are used, at the JAX package's casting points
 (``compute_view`` casts every >=2-D float32 weight per block).
 
-Under a data-parallel sharding context (``repro_torch.distributed.
-sharding``) each rank runs its own batch rows: ``compute_view`` turns the
-params' ``DTensor`` blocks into whole weights (the ZeRO-3 all-gather,
+Under a sharding context (``repro_torch.distributed.sharding``) each rank
+runs its own batch rows: ``compute_view`` turns the params' ``DTensor``
+blocks into weights whole on the data axes (the ZeRO-3 all-gather,
 reduce-scattered in the backward), ``shard`` stands where JAX constrains
 activations, and the MoE routes the global batch (capacity from the
 global token count, queue positions after the lower ranks' tokens, the
 dispatch buffer summed over the data ranks, load and importance averaged
-over them).  The sLSTM, a ``shard_map`` over the batch in JAX, runs its
-time loop on the rank's own rows with no collective inside.  Tensor
-parallelism raises (ROADMAP Queue 1 item 5).
+over them).  Under a "model" axis (of any size) each rank computes the
+part of every activation that JAX's ``act_spec`` gives it, between the
+model axis's region operators: attention on its heads (its KV heads too
+where the model axis divides them, else every KV head, from ``wk`` /
+``wv`` gathered whole, narrowed to those its q heads read), the MLP on
+its ``d_ff`` columns, the MoE on its experts (every rank routes every
+token; each dispatches to and combines from its own experts), the RG-LRU
+on its channels, the mLSTM on its heads; each ends in a row-parallel
+product summed over the model axis.  The sLSTM, a ``shard_map`` over the
+batch in JAX with every head on each device, runs its time loop on the
+rank's own rows with every head and no collective inside.
+:func:`model_rule` tells ``compute_view`` which block of each leaf a
+layer reads.
 """
 
 from __future__ import annotations
@@ -85,13 +95,51 @@ def _dense_leaves(generator, device, reps, leaves) -> Params:
             for name, shape, scale in leaves}
 
 
-def compute_view(p, dtype=None):
+def compute_view(p, dtype=None, rule=None):
     """Cast every >=2-D float32 weight of a param tree to ``dtype``
     (default ``COMPUTE_DTYPE``, read at the call as the JAX callers pass
-    ``L.COMPUTE_DTYPE``) and make every leaf whole on the data axes:
-    ``sharding.compute_view``."""
+    ``L.COMPUTE_DTYPE``) and make every leaf whole on the data axes, and
+    on the model axis as ``rule`` says: ``sharding.compute_view``."""
     return sharding.compute_view(p, COMPUTE_DTYPE if dtype is None
-                                 else dtype)
+                                 else dtype, rule=rule)
+
+
+def model_rule(cfg: ModelConfig):
+    """``compute_view``'s rule for a block of ``cfg``: the dim along which
+    a layer reads the rank's block of each leaf (a column block feeding a
+    split kind, a row block consuming one, the experts, the RG-LRU's
+    channels, the mLSTM's heads), ``"partial"`` for ``wk`` / ``wv`` where
+    the q heads are split and the KV heads are not, None for a leaf read
+    whole (norms, the router, the sLSTM's ``rec_w``, every leaf of a
+    layer whose kind the divisibility fallback replicates)."""
+    sp = sharding.model_splits
+    heads, kv = sp(cfg.n_heads), sp(cfg.n_kv_heads)
+    kv_rule = -1 if heads and kv else "partial" if heads else None
+    width = cfg.rnn_width or cfg.d_model
+    table = {
+        "attn": {"wq": -1, "bq": -1, "wo": -2} if heads else {},
+        "ffn": {**({"w_gate": -1, "w_in": -1, "w_out": -2}
+                   if cfg.d_ff and sp(cfg.d_ff) else {}),
+                **({"expert_gate": -3, "expert_in": -3, "expert_out": -3}
+                   if cfg.moe is not None and sp(cfg.moe.n_experts)
+                   else {})},
+        "rglru": dict.fromkeys(("wx", "wg", "conv_w", "a_param",
+                                "w_input_gate"), -1) | {"wy": -2}
+        if sp(width) else {},
+        "mlstm": {"w_up": -1, "w_up_gate": -1, "wq": -3, "wk": -3,
+                  "wv": -3, "w_if": -2, "w_down": -2} if heads else {},
+        "slstm": {**({"wx": -1} if sp(4 * cfg.d_model) else {}),
+                  **({"w_down": -2} if sp(cfg.d_model) else {})},
+    }
+    for name in ("wk", "wv", "bk", "bv"):
+        table["attn"][name] = kv_rule
+    table["cross"] = table["attn"]
+
+    def rule(path: str):
+        parent, name = path.split("/")[-2:]
+        return table.get(parent, {}).get(name)
+
+    return rule
 
 
 # ---------------------------------------------------------------------------
@@ -184,9 +232,10 @@ def init_attention(cfg: ModelConfig, generator, device,
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  kv_input: torch.Tensor | None = None):
     """q from ``x``, k and v from ``kv_input`` (cross attention) or ``x``:
-    (B, S, H, dh) and (B, Skv, KVH, dh)."""
+    (B, S, H, dh) and (B, Skv, KVH, dh), of the heads whose columns the
+    weights hold (the rank's block under a model axis)."""
     b, s, _ = x.shape
-    dh, h, kvh = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.dh
     kv_x = x if kv_input is None else kv_input
     dt = x.dtype
     q = x @ p["wq"].to(dt)
@@ -197,8 +246,23 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
     skv = kv_x.shape[1]
-    return (q.reshape(b, s, h, dh), k.reshape(b, skv, kvh, dh),
-            v.reshape(b, skv, kvh, dh))
+    return (q.reshape(b, s, -1, dh), k.reshape(b, skv, -1, dh),
+            v.reshape(b, skv, -1, dh))
+
+
+def _rank_kv_heads(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Of every KV head ``t`` (B, KVH, S, dh), those this model rank's q
+    heads read (GQA: q head ``i`` reads KV head ``i // (H / KVH)``): a
+    run of heads where the rank's q heads fall on them in equal groups,
+    else one KV head for each q head."""
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    hl = h // sharding.model_size()
+    lo = sharding.model_rank() * hl
+    want = [(lo + i) // (h // kvh) for i in range(hl)]
+    first, n = want[0], want[-1] - want[0] + 1
+    if hl % n == 0 and want == [first + i // (hl // n) for i in range(hl)]:
+        return t.narrow(1, first, n)
+    return t.index_select(1, torch.tensor(want, device=t.device))
 
 
 def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
@@ -208,19 +272,35 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
     local, keys within ``window`` positions of the query; ``causal=False``:
     bidirectional), or cross attention from ``x`` to ``kv_input`` (keys at
     ``kv_positions`` where RoPE applies; the decoder's cross attention
-    runs with ``causal=False, rope=False``).  Returns y or (y, cache)."""
+    runs with ``causal=False, rope=False``).  Returns y or (y, cache).
+
+    Under a model axis that divides the q heads, the rank runs its heads
+    (``p`` holds their columns of ``wq`` and rows of ``wo``,
+    :func:`model_rule`) and ``wo``'s partial sums are summed over the
+    axis; its KV heads are its block where the axis divides them too,
+    else those its q heads read of every KV head."""
     b, s, _ = x.shape
+    split = sharding.model_splits(cfg.n_heads)
+    if split:
+        x = sharding.enter_model(x)
+        if kv_input is not None:
+            kv_input = sharding.enter_model(kv_input)
     q, k, v = _project_qkv(p, x, cfg, kv_input)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         kpos = positions if kv_positions is None else kv_positions
         k = apply_rope(k, kpos, cfg.rope_theta, cfg.mrope_sections)
     q = shard(q.transpose(1, 2), "bhsd")                 # (B, H, S, dh)
-    k = shard(k.transpose(1, 2), "bhsd")
-    v = shard(v.transpose(1, 2), "bhsd")
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
+    if split and not sharding.model_splits(cfg.n_kv_heads):
+        k, v = _rank_kv_heads(k, cfg), _rank_kv_heads(v, cfg)
+    k, v = shard(k, "bhsd"), shard(v, "bhsd")
     o = ops.attention(q, k, v, causal=causal, window=window)
-    o = shard(o, "bhsd").transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.dh)
-    y = shard(o @ p["wo"].to(x.dtype), "btd")
+    o = shard(o, "bhsd").transpose(1, 2).reshape(b, s, -1)
+    y = o @ p["wo"].to(x.dtype)
+    if split:
+        y = sharding.leave_model(y)
+    y = shard(y, "btd")
     if not with_cache:
         return y
     cache = {"k": k, "v": v,
@@ -308,14 +388,21 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The dense FFN; under a model axis that divides ``d_ff``, on the
+    rank's columns of ``w_gate`` / ``w_in`` and rows of ``w_out``, its
+    partial sums summed over the axis."""
     dt = x.dtype
+    split = sharding.model_splits(cfg.d_ff)
+    if split:
+        x = sharding.enter_model(x)
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_in"].to(dt))
     else:
         act = _gelu if cfg.ffn == "gelu" else F.relu
         h = act(x @ p["w_in"].to(dt))
     h = shard(h, "btf")
-    return shard(h @ p["w_out"].to(dt), "btd")
+    y = h @ p["w_out"].to(dt)
+    return shard(sharding.leave_model(y) if split else y, "btd")
 
 
 # ---------------------------------------------------------------------------
@@ -369,7 +456,14 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
     token count, queue positions after the lower ranks' (``moe_route``),
     every rank's dispatch summed before the experts run (each slot holds
     one rank's token, so the sum is exact), and load and importance the
-    means over the ranks before their product."""
+    means over the ranks before their product.
+
+    Under a model axis that divides the experts (expert parallelism:
+    ``p`` holds the rank's ``E / m`` experts, :func:`model_rule`) every
+    model rank routes every token as above (the router and the aux loss
+    are replicated over the axis), keeps the slots of its own experts, so
+    no all-to-all is needed, combines their outputs only and sums the
+    combine over the axis."""
     b, s, d = x.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     t = b * s
@@ -392,11 +486,24 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
     gates_k = probs.gather(1, eidx)                      # (T, k)
     gates_k = gates_k / torch.clamp(gates_k.sum(-1, keepdim=True), min=1e-9)
 
-    vals = torch.where(keep[..., None], xt[:, None, :],
-                       torch.zeros((), dtype=dt, device=x.device))
+    zero = torch.zeros((), dtype=dt, device=x.device)
+    split = sharding.model_splits(e)
+    if split:
+        # each rank dispatches its experts' tokens: their gradients, and
+        # the gates', are the rank's part of every token's
+        xt, gates_k = sharding.enter_model(xt), sharding.enter_model(gates_k)
+    vals = torch.where(keep[..., None], xt[:, None, :], zero)
     sc_e = torch.where(keep, eidx, e - 1)
     sc_c = torch.where(keep, pos.long(), cap - 1)
-    expert_x = torch.zeros((e, cap, d), dtype=dt, device=x.device)
+    own, el = keep, e
+    if split:
+        el = e // sharding.model_size()
+        sc_e = sc_e - sharding.model_rank() * el
+        mine = (sc_e >= 0) & (sc_e < el)
+        own = own & mine
+        sc_e = torch.where(mine, sc_e, 0)
+        vals = torch.where(mine[..., None], vals, zero)
+    expert_x = torch.zeros((el, cap, d), dtype=dt, device=x.device)
     expert_x.index_put_((sc_e, sc_c), vals, accumulate=True)
     if n > 1:
         expert_x = sharding.dp_sum(expert_x)
@@ -408,8 +515,10 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
     eo = shard(torch.bmm(h, p["expert_out"].to(dt)), "ecd")  # (E, cap, d)
 
     gathered = eo[sc_e, sc_c]                            # (T, k, d)
-    w = torch.where(keep, gates_k, 0.0).to(dt)
+    w = torch.where(own, gates_k, 0.0).to(dt)
     out = torch.einsum("tkd,tk->td", gathered, w)
+    if split:
+        out = sharding.leave_model(out)
     return shard(out.reshape(b, s, d), "btd"), aux
 
 
@@ -468,8 +577,16 @@ def _rglru_scan(x: torch.Tensor, a_param, gate_x, rec_x, h0=None):
 
 def rglru_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
               with_cache=False):
+    """The RG-LRU block; under a model axis that divides its width, on
+    the rank's channels (``p`` holds their columns of ``wx`` / ``wg`` /
+    ``conv_w``, their gates and rows of ``wy``, :func:`model_rule`): the
+    scan is channel-wise, so it runs on the rank's alone, and ``wy``'s
+    partial sums are summed over the axis."""
     b, s, _ = x.shape
     dt = x.dtype
+    split = sharding.model_splits(cfg.rnn_width or cfg.d_model)
+    if split:
+        x = sharding.enter_model(x)
     branch = (x @ p["wx"].to(dt)).float()                # (B, S, W)
     gate = _gelu((x @ p["wg"].to(dt)).float())
     # short depthwise causal conv (Griffin's temporal conv, width 4);
@@ -482,7 +599,8 @@ def rglru_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
     ig = conv * torch.sigmoid(p["w_input_gate"][0])
     rg = conv * torch.sigmoid(p["w_input_gate"][1])
     h = _rglru_scan(conv, p["a_param"], ig, rg)
-    y = shard((h.to(dt) * gate.to(dt)) @ p["wy"].to(dt), "btd")
+    y = (h.to(dt) * gate.to(dt)) @ p["wy"].to(dt)
+    y = shard(sharding.leave_model(y) if split else y, "btd")
     if not with_cache:
         return y
     cw = cfg.conv_width
@@ -602,24 +720,38 @@ def _mlstm_qkv(p: Params, z: torch.Tensor, dh: int):
 def mlstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
               with_cache=False, chunk: int = 256):
     """The mLSTM over a sequence, chunks of ``min(chunk, S)`` positions:
-    S must be a multiple of it (as in JAX; nothing is padded)."""
+    S must be a multiple of it (as in JAX; nothing is padded).  Under a
+    model axis that divides the heads, on the rank's heads (``p`` holds
+    their columns of ``w_up`` / ``w_up_gate``, their blocks of ``wq`` /
+    ``wk`` / ``wv``, their rows of ``w_if`` and ``w_down``,
+    :func:`model_rule`): the gates' pre-activations and ``w_down``'s
+    products are partial sums, summed over the axis."""
     b, s, _ = x.shape
     dt = x.dtype
     h = cfg.n_heads
-    up = p["w_up"].shape[-1]
-    dh = up // h
+    dh = 2 * cfg.d_model // h
+    split = sharding.model_splits(h)
+    if split:
+        x = sharding.enter_model(x)
     z = shard(x @ p["w_up"].to(dt), "btf")              # (B, S, up)
     gate = F.silu(x @ p["w_up_gate"].to(dt))
     q, k, v = (shard(t, "bthd") for t in                 # (B, S, H, dh)
-               _mlstm_qkv(p, z.reshape(b, s, h, dh), dh))
-    gif = (z @ p["w_if"].to(dt)).float()                 # (B, S, 2H)
-    log_i = F.logsigmoid(gif[..., :h]).transpose(1, 2)
-    log_f = F.logsigmoid(gif[..., h:]).transpose(1, 2)
+               _mlstm_qkv(p, z.reshape(b, s, -1, dh), dh))
+    gif = z @ p["w_if"].to(dt)                           # (B, S, 2H)
+    if split:
+        gif = sharding.leave_model(gif)
+    gif = gif.float()
+    gi, gf = gif[..., :h], gif[..., h:]
+    if split:
+        gi, gf = sharding.slice_model(gi, -1), sharding.slice_model(gf, -1)
+    log_i = F.logsigmoid(gi).transpose(1, 2)
+    log_f = F.logsigmoid(gf).transpose(1, 2)
     out, (C, nrm) = _mlstm_chunk_scan(
         q.transpose(1, 2).float(), k.transpose(1, 2).float(),
         v.transpose(1, 2).float(), log_f, log_i, min(chunk, s))
-    out = out.transpose(1, 2).reshape(b, s, up).to(dt)
-    y = shard((out * gate) @ p["w_down"].to(dt), "btd")
+    out = out.transpose(1, 2).reshape(b, s, -1).to(dt)
+    y = (out * gate) @ p["w_down"].to(dt)
+    y = shard(sharding.leave_model(y) if split else y, "btd")
     if not with_cache:
         return y
     return y, {"C": C, "n": nrm,
@@ -707,11 +839,22 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> Params:
 def slstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
               with_cache=False):
     """The sLSTM over a sequence: one cell step a position, in order, on
-    the rank's own batch rows (JAX's ``shard_map`` over the data axes):
-    no collective runs inside the time loop."""
+    the rank's own batch rows (JAX's ``shard_map`` over the data axes)
+    with every head (its ``in_specs`` replicate ``rec_w``): no collective
+    runs inside the time loop.  Under a model axis the rank computes its
+    columns of the pre-activations (``wx``'s block, :func:`model_rule`),
+    gathered whole before the loop, and its rows' part of ``w_down``'s
+    product, summed over the axis after it."""
     b, s, d = x.shape
     dt = x.dtype
-    x_pre = (x @ p["wx"].to(dt)).float()                 # (B, S, 4D)
+    wide = sharding.model_splits(4 * d)
+    rows = sharding.model_splits(d)
+    if wide:
+        x = sharding.enter_model(x)
+    x_pre = x @ p["wx"].to(dt)                           # (B, S, 4D)
+    if wide:
+        x_pre = sharding.gather_model(x_pre, -1, partial=False)
+    x_pre = x_pre.float()
     pp = {"rec_w": p["rec_w"].float()}
     z = init_slstm_cache(cfg, b, x.device)
     state = (z["c"], z["n"], z["h"], z["m"])
@@ -719,8 +862,11 @@ def slstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
     for t in range(s):
         state = _slstm_cell(pp, cfg, x_pre[:, t], state)
         hs.append(state[2])
-    out = torch.stack(hs, dim=1).reshape(b, s, d)
-    y = shard(out.to(dt) @ p["w_down"].to(dt), "btd")
+    out = torch.stack(hs, dim=1).reshape(b, s, d).to(dt)
+    if rows:
+        out = sharding.slice_model(out, -1)
+    y = out @ p["w_down"].to(dt)
+    y = shard(sharding.leave_model(y) if rows else y, "btd")
     if not with_cache:
         return y
     return y, dict(zip(("c", "n", "h", "m"), state))

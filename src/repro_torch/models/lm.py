@@ -17,11 +17,18 @@ one ``index_put_`` per layer, recurrent states and lengths by a copy into
 the repeat's row) instead of returning copies; the returned cache trees
 share that storage.
 
-Under a data-parallel sharding context the params are ``DTensor``s
+Under a sharding context the params are ``DTensor``s
 (``sharding.distribute_params``) and each rank runs its own batch rows:
 every weight is used through ``L.compute_view`` (the blocks, the
-embedding, the unembedding, the final norm), which gathers it whole;
-``shard`` stands at JAX's constraints.  Serving keeps plain tensors.
+embedding, the unembedding, the final norm), which gathers it whole on
+the data axes; ``shard`` stands at JAX's constraints.  Under a "model"
+axis the blocks run tensor and expert parallel (``layers``), the
+embedding is vocabulary-parallel (each rank looks up the tokens in its
+rows, the rows summed over the axis) and so is the loss (the
+log-sum-exp and the gold logit of each position combined over the axis,
+:class:`_VocabLSE`); norms outside the blocks are gathered whole.
+Serving keeps plain tensors, and raises under a model axis longer than 1
+(ROADMAP Queue 1 item 5a).
 """
 
 from __future__ import annotations
@@ -171,7 +178,7 @@ def block_fwd(p: Params, x, kind: str, cfg: ModelConfig, positions, *,
               causal=True, enc_out=None, with_cache=False):
     """Full-sequence block (``enc_out``: the encoder output its cross
     attention reads).  Returns (x, aux, cache)."""
-    p = L.compute_view(p)
+    p = L.compute_view(p, rule=L.model_rule(cfg))
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
     cache = {}
     name = _mixer(kind)
@@ -218,7 +225,7 @@ def _cross_kv(p: Params, enc_out, cfg: ModelConfig):
 def block_step(p: Params, x_t, cache: Params, kind: str, cfg: ModelConfig,
                pos):
     """One-token decode.  Returns (x_t, cache)."""
-    p = L.compute_view(p)
+    p = L.compute_view(p, rule=L.model_rule(cfg))
     h = L.apply_norm(p["norm1"], x_t, cfg.norm_eps)
     name = _mixer(kind)
     if name == "attn":
@@ -297,11 +304,13 @@ def _embed(params: Params, cfg: ModelConfig, tokens,
     return shard(x, "btd")
 
 
-def _mask_pad(logits, cfg: ModelConfig):
+def _mask_pad(logits, cfg: ModelConfig, lo: int = 0):
+    """Padded vocabulary entries to -1e30; ``logits`` hold entries ``lo``
+    onward (a model rank's block)."""
     vp = logits.shape[-1]
-    if vp == cfg.vocab_size:
+    if lo + vp <= cfg.vocab_size:
         return logits
-    pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+    pad = torch.arange(lo, lo + vp, device=logits.device) >= cfg.vocab_size
     return logits.masked_fill(pad, -1e30)
 
 
@@ -414,11 +423,47 @@ def forward(params: Params, cfg: ModelConfig, batch: dict, *,
     return _norm(params["final_norm"], cfg, x), aux
 
 
+class _VocabLSE(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim of logits split over the
+    model axis (each rank holds its vocabulary block), in its operations
+    and order: the maximum (combined over the axis, infinities to 0), the
+    sum of ``exp(x - max)`` (summed over the axis), its log plus the
+    maximum; the backward ``grad * exp(x - lse)``, as torch's.  So at one
+    model rank it equals ``torch.logsumexp`` bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x):
+        mx = sharding.model_max(torch.amax(x, -1, keepdim=True))
+        mx.masked_fill_(mx.abs() == math.inf, 0)
+        tot = sharding.model_sum((x - mx).exp_().sum(-1))
+        lse = tot.log_().add_(mx.squeeze(-1))
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, lse = ctx.saved_tensors
+        return grad.unsqueeze(-1) * (x - lse.unsqueeze(-1)).exp()
+
+
+def _vocab_gold(logits, labels, lo: int):
+    """Each position's logit of its label from vocabulary-parallel logits
+    (entries ``lo`` onward): the rank's own labels' logits, 0 elsewhere,
+    summed over the model axis."""
+    idx = labels - lo
+    own = (idx >= 0) & (idx < logits.shape[-1])
+    gold = logits.gather(-1, idx.clamp(0, logits.shape[-1] - 1)[..., None])
+    gold = torch.where(own, gold[..., 0], 0.0)
+    return sharding.leave_model(gold)
+
+
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
             remat: bool = True, loss_chunk: int = 1024):
     """Next-token cross entropy with sequence-chunked logits (never
     materializes (B, S, V): a chunk is (B, C, V)) plus the MoE aux loss.
-    Returns (loss, {"ce", "aux"})."""
+    Returns (loss, {"ce", "aux"}).  Under a model axis that divides the
+    padded vocabulary each rank computes its block of every chunk's
+    logits, and the cross entropy combines over the axis."""
     x, aux = forward(params, cfg, batch, remat=remat)
     tokens = batch["tokens"]
     xs = x[:, :-1]
@@ -427,15 +472,26 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
     chunk = min(loss_chunk, n)
     while n % chunk:
         chunk -= 1
-    w = _unemb(params, cfg)
+    name = "emb" if cfg.tie_embeddings else "unemb"
+    vocab = sharding.model_splits(padded_vocab(cfg))
+    w = L.compute_view({name: params[name]},
+                       rule=lambda _: 0 if vocab else None)[name]
+    lo = 0
+    if vocab:
+        xs = sharding.enter_model(xs)
+        lo = sharding.model_rank() * w.shape[0]
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = 0
     for i in range(n // chunk):                          # ce_chunk
         sl = slice(i * chunk, (i + 1) * chunk)
         logits = _mask_pad(shard(xs[:, sl] @ w.to(xs.dtype).T, "btv")
-                           .float(), cfg)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[:, sl, None])[..., 0]
+                           .float(), cfg, lo)
+        if vocab:
+            lse = _VocabLSE.apply(logits)
+            gold = _vocab_gold(logits, labels[:, sl], lo)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels[:, sl, None])[..., 0]
         tot = tot + torch.sum(lse - gold)
         cnt += gold.numel()
     ce = tot / cnt
@@ -451,6 +507,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int = 0):
     per-layer decode caches: global-attn caches padded to ``max_len``
     slots, local-window caches laid out as rings, recurrent states after
     the last position, and an encoder-decoder's cross-attention K/V."""
+    sharding.check_data_only(what="prefill", serving=True)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(params, cfg, tokens, batch)
@@ -525,6 +582,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens_t, caches: dict,
     """One decode step.  tokens_t: (B, 1); pos: scalar or (B,) int32.
     Returns (logits (B, 1, V), caches); the stacked cache buffers are
     written in place."""
+    sharding.check_data_only(what="decode_step", serving=True)
     x = _embed(params, cfg, tokens_t)
     unit, n_rep, tail = _layout(cfg)
     for r in range(n_rep):

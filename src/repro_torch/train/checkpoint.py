@@ -8,13 +8,14 @@ either package restores in the other.  Commit protocol: write into
 ``step_<N>.tmp``, then ``os.replace`` it to ``step_<N>``; a crash
 mid-write never corrupts the latest complete checkpoint.
 
-Checkpoints hold full arrays whatever the mesh, so a restore under any
-world size re-shards them.  Under a process group every rank calls
-:func:`save`: a ``DTensor`` leaf is all-gathered whole over the data
-axes, one leaf at a time, rank 0 copies it to the host and only rank 0
-writes.  :func:`restore` with ``shardings`` reads each file memory-mapped
-and copies only this rank's block to its device, so no card ever holds
-the whole state.
+Checkpoints hold full arrays whatever the mesh, so a restore onto any
+("data", "model") mesh re-shards them (JAX's elastic restore).  Under a
+process group every rank calls :func:`save`: a ``DTensor`` leaf is
+all-gathered whole over the data axes and the model axis, one leaf at a
+time, rank 0 copies it to the host and only rank 0 writes.
+:func:`restore` with ``shardings`` reads each file memory-mapped and
+copies only this rank's block to its device, so no card ever holds the
+whole state.
 
 With ``async_=True`` a background thread writes the files, so the train
 loop blocks only on the copy of the state to the host; every collective

@@ -10,8 +10,8 @@ returns new arrays): params, ``mu`` and ``nu`` are updated leaf by leaf
 on the rank's local blocks, so the step needs one leaf's temporaries on
 top of the state, and it reads nothing back to the host.  The global
 norm of distributed gradients sums the ranks' local sums of squares in
-one all-reduce over the data axes, a leaf replicated over them counted
-once.
+one all-reduce over the model axis and one over the data axes, a leaf
+replicated over an axis counted once there.
 """
 
 from __future__ import annotations
@@ -72,9 +72,11 @@ def schedule(cfg: OptConfig, step):
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
     """The L2 norm of every leaf together.  Of ``DTensor`` leaves each
-    rank squares its block; a leaf replicated over the data axes counts
-    on data coordinate 0 only (zero elsewhere), and one all-reduce over
-    them sums the per-leaf terms before they are added in leaf order."""
+    rank squares its block; a leaf replicated over the model axis counts
+    on model coordinate 0 only and one all-reduce over the model axis
+    sums the per-leaf terms, then a leaf replicated over the data axes
+    counts on data coordinate 0 only and one all-reduce over them sums
+    them, before they are added in leaf order."""
     leaves = [x for _, x in leaves_with_path(tree)]
     sums = [torch.sum(torch.square(sharding.local(x).float()))
             for x in leaves]
@@ -86,7 +88,13 @@ def global_norm(tree) -> torch.Tensor:
     if sharding.dp_rank():
         sums = [s if sharding.dp_sharded(x) else torch.zeros_like(s)
                 for s, x in zip(sums, leaves)]
-    return torch.sqrt(torch.sum(sharding.dp_sum(torch.stack(sums))))
+    if sharding.model_rank():
+        sums = [s if sharding.model_sharded(x) else torch.zeros_like(s)
+                for s, x in zip(sums, leaves)]
+    vec = torch.stack(sums)
+    if sharding.model_parallel():
+        vec = sharding.model_sum(vec)
+    return torch.sqrt(torch.sum(sharding.dp_sum(vec)))
 
 
 def _clip_scale(norm, max_norm: float):

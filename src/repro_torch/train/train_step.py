@@ -11,11 +11,14 @@ tensors; they require grad only during the step.
 Data parallelism (JAX's GSPMD reduction): with ``DTensor`` params
 (``sharding.distribute_params``) each rank runs its own batch rows, cut
 into the microbatches in order (microbatch ``i`` of the global batch is
-every rank's ``i``-th, in coordinate order), on views of its blocks;
+every data rank's ``i``-th, in coordinate order), on views of its blocks;
 ``compute_view``'s backward reduce-scatters each weight's gradient over
 the data axes inside every microbatch's backward (JAX's per-microbatch
 sync), so the block's ``.grad`` accumulates reduced gradients in float32
-in microbatch order.  Loss and metrics are averaged over the data ranks.
+in microbatch order.  The rows go by the data coordinate: the ranks of
+one model group (one data coordinate) hold the same rows, and loss and
+metrics, the same on each of them, are averaged over the data ranks
+only.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ def loss_and_grads(params, cfg: ModelConfig, batch: dict, *,
     accumulator, cleared on return.  Of ``DTensor`` params the local
     blocks are those leaves, the gradients ``DTensor``s of the params'
     placements, reduced over the data axes (module docstring), and loss
-    and metrics the data ranks' means."""
+    and metrics the data ranks' means (``batch``: this data coordinate's
+    rows, the same on every model rank)."""
     k = num_microbatches
     dist = any(sharding.is_distributed(p) for _, p in
                leaves_with_path(params))
@@ -118,10 +122,11 @@ def _grad(p):
 
 @torch.no_grad()
 def _dp_means(loss, metrics: dict):
-    """Loss and metrics averaged over the data ranks, in one all-reduce.
-    Each rank's loss is the mean over its own rows, and every rank holds
-    as many rows of as many tokens, so the mean of the ranks' means is
-    the global batch's mean exactly (up to rounding)."""
+    """Loss and metrics averaged over the data ranks, in one all-reduce
+    (the model ranks of a data coordinate hold the same values).  Each
+    rank's loss is the mean over its own rows, and every rank holds as
+    many rows of as many tokens, so the mean of the ranks' means is the
+    global batch's mean exactly (up to rounding)."""
     keys = list(metrics)
     vec = sharding.dp_mean(torch.stack([loss, *(metrics[k] for k in keys)]))
     return vec[0], dict(zip(keys, vec[1:]))

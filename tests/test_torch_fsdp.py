@@ -980,23 +980,27 @@ def test_cli_under_torchrun_trains_then_resumes(runs):
 # ---------------------------------------------------------------------------
 
 def test_shard_raises_on_a_model_axis():
-    """A mesh whose "model" axis is longer than 1 needs tensor
-    parallelism: ``shard`` and ``compute_view`` raise citing the
-    ROADMAP item, never skipping the axis silently; with "model" 1 (or
-    folded into dp) ``shard`` returns its input."""
+    """A "model" axis longer than 1 is tensor parallelism: each rank hands
+    ``shard`` its part of an activation, which comes back as it is, and
+    ``compute_view`` casts a plain leaf.  What still raises on that axis,
+    citing its ROADMAP item and never skipping the axis silently, is
+    sequence parallelism over it (``seq_shard``) and serving under it.
+    With "model" 1 (or folded into dp) ``shard`` returns its input."""
     from repro_torch.distributed import sharding as sh
 
     tp = type("M", (), {"axis_names": ("data", "model"),
                         "shape": {"data": 2, "model": 2}})()
     x = torch.ones((2, 3, 4))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sh.shard(x, "btf", sh.make_ctx(tp))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sh.compute_view({"wq": torch.ones((4, 4))}, torch.bfloat16,
-                        sh.make_ctx(tp))
+    assert sh.shard(x, "btf", sh.make_ctx(tp)) is x
+    view = sh.compute_view({"wq": torch.ones((4, 4))}, torch.bfloat16,
+                           sh.make_ctx(tp))
+    assert view["wq"].dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
+        sh.shard(x, "btf", sh.make_ctx(tp, seq_shard=True))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5a"):
+        sh.check_data_only(sh.make_ctx(tp), "prefill", serving=True)
     assert sh.shard(x, "btf", sh.make_ctx(tp, pure_dp=True)) is x
     dp = type("M", (), {"axis_names": ("data", "model"),
                         "shape": {"data": 4, "model": 1}})()
     assert sh.shard(x, "bhsd", sh.make_ctx(dp)) is x
     assert sh.shard(x, "btd", sh.ShardingCtx()) is x
-

@@ -675,8 +675,10 @@ def test_cli_trains_then_resumes(tmp_path):
 
 
 def test_cli_refuses_the_production_meshes():
+    """In a group of one (the CLI starts a gloo group of one), the
+    production meshes exit naming the 256 or 512 ranks they need."""
     from repro_torch.launch import train as cli
-    for mesh in ("production", "production-multi"):
-        with pytest.raises(SystemExit, match="Queue 1 item 5"):
+    for mesh, ranks in (("production", 256), ("production-multi", 512)):
+        with pytest.raises(SystemExit, match=f"group of {ranks} ranks"):
             cli.main(["--arch", "granite-8b", "--smoke", "--device", "cpu",
                       "--mesh", mesh])
