@@ -292,6 +292,23 @@ Phases, in order; any failure exits non-zero:
      axes' bytes against phase 17's formula and the model axis's by kind
      and dtype against PERF.md's, step ms, busy, NCCL time and peak
      memory beside phase 15's; the checkpoint is removed at the end.
+ 19. serving under a "model" axis, run right after phase 9 on phase 5's
+     weights: (a) flash attention at granite-8b's serving prefill with a
+     rank's heads of a 4-way model axis, (4, 32/4 over 8/4, 256, 128),
+     causal, bf16, strided as the main path lays it out, against its
+     plain twin (2e-2) and timed beside its bound; (b) a group of one
+     NCCL rank, the host mesh's ``make_ctx(mesh, fsdp=False)`` with its
+     "model" axis of size 1 (serving weights as JAX's dry run stores
+     them: ``distribute_params``' DTensors, whole on the data axes, split
+     over "model"; every region operator's collective, the
+     vocabulary-parallel embedding and the logits' gather run at n = 1),
+     phase 5's prompts through ``Engine.generate``, scan then speculative
+     (draft 4), the launch counters set to 0 just before and read just
+     after: the tokens equal phase 5's bit for bit, flash launches at
+     least once a layer a prefill, the commit's launches as its verdict
+     implies; then the prefill and the scan decode timed, the plain path
+     (no context, phase 5's) and the model-axis path alternately in the
+     same phase, with the model axis's collectives a decode step.
 
 The lines before the last are the launch floor beside the kernels that
 run at it, the card (``nvidia-smi`` name and power limit) and one JSON
@@ -377,6 +394,10 @@ TRAIN_GRAD_CASES = (
 #: 4-way model axis (32 / 4 q heads, 8 / 4 KV heads)
 TP_FLASH_CASES = (
     ("granite-train-tp4", 2, 8, 2, 4096, 4096, 128, True, None, "bfloat16"),)
+#: phase 19: granite-8b's serving prefill at a rank's heads of a 4-way
+#: model axis: (B, H, KVH, S, D), causal, bf16
+SERVE_TP_FLASH = (BATCH, 32 // 4, 8 // 4, PROMPT_LEN, 128)
+SERVE_TP_REPEATS = 2               # timed prefills / scan runs, each path
 FLASH_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_SMALL = (2, 2, 128)
 TRAIN_TOL = 1e-3
@@ -5041,6 +5062,197 @@ def train_tensor_parallel(torch, dev, record, card):
     return counts
 
 
+def _check_serve_tp_flash(torch, dev, card) -> dict:
+    """Phase 19 (a): flash at a rank's serving heads of a 4-way model axis
+    against its plain twin, timed beside its bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, kvh, s, d = SERVE_TP_FLASH
+    g = torch.Generator(device=dev).manual_seed(19)
+    # (B, S, heads, D) projections viewed as (B, heads, S, D), as the
+    # main path lays them out
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev)
+               .transpose(1, 2).to(torch.bfloat16) for n in (h, kvh, kvh))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    tol = FLASH_TOL["bfloat16"]
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    ms, src, _ = timed(lambda: fa.flash_attention(q, k, v, causal=True), 20)
+    pairs = b * h * s * (s + 1) // 2
+    # q, k, v read and the output written, bf16; 4 D flops a live pair
+    bnd, by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                    4 * d * pairs)
+    print(f"serve_tp: flash_attention at a rank's heads of a 4-way model "
+          f"axis (B={b} H={h} KVH={kvh} S={s} D={d}, causal, bf16, "
+          f"strided): max_abs_err={err:.3e} tol={tol} "
+          f"{'ok' if ok else 'MISMATCH'}; {ms:.4f} ms ({src}), bound "
+          f"{bnd:.5f} ms by {by}; {card}")
+    if not ok:
+        fail(f"phase 19: flash_attention at a rank's serving heads "
+             f"disagrees with its plain twin (max abs err {err})")
+    return {"flash_err": err, "flash_ms": ms, "flash_ms_source": src,
+            "flash_bound_ms": bnd, "flash_bound_by": by}
+
+
+def serve_tensor_parallel(torch, dev, record, card, gen, params):
+    """Phase 19 (see the module docstring).  Returns the launch counts of
+    its generate runs under the model axis."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine, GenConfig
+
+    t_phase = time.perf_counter()
+    rec = _check_serve_tp_flash(torch, dev, card)
+    cfg = gen["engine"].cfg
+    prompt, want = gen["prompt"], gen["scan"]
+    max_len = gen["engine"].max_len
+    store = ROOT / "build" / "chip_smoke" / "serve_tp_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=dev,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        ctx = sh.make_ctx(make_host_mesh(), fsdp=False)
+        rec.update(group=f"nccl, 1 rank, {dist.get_backend()}",
+                   ctx={"data_axes": list(ctx.data_axes),
+                        "model_axis": ctx.model_axis,
+                        "model_size": sh.model_size(ctx), "fsdp": False})
+        t0 = time.perf_counter()
+        with sh.use_sharding(ctx):
+            dparams = sh.distribute_params(params, ctx)
+        torch.cuda.synchronize()
+        rec["distribute_s"] = time.perf_counter() - t0
+        engine = Engine(cfg, dparams, max_len=max_len, cpm_backend="cuda")
+        scan_cfg = GenConfig(max_new_tokens=MAX_NEW)
+        spec_cfg = GenConfig(max_new_tokens=MAX_NEW, ngram_spec=SPEC)
+        with sh.use_sharding(ctx):
+            ops.reset_launch_counts()              # the main path, counted
+            scan, _ = engine.generate({"tokens": prompt}, scan_cfg)
+            after_scan = ops.launch_counts()
+            spec, stats = engine.generate({"tokens": prompt}, spec_cfg)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        equal = {"scan": torch.equal(scan, want),
+                 "spec": torch.equal(spec, want)}
+        print(f"serve_tp: granite-8b, {cfg.n_layers} layers, on "
+              f"{rec['group']} under {rec['ctx']} (weights distributed in "
+              f"{rec['distribute_s']:.1f}s, each leaf a DTensor): scan and "
+              f"speculative tokens against phase 5's: {equal}; "
+              f"{stats['rounds']} rounds, acceptance "
+              f"{stats['acceptance_rate']:.3f}; {card}")
+        if not all(equal.values()):
+            fail(f"phase 19: tokens under the model axis differ from phase "
+                 f"5's: {equal}")
+        if after_scan["flash_attention"] < cfg.n_layers or \
+                counts["flash_attention"] < 2 * cfg.n_layers:
+            fail(f"phase 19: flash_attention launched "
+                 f"{after_scan['flash_attention']} / "
+                 f"{counts['flash_attention']} times for 2 prefills of "
+                 f"{cfg.n_layers} layers")
+        if after_scan["fused_stream"] or after_scan["shift_range"]:
+            fail(f"phase 19: the scan path launched a commit kernel: "
+                 f"{after_scan}")
+        kind, _ = _commit_verdict(torch, dev, BATCH, PROMPT_LEN + MAX_NEW,
+                                  SPEC)
+        commit_launch_check(counts, kind, stats["rounds"], "serve_tp")
+
+        # the plain path (phase 5's: no context, plain tensors) and the
+        # model axis's, alternately, in this phase
+        plain = gen["engine"]
+        paths = {"plain": (plain, sh.ShardingCtx()), "model": (engine, ctx)}
+        times = {k: {"prefill_ms": [], "scan_s": []} for k in paths}
+        for _ in range(SERVE_TP_REPEATS):
+            for name, (eng, c) in paths.items():
+                with sh.use_sharding(c):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lm.prefill(eng.params, cfg, {"tokens": prompt},
+                               max_len=max_len)
+                    torch.cuda.synchronize()
+                    times[name]["prefill_ms"].append(
+                        (time.perf_counter() - t0) * 1e3)
+                    t0 = time.perf_counter()
+                    eng.generate({"tokens": prompt}, scan_cfg)
+                    torch.cuda.synchronize()
+                    times[name]["scan_s"].append(time.perf_counter() - t0)
+        new = BATCH * MAX_NEW
+        for name, t in times.items():
+            t["prefill_ms_best"] = min(t["prefill_ms"])
+            t["scan_tok_s_best"] = new / min(t["scan_s"])
+        # each path's device busy time in a prefill and a decode step (the
+        # rest of their host-clock time is the host's), the model axis's
+        # collectives a decode step and the host time of one such call
+        pos = torch.tensor(PROMPT_LEN, dtype=torch.int32, device=dev)
+        for name, (eng, c) in paths.items():
+            with sh.use_sharding(c):
+                caches = lm.init_caches(cfg, BATCH, max_len, device=dev)
+                times[name]["prefill_busy_ms"] = _ms(_device_events(
+                    torch, lambda: lm.prefill(eng.params, cfg,
+                                              {"tokens": prompt},
+                                              max_len=max_len)))
+                sh.reset_collective_counts()
+                times[name]["decode_busy_ms"] = _ms(_device_events(
+                    torch, lambda: lm.decode_step(
+                        eng.params, cfg, prompt[:, :1], caches, pos,
+                        max_len=max_len)))
+                del caches
+        step_colls = sh.collective_counts()
+        small = torch.zeros((BATCH, 1, cfg.d_model), dtype=torch.bfloat16,
+                            device=dev)
+        with sh.use_sharding(ctx):
+            sh.model_sum(small)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                sh.model_sum(small)
+            torch.cuda.synchronize()
+        rec["model_sum_call_us"] = (time.perf_counter() - t0) / 200 * 1e6
+        rec.update(scan_equal=equal["scan"], spec_equal=equal["spec"],
+                   rounds=stats["rounds"],
+                   acceptance_rate=stats["acceptance_rate"],
+                   launches=counts, launches_after_scan=after_scan,
+                   commit_verdict=kind, times=times,
+                   phase5={k: record["serve"][k] for k in (
+                       "prefill_ms", "scan_tok_s", "spec_tok_s")},
+                   decode_step_collectives={
+                       k: {"calls": v["calls"], "bytes": v["bytes"]}
+                       for k, v in step_colls.items() if v["calls"]})
+        pt, mt = times["plain"], times["model"]
+        print(f"serve_tp: prefill (B={BATCH} x {PROMPT_LEN}) best of "
+              f"{SERVE_TP_REPEATS}: plain {pt['prefill_ms_best']:.1f} ms, "
+              f"model axis {mt['prefill_ms_best']:.1f} ms "
+              f"({mt['prefill_ms_best'] / pt['prefill_ms_best'] - 1:+.1%});"
+              f" scan decode {MAX_NEW} new: plain "
+              f"{pt['scan_tok_s_best']:.1f} tok/s, model axis "
+              f"{mt['scan_tok_s_best']:.1f} tok/s "
+              f"({mt['scan_tok_s_best'] / pt['scan_tok_s_best'] - 1:+.1%});"
+              f" phase 5: prefill {record['serve']['prefill_ms']:.1f} ms, "
+              f"scan {record['serve']['scan_tok_s']:.1f} tok/s; device busy"
+              f" in a prefill {pt['prefill_busy_ms']:.1f} / "
+              f"{mt['prefill_busy_ms']:.1f} ms and a decode step "
+              f"{pt['decode_busy_ms']:.2f} / {mt['decode_busy_ms']:.2f} ms "
+              f"(plain / model axis); the model axis's collectives a decode "
+              f"step {rec['decode_step_collectives']}, "
+              f"{rec['model_sum_call_us']:.1f} us of host time a call at "
+              f"(4, 1, d); {card}")
+        del engine, dparams
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["card"] = card
+    print(f"serve_tp: phase 19 took {rec['phase_s']:.1f}s")
+    record["serve_tp"] = rec
+    return counts
+
+
 def _hold_within_bounds(torch, dev, cfg, shape, ckpt_dir, params, losses,
                         want_losses, tag, phase):
     """Phases 17 and 18 when their steps are not phase 15's bit for bit: the
@@ -5235,6 +5447,13 @@ def main(argv=None) -> int:
     by_cost, record["generate_by_cost"] = check_generate_by_cost(
         torch, dev, gen, card)
     pool2_counts = check_pool_by_cost(torch, dev, gen)
+    # phase 19: serving under the model axis, on phase 5's weights
+    tp_serve_counts = serve_tensor_parallel(torch, dev, record, card, gen,
+                                            params)
+    kernels[0].update(
+        serve_tp_rank_ms=record["serve_tp"]["flash_ms"],
+        serve_tp_rank_bound_ms=record["serve_tp"]["flash_bound_ms"],
+        serve_tp_rank_err=record["serve_tp"]["flash_err"])
     del gen, params
     torch.cuda.empty_cache()
 
@@ -5278,7 +5497,8 @@ def main(argv=None) -> int:
              "moe_generate": moe_counts, "xlstm_generate": xl_counts,
              "xlstm_pool": xl_pool_counts, "seamless_generate": ed_counts,
              "train": train_counts, "mesh": mesh_counts,
-             "train_sharded": fsdp_counts, "train_tp": tp_counts}
+             "train_sharded": fsdp_counts, "train_tp": tp_counts,
+             "serve_tp": tp_serve_counts}
     for k in kernels:
         # each kernel's count on the newest path that runs it (the pool for
         # the serving kernels, phase 7, 8 or 9 for the per-op ones)

@@ -147,6 +147,9 @@ SHAPES = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
+# archs able to run long_500k (sub-quadratic / bounded-state sequence mixing)
+SUBQUADRATIC = {"recurrentgemma-9b", "xlstm-1.3b"}
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
 
@@ -165,3 +168,14 @@ def get_config(name: str) -> ModelConfig:
 def all_configs() -> dict[str, ModelConfig]:
     from . import archs  # noqa: F401
     return dict(_REGISTRY)
+
+
+def runnable_cells() -> list[tuple[str, str]]:
+    """All (arch, shape) dry-run cells, honoring the long_500k skip rule."""
+    cells = []
+    for arch in all_configs():
+        for shape in SHAPES:
+            if shape == "long_500k" and arch not in SUBQUADRATIC:
+                continue
+            cells.append((arch, shape))
+    return cells

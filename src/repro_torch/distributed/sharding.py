@@ -46,9 +46,19 @@ reduce-scatter backward, or the rank's block where every model rank
 computes the same) and :func:`slice_model` (the rank's block, all-gather
 backward).  Each collective runs at any size, 1 included.  Sequence
 parallelism (``REPRO_SP``, ``seq_shard``), the data-axis expert layouts
-(``REPRO_EP_DATA``, ``REPRO_MOE_CAP_DP``) and serving under a model axis
-longer than 1 raise ``NotImplementedError`` (:func:`check_data_only`):
-ROADMAP Queue 1 items 5c, 5d and 5a.
+(``REPRO_EP_DATA``, ``REPRO_MOE_CAP_DP``) raise ``NotImplementedError``
+(:func:`check_data_only`): ROADMAP Queue 1 items 5c and 5d.
+
+Serving runs under the same axes, its weights stored as JAX's dry run
+stores them (``make_ctx(mesh, fsdp=False)``: whole on the data axes,
+split over "model").  Its caches and batch inputs follow JAX's dry-run
+rules, kept here for the model code and ``launch/dryrun.py`` alike:
+:func:`batch_spec` and :func:`cache_spec` (``_batch_spec`` /
+``_CACHE_RULES`` / ``_cache_spec`` there).  A rank holds its block of
+each cache leaf on the model axis (:func:`cache_block_shape`): its KV
+heads where the axis divides them, else its block of slots of every KV
+head (split-KV), its channels of an RG-LRU state, its heads of an xLSTM
+state; the batch rows are those the rank runs.
 
 Every collective of this module adds to :func:`collective_counts`, by
 kind, under the kind's name for the data axes and ``"<kind>:model"`` for
@@ -62,12 +72,14 @@ counts them: all-gather ``out (g - 1) / g``, reduce-scatter ``in (g - 1)
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
+from torch.utils.weak import WeakIdKeyDictionary
 
 
 class PartitionSpec(tuple):
@@ -109,14 +121,41 @@ class ShardingCtx:
     def dp(self):
         return self.data_axes if self.data_axes else None
 
+    @functools.cached_property
+    def _axes(self) -> dict:
+        """Each mesh axis's (size, this rank's coordinate on it), read
+        from the mesh once: a decode step asks hundreds of times."""
+        if self.mesh is None:
+            return {}
+        names = axis_names(self.mesh)
+        if not hasattr(self.mesh, "mesh_dim_names"):      # mesh-like
+            return {n: (self.mesh.shape[n], 0) for n in names}
+        return {n: (self.mesh.size(i), self.mesh.get_local_rank(n))
+                for i, n in enumerate(names)}
+
+    @functools.cached_property
+    def _groups(self) -> dict:
+        return {}
+
+    def _group(self, axes):
+        """The process group of a mesh axis, or of a tuple of them
+        (``cpm.collectives._group``), made or looked up once."""
+        from repro_torch.cpm.collectives import _group
+
+        if axes not in self._groups:
+            self._groups[axes] = _group(axes, self.mesh)
+        return self._groups[axes]
+
     def axis_size(self, name) -> int:
         if self.mesh is None or name is None:
             return 1
         if isinstance(name, tuple):
             return math.prod(self.axis_size(a) for a in name)
-        if hasattr(self.mesh, "mesh_dim_names"):
-            return self.mesh.size(axis_names(self.mesh).index(name))
-        return self.mesh.shape[name]
+        return self._axes[name][0]
+
+    def axis_rank(self, name) -> int:
+        """This rank's coordinate on mesh axis ``name``."""
+        return self._axes[name][1]
 
 
 _CTX = ShardingCtx()
@@ -207,25 +246,21 @@ def act_spec(kind: str, shape: tuple[int, ...] | None = None,
 
 
 def check_data_only(ctx: ShardingCtx | None = None,
-                    what: str = "this mesh", serving: bool = False,
+                    what: str = "this mesh",
                     kind: str | None = None) -> None:
     """Raise ``NotImplementedError`` where the context asks for a layout
     the port does not run, never skipping it silently: sequence
     parallelism on a model axis longer than 1 (``REPRO_SP`` or
-    ``make_ctx(seq_shard=True)``; ROADMAP Queue 1 item 5c), the
+    ``make_ctx(seq_shard=True)``; ROADMAP Queue 1 item 5c) and the
     data-axis expert layouts (``REPRO_EP_DATA``, ``REPRO_MOE_CAP_DP``)
-    at the MoE's activation kinds on any mesh longer than 1 (item 5d)
-    and, with ``serving``, a model axis longer than 1 (prefill, decode
-    and their caches; item 5a)."""
+    at the MoE's activation kinds on any mesh longer than 1 (item 5d).
+    Training and serving (prefill and decode, their caches laid out by
+    :func:`cache_spec`) run under a model axis of any size."""
     c = ctx or _CTX
     if c.mesh is None:
         return
     m = model_size(c)
-    if serving and m > 1:
-        raise NotImplementedError(
-            f"{what} under a model axis of size {m}: serving under tensor "
-            f"parallelism is ROADMAP Queue 1 item 5a")
-    seq = act_spec("btd", None, c)[1]
+    seq = c.model_axis if _SP else c.seq_axis           # act_spec's "btd"
     if seq is not None and c.axis_size(seq) > 1:
         raise NotImplementedError(
             f"{what} shards the sequence over {seq!r}: sequence "
@@ -248,6 +283,102 @@ def shard(x, kind: str, ctx: ShardingCtx | None = None):
         return x
     check_data_only(c, f"activation {kind!r}", kind=kind)
     return x
+
+
+# ---------------------------------------------------------------------------
+# serving: the batch and cache rules (JAX's launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+def batch_spec(name: str, shape: tuple[int, ...],
+               ctx: ShardingCtx | None = None) -> PartitionSpec:
+    """A batch input's spec: its batch axis over the data axes where they
+    divide it (``pos_ids`` is (3, B, S); every other input batch-major)."""
+    c = ctx or _CTX
+    dp = c.dp
+    if name == "pos_ids":
+        spec = (None, dp, None)
+    else:
+        spec = (dp,) + (None,) * (len(shape) - 1)
+    return P(*(a if a is None or shape[i] % c.axis_size(a) == 0 else None
+               for i, a in enumerate(spec)))
+
+
+#: each cache leaf's logical axes, by its key, right-aligned on its shape
+#: (a stacked-layer leaf has a leading repeat axis)
+CACHE_RULES = {
+    "k": ("b", "heads", None, None), "v": ("b", "heads", None, None),
+    "C": ("b", "heads", None, None), "n": ("b", "heads", None),
+    "h": ("b", "width"), "conv_buf": ("b", None, "width"),
+    "c": ("b", "heads", None), "m": ("b", "heads", None),
+    "len": (),
+}
+
+
+def cache_spec(name: str, shape: tuple[int, ...],
+               ctx: ShardingCtx | None = None) -> PartitionSpec:
+    """The spec of a cache leaf (or of the logits, ``("b", None, None)``)
+    named ``name`` of whole ``shape``: ``"b"`` over the data axes,
+    ``"heads"`` and ``"width"`` over "model", each where it divides the
+    dim.  KV heads the model axis does not divide leave it to the slot
+    axis (flash-decoding style split-KV) where that divides."""
+    c = ctx or _CTX
+    rule = CACHE_RULES.get(name)
+    if rule is None:
+        rule = ("b",) + (None,) * (len(shape) - 1)
+    rule = (None,) * (len(shape) - len(rule)) + tuple(rule)
+
+    def ax(r, dim):
+        cands = {"b": [c.dp], "heads": [c.model_axis], "seq": [c.model_axis],
+                 "width": [c.model_axis]}.get(r, [r])
+        for a in cands:
+            if a is None or dim % c.axis_size(a) == 0:
+                return a
+        return None
+
+    fixed = [ax(r, shape[i]) for i, r in enumerate(rule)]
+    if name in ("k", "v") and len(shape) >= 4:
+        hpos, spos = len(shape) - 3, len(shape) - 2
+        if fixed[hpos] is None and \
+                shape[spos] % c.axis_size(c.model_axis) == 0:
+            fixed[spos] = c.model_axis
+    return P(*fixed)
+
+
+def spec_block_shape(shape: tuple[int, ...], spec,
+                     ctx: ShardingCtx | None = None) -> tuple[int, ...]:
+    """A rank's block of a leaf of ``shape`` under ``spec``: each dim over
+    the product of the mesh axes its entry names (JAX's
+    ``NamedSharding.shard_shape``)."""
+    c = ctx or _CTX
+    full = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(d // c.axis_size(a) for d, a in zip(shape, full))
+
+
+def cache_model_dim(name: str, shape: tuple[int, ...],
+                    ctx: ShardingCtx | None = None) -> int | None:
+    """The dim of a cache leaf of whole ``shape`` that :func:`cache_spec`
+    splits over the model axis, or None (the leaf whole on every model
+    rank, or no model axis)."""
+    c = ctx or _CTX
+    if not model_parallel(c):
+        return None
+    for d, e in enumerate(cache_spec(name, shape, c)):
+        if e == c.model_axis or (isinstance(e, tuple) and c.model_axis in e):
+            return d
+    return None
+
+
+def cache_block_shape(name: str, shape: tuple[int, ...],
+                      ctx: ShardingCtx | None = None) -> tuple[int, ...]:
+    """A rank's block of a cache leaf of whole ``shape`` on the model axis
+    (:func:`cache_model_dim`); the batch rows are those the rank runs."""
+    c = ctx or _CTX
+    d = cache_model_dim(name, shape, c)
+    if d is None:
+        return tuple(shape)
+    out = list(shape)
+    out[d] //= model_size(c)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -380,17 +511,15 @@ def dp_rank(ctx: ShardingCtx | None = None) -> int:
         return 0
     r = 0
     for a in c.data_axes:
-        r = r * c.axis_size(a) + c.mesh.get_local_rank(a)
+        r = r * c.axis_size(a) + c.axis_rank(a)
     return r
 
 
 def dp_group(ctx: ShardingCtx | None = None):
     """The process group over the data axes, its ranks in coordinate
     order (one mesh dimension's group, or one made over several, once)."""
-    from repro_torch.cpm.collectives import _group
-
     c = ctx or _CTX
-    return _group(tuple(c.data_axes), c.mesh)
+    return c._group(tuple(c.data_axes))
 
 
 # ---------------------------------------------------------------------------
@@ -415,15 +544,13 @@ def model_rank(ctx: ShardingCtx | None = None) -> int:
     """This rank's coordinate on the model axis: the block of every
     model-split leaf and activation that it holds."""
     c = ctx or _CTX
-    return c.mesh.get_local_rank(c.model_axis) if model_parallel(c) else 0
+    return c.axis_rank(c.model_axis) if model_parallel(c) else 0
 
 
 def model_group(ctx: ShardingCtx | None = None):
     """The process group of the model axis."""
-    from repro_torch.cpm.collectives import _group
-
     c = ctx or _CTX
-    return _group(c.model_axis, c.mesh)
+    return c._group(c.model_axis)
 
 
 def model_splits(n: int, ctx: ShardingCtx | None = None) -> bool:
@@ -838,12 +965,21 @@ def model_sharded(w, ctx: ShardingCtx | None = None) -> bool:
     return _model_dim(w, ctx or _CTX) is not None
 
 
+#: unbind_leading's repeats of leaves no gradient reaches (serving), kept
+#: while the leaf lives: a decode step would otherwise rebuild them all
+_REPEATS = WeakIdKeyDictionary()
+
+
 def unbind_leading(w) -> list:
     """``w.unbind(0)`` of a DTensor whose leading (stacked-layer) axis is
     not sharded: one DTensor a repeat, each block a view of ``w``'s, under
-    autograd (a gradient reaches ``w``'s block through every repeat)."""
+    autograd (a gradient reaches ``w``'s block through every repeat).
+    Where no gradient can reach ``w`` the repeats are made once."""
     from torch.distributed.tensor import Shard
 
+    frozen = not (torch.is_grad_enabled() and w.requires_grad)
+    if frozen and w in _REPEATS:
+        return _REPEATS[w]
     pl = []
     for p in w.placements:
         if isinstance(p, Shard):
@@ -852,8 +988,11 @@ def unbind_leading(w) -> list:
             p = Shard(p.dim - 1)
         pl.append(p)
     cls = _dtensor_cls()
-    return [cls.from_local(t, w.device_mesh, pl, run_check=False)
+    reps = [cls.from_local(t, w.device_mesh, pl, run_check=False)
             for t in w.to_local().unbind(0)]
+    if frozen:
+        _REPEATS[w] = reps
+    return reps
 
 
 def _whole(block, dtype, dim, group, g: int) -> torch.Tensor:

@@ -13,6 +13,7 @@ them.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import cpm_kernels, flash_attention as fa, ref
@@ -46,13 +47,51 @@ def _mode(impl, t) -> str:
     return impl
 
 
+def _live_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """The (query, key) pairs attention computes a head: every pair, or
+    under ``causal`` those with the key at or before the query (the last
+    query at the last key), within ``window`` positions where given."""
+    if not causal:
+        return sq * skv
+    hi = np.minimum(np.arange(sq, dtype=np.int64) + 1 + skv - sq, skv)
+    lo = 0 if window is None else np.maximum(hi - window, 0)
+    return int((hi - lo).sum())
+
+
+class MetaAttention(torch.autograd.Function):
+    """Attention on ``meta`` tensors (the dry run): the flash kernel's
+    footprint, its output and float32 log-sum-exp, and nothing of the
+    plain twin's (Sq, Skv) scores; the operations of the kernel's live
+    pairs added to ``flops`` (4 D a pair and head forward, the plain
+    backward's 10 D), which ``FlopCounterMode`` cannot see."""
+    flops = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        b, h, sq, d = q.shape
+        ctx.work = b * h * _live_pairs(sq, k.shape[2], causal, window) * d
+        MetaAttention.flops += 4 * ctx.work
+        ctx.save_for_backward(q.new_empty((b, h, sq), dtype=torch.float32))
+        ctx.kv = [(t.shape, t.dtype) for t in (k, v)]
+        return q.new_empty(q.shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        MetaAttention.flops += 10 * ctx.work
+        dk, dv = (grad.new_empty(shape, dtype=dt) for shape, dt in ctx.kv)
+        return grad.new_empty(grad.shape), dk, dv, None, None
+
+
 def attention(q, k, v, *, causal=True, window=None, impl=None, **kw):
     """Prefill / forward attention: q (B, H, Sq, D), k, v (B, KVH, Skv, D).
 
     On CUDA tensors with grad enabled and any of q, k, v requiring grad,
     the kernel runs under :class:`FlashAttentionFn` (its backward plain
     PyTorch); otherwise the bare kernel wrapper, so serving is untouched.
-    The reference (CPU tensors) is differentiated by autograd itself."""
+    The reference (CPU tensors) is differentiated by autograd itself;
+    ``meta`` tensors take :class:`MetaAttention`."""
+    if q.is_meta:
+        return MetaAttention.apply(q, k, v, causal, window)
     if _mode(impl, q) == "ref":
         return ref.flash_attention_ref(
             q, k, v, causal=causal, window=window,

@@ -45,7 +45,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.cpm.reference import comparable
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import shard
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 Params = dict
 COMPUTE_DTYPE = torch.bfloat16
@@ -104,17 +104,22 @@ def compute_view(p, dtype=None, rule=None):
                                  else dtype, rule=rule)
 
 
-def model_rule(cfg: ModelConfig):
+def model_rule(cfg: ModelConfig, step: bool = False):
     """``compute_view``'s rule for a block of ``cfg``: the dim along which
     a layer reads the rank's block of each leaf (a column block feeding a
     split kind, a row block consuming one, the experts, the RG-LRU's
     channels, the mLSTM's heads), ``"partial"`` for ``wk`` / ``wv`` where
     the q heads are split and the KV heads are not, None for a leaf read
     whole (norms, the router, the sLSTM's ``rec_w``, every leaf of a
-    layer whose kind the divisibility fallback replicates)."""
+    layer whose kind the divisibility fallback replicates).  A decode
+    ``step`` reads the column blocks of ``wk`` / ``wv`` wherever the axis
+    divides their columns: the new token's k / v are gathered whole
+    (``_project_qkv``), a token's worth, not the weights."""
     sp = sharding.model_splits
     heads, kv = sp(cfg.n_heads), sp(cfg.n_kv_heads)
     kv_rule = -1 if heads and kv else "partial" if heads else None
+    if step and sp(cfg.n_kv_heads * cfg.dh):
+        kv_rule = -1
     width = cfg.rnn_width or cfg.d_model
     table = {
         "attn": {"wq": -1, "bq": -1, "wo": -2} if heads else {},
@@ -233,7 +238,9 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  kv_input: torch.Tensor | None = None):
     """q from ``x``, k and v from ``kv_input`` (cross attention) or ``x``:
     (B, S, H, dh) and (B, Skv, KVH, dh), of the heads whose columns the
-    weights hold (the rank's block under a model axis)."""
+    weights hold (the rank's block under a model axis; k and v of every
+    KV head where the weights hold a column block of KV heads the axis
+    does not divide, gathered whole: ``model_rule(step=True)``)."""
     b, s, _ = x.shape
     dh = cfg.dh
     kv_x = x if kv_input is None else kv_input
@@ -245,6 +252,10 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    if not sharding.model_splits(cfg.n_kv_heads) and \
+            k.shape[-1] != cfg.n_kv_heads * dh:
+        k = sharding.gather_model(k, -1, partial=False)
+        v = sharding.gather_model(v, -1, partial=False)
     skv = kv_x.shape[1]
     return (q.reshape(b, s, -1, dh), k.reshape(b, skv, -1, dh),
             v.reshape(b, skv, -1, dh))
@@ -278,7 +289,9 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
     (``p`` holds their columns of ``wq`` and rows of ``wo``,
     :func:`model_rule`) and ``wo``'s partial sums are summed over the
     axis; its KV heads are its block where the axis divides them too,
-    else those its q heads read of every KV head."""
+    else those its q heads read of every KV head.  The cache holds the
+    rank's KV heads where the axis divides them, else every KV head over
+    the whole sequence (``lm.prefill`` keeps the rank's slots)."""
     b, s, _ = x.shape
     split = sharding.model_splits(cfg.n_heads)
     if split:
@@ -292,6 +305,7 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
         k = apply_rope(k, kpos, cfg.rope_theta, cfg.mrope_sections)
     q = shard(q.transpose(1, 2), "bhsd")                 # (B, H, S, dh)
     k, v = k.transpose(1, 2), v.transpose(1, 2)
+    cache_kv = k, v
     if split and not sharding.model_splits(cfg.n_kv_heads):
         k, v = _rank_kv_heads(k, cfg), _rank_kv_heads(v, cfg)
     k, v = shard(k, "bhsd"), shard(v, "bhsd")
@@ -303,7 +317,7 @@ def attention_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, positions,
     y = shard(y, "btd")
     if not with_cache:
         return y
-    cache = {"k": k, "v": v,
+    cache = {"k": cache_kv[0], "v": cache_kv[1],
              "len": torch.tensor(s, dtype=torch.int32, device=x.device)}
     return y, cache
 
@@ -312,18 +326,95 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                     dtype=COMPUTE_DTYPE, window: int | None = None) -> Params:
     """Decode cache of ``max_len`` slots; a local-window layer keeps a ring
     of ``min(window, max_len)`` slots, its oldest entry overwritten in
-    place (``attention_step``)."""
+    place (``attention_step``).  Under a model axis, the rank's block
+    (``sharding.cache_spec``): its KV heads, or its slots of every KV
+    head."""
     slots = min(window, max_len) if window else max_len
-    kvh, dh = cfg.n_kv_heads, cfg.dh
+    shape = sharding.cache_block_shape(
+        "k", (batch, cfg.n_kv_heads, slots, cfg.dh))
     return {
-        "k": torch.zeros((batch, kvh, slots, dh), dtype=dtype, device=device),
-        "v": torch.zeros((batch, kvh, slots, dh), dtype=dtype, device=device),
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
         "len": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
+def kv_split_dim(cfg: ModelConfig, slots: int | None,
+                 block_slots: int | None = None) -> int | None:
+    """The dim of an attention cache (B, KVH, S, dh) of ``slots`` whole
+    slots that the model axis splits (``sharding.cache_spec``): 1 where
+    the axis divides the KV heads, else 2 where it divides the slots
+    (split-KV), else None (every rank holds it whole; also without a
+    model axis).  ``slots`` may be None where the axis divides the KV
+    heads; ``block_slots``, a rank's block's, is checked against it."""
+    if not sharding.model_parallel():
+        return None
+    if sharding.model_splits(cfg.n_kv_heads):
+        return 1
+    if slots is None:
+        raise ValueError(
+            f"{cfg.n_kv_heads} KV heads do not split over a model axis of "
+            f"{sharding.model_size()}: the cache's whole slot count (the "
+            f"decode step's max_len, cross_len) says whether its slots do")
+    dim = sharding.cache_model_dim("k", (1, cfg.n_kv_heads, slots, cfg.dh))
+    want = slots // sharding.model_size() if dim == 2 else slots
+    if block_slots is not None and block_slots != want:
+        raise ValueError(f"a cache block of {block_slots} slots is not the "
+                         f"rank's {want} of {slots}")
+    return dim
+
+
+def _split_kv_attention(q, k, v, live, lo: int):
+    """Decode attention of q (B, H, 1, D), every q head, against the
+    rank's block of slots ``lo ..`` of a (B, KVH, S / m, D) cache, the
+    whole cache's first ``live`` slots (a scalar or (B,)) live: each rank
+    takes its block's maximum, sum of exponentials and weighted V, the
+    maxima combined with ``sharding.model_max``, the sums in one
+    ``sharding.model_sum``.  ``ref.decode_attention_ref``'s operations
+    otherwise, so float32 results agree to rounding."""
+    b, h, _, d = q.shape
+    kvh, sl = k.shape[1], k.shape[2]
+    ct = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
+    qf = (q[:, :, 0].reshape(b, kvh, h // kvh, d)
+          * ref._in_dtype(d ** -0.5, q.dtype)).to(ct)
+    s = qf.float() @ k.to(ct).float().transpose(-1, -2)   # (B, KVH, G, sl)
+    idx = lo + torch.arange(sl, device=q.device)
+    cl = torch.as_tensor(live, device=q.device)
+    lim = cl if cl.ndim == 0 else cl[:, None, None, None]
+    s = torch.where(idx < lim, s, ref.NEG_INF)
+    mx = sharding.model_max(s.amax(-1, keepdim=True))
+    e = torch.exp(s - mx)
+    part = sharding.model_sum(torch.cat(
+        [e.to(ct).float() @ v.to(ct).float(), e.sum(-1, keepdim=True)], -1))
+    out = part[..., :d] / part[..., d:]
+    return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+def _attend_cache(q, ck, cv, live, cfg: ModelConfig, kdim):
+    """Decode attention of the rank's q heads (every q head where the
+    model axis does not split them) against a cache block split on
+    ``kdim`` (:func:`kv_split_dim`).  Split-KV gathers the q heads,
+    combines every head's partial results over the axis and keeps the
+    rank's; a cache whole on every rank is read at the KV heads the
+    rank's q heads use."""
+    split = sharding.model_splits(cfg.n_heads)
+    if kdim == 2:
+        if split:
+            q = sharding.gather_model(q, 1, partial=False)
+        o = _split_kv_attention(q, ck, cv, live,
+                                sharding.model_rank() * ck.shape[2])
+        if split:
+            hl = cfg.n_heads // sharding.model_size()
+            o = o.narrow(1, sharding.model_rank() * hl, hl)
+        return o
+    if split and kdim is None:
+        ck, cv = _rank_kv_heads(ck, cfg), _rank_kv_heads(cv, cfg)
+    return ops.decode_attention(q, ck, cv, cache_len=live)
+
+
 def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
-                   cfg: ModelConfig, pos, *, window=None, cross_kv=None):
+                   cfg: ModelConfig, pos, *, window=None, cross_kv=None,
+                   slots: int | None = None):
     """One-token decode.  x_t: (B, 1, d); pos: scalar or (B,) int32.
 
     The new k/v are written into ``cache["k"]`` / ``cache["v"]`` at slot
@@ -334,18 +425,26 @@ def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
 
     With ``cross_kv`` (the encoder's K/V and its length) the step is cross
     attention: the query attends to the first ``cross_kv["len"]`` encoder
-    positions, without RoPE, and ``cache`` comes back untouched."""
+    positions, without RoPE, and ``cache`` comes back untouched.
+
+    Under a model axis the rank runs its q heads where the axis divides
+    them (``wo``'s partial sums summed over it) against its cache block
+    (:func:`kv_split_dim`; ``slots``: the whole cache's slot count, or
+    the cross length); under split-KV only the rank holding slot ``pos %
+    slots`` writes the new k/v."""
     b = x_t.shape[0]
-    dh, h = cfg.dh, cfg.n_heads
+    dh, dt = cfg.dh, x_t.dtype
+    split = sharding.model_splits(cfg.n_heads)
     if cross_kv is not None:
-        q = x_t @ p["wq"].to(x_t.dtype)
+        ck, cv = cross_kv["k"], cross_kv["v"]
+        q = x_t @ p["wq"].to(dt)
         if "bq" in p:
-            q = q + p["bq"].to(x_t.dtype)
-        q = q.reshape(b, 1, h, dh).transpose(1, 2)
-        o = ops.decode_attention(q, cross_kv["k"], cross_kv["v"],
-                                 cache_len=cross_kv["len"])
-        o = o.transpose(1, 2).reshape(b, 1, h * dh)
-        return shard(o @ p["wo"].to(x_t.dtype), "btd"), cache
+            q = q + p["bq"].to(dt)
+        q = q.reshape(b, 1, -1, dh).transpose(1, 2)
+        o = _attend_cache(q, ck, cv, cross_kv["len"], cfg,
+                          kv_split_dim(cfg, slots, ck.shape[2]))
+        y = o.transpose(1, 2).reshape(b, 1, -1) @ p["wo"].to(dt)
+        return shard(sharding.leave_model(y) if split else y, "btd"), cache
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x_t.device)
     per_row = pos.ndim == 1
     posb = pos[:, None] if per_row else pos.expand(b, 1)
@@ -358,16 +457,26 @@ def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
     k = k.transpose(1, 2)                                # (B, KVH, 1, dh)
     v = v.transpose(1, 2)
     ck, cv = cache["k"], cache["v"]
-    slots = ck.shape[2]
-    slot = (pos % slots).long()                          # the ring write
+    kdim = kv_split_dim(cfg, slots, ck.shape[2])
+    whole = ck.shape[2] * (sharding.model_size() if kdim == 2 else 1)
+    slot = (pos % whole).long()                          # the ring write
     rows = torch.arange(b, device=x_t.device)
     slot_b = slot if per_row else slot.expand(b)
-    ck[rows, :, slot_b] = k[:, :, 0].to(ck.dtype)
-    cv[rows, :, slot_b] = v[:, :, 0].to(cv.dtype)
-    live = pos + 1 if window is None else torch.clamp(pos + 1, max=slots)
-    o = ops.decode_attention(q, ck, cv, cache_len=live)
-    o = o.transpose(1, 2).reshape(b, 1, h * dh)
-    y = shard(o @ p["wo"].to(x_t.dtype), "btd")
+    k_new, v_new = k[:, :, 0].to(ck.dtype), v[:, :, 0].to(cv.dtype)
+    if kdim == 2:
+        # split-KV: the rank holding the slot writes it, the others write
+        # back what they hold
+        local = slot_b - sharding.model_rank() * ck.shape[2]
+        own = ((local >= 0) & (local < ck.shape[2]))[:, None, None]
+        slot_b = local.clamp(0, ck.shape[2] - 1)
+        k_new = torch.where(own, k_new, ck[rows, :, slot_b])
+        v_new = torch.where(own, v_new, cv[rows, :, slot_b])
+    ck[rows, :, slot_b] = k_new
+    cv[rows, :, slot_b] = v_new
+    live = pos + 1 if window is None else torch.clamp(pos + 1, max=whole)
+    o = _attend_cache(q, ck, cv, live, cfg, kdim)
+    y = o.transpose(1, 2).reshape(b, 1, -1) @ p["wo"].to(dt)
+    y = shard(sharding.leave_model(y) if split else y, "btd")
     return y, {"k": ck, "v": cv, "len": pos + 1}
 
 
@@ -611,15 +720,50 @@ def rglru_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return y, {"h": h[:, -1].float(), "conv_buf": buf}
 
 
+def _zero_blocks(shapes: dict, device, fill: dict | None = None) -> Params:
+    """float32 state leaves of whole ``shapes`` (by cache key), each the
+    rank's block on the model axis (``sharding.cache_block_shape``),
+    zero or ``fill[key]``."""
+    fill = fill or {}
+    return {k: torch.full(sharding.cache_block_shape(k, shape),
+                          fill.get(k, 0.0), dtype=torch.float32,
+                          device=device)
+            for k, shape in shapes.items()}
+
+
+def _state_blocks(state: Params) -> Params:
+    """Whole state leaves cut to the rank's blocks on the model axis."""
+    out = {}
+    for k, x in state.items():
+        d = sharding.cache_model_dim(k, tuple(x.shape))
+        if d is not None:
+            n = x.shape[d] // sharding.model_size()
+            x = x.narrow(d, sharding.model_rank() * n, n)
+        out[k] = x
+    return out
+
+
+def _state_whole(state: Params, shapes: dict) -> Params:
+    """The model ranks' blocks of state leaves of whole ``shapes``,
+    gathered whole (the inverse of :func:`_state_blocks`)."""
+    out = {}
+    for k, x in state.items():
+        d = sharding.cache_model_dim(k, shapes[k])
+        out[k] = x if d is None else sharding.gather_model(x, d,
+                                                           partial=False)
+    return out
+
+
 def init_rglru_cache(cfg: ModelConfig, batch: int, device) -> Params:
     w = cfg.rnn_width or cfg.d_model
-    return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
-            "conv_buf": torch.zeros((batch, cfg.conv_width - 1, w),
-                                    dtype=torch.float32, device=device)}
+    return _zero_blocks({"h": (batch, w),
+                         "conv_buf": (batch, cfg.conv_width - 1, w)}, device)
 
 
 def rglru_step(p: Params, x_t: torch.Tensor, cache: Params,
                cfg: ModelConfig):
+    """One step; under a model axis that divides the width, on the rank's
+    channels (its block of the state), ``wy``'s partial sums summed."""
     dt = x_t.dtype
     branch = (x_t[:, 0] @ p["wx"].to(dt)).float()       # (B, W)
     gate = _gelu((x_t[:, 0] @ p["wg"].to(dt)).float())
@@ -631,6 +775,8 @@ def rglru_step(p: Params, x_t: torch.Tensor, cache: Params,
     a, bterm = _rglru_coeffs(conv, p["a_param"], ig, rg)
     h = a * cache["h"] + bterm
     y = ((h * gate).to(dt) @ p["wy"].to(dt))[:, None]
+    if sharding.model_splits(cfg.rnn_width or cfg.d_model):
+        y = sharding.leave_model(y)
     return shard(y, "btd"), {"h": h, "conv_buf": hist[:, 1:]}
 
 
@@ -761,33 +907,42 @@ def mlstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device) -> Params:
     h = cfg.n_heads
     dh = 2 * cfg.d_model // h
-    return {"C": torch.zeros((batch, h, dh, dh), dtype=torch.float32,
-                             device=device),
-            "n": torch.zeros((batch, h, dh), dtype=torch.float32,
-                             device=device),
+    return {**_zero_blocks({"C": (batch, h, dh, dh), "n": (batch, h, dh)},
+                           device),
             "len": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def mlstm_step(p: Params, x_t: torch.Tensor, cache: Params,
                cfg: ModelConfig):
+    """One step; under a model axis that divides the heads, on the rank's
+    heads (its block of ``C`` and ``n``), as :func:`mlstm_fwd`."""
     b = x_t.shape[0]
     dt = x_t.dtype
     h = cfg.n_heads
-    up = p["w_up"].shape[-1]
-    dh = up // h
+    dh = 2 * cfg.d_model // h
+    split = sharding.model_splits(h)
     z = x_t[:, 0] @ p["w_up"].to(dt)
+    hl = z.shape[-1] // dh
     gate = F.silu(x_t[:, 0] @ p["w_up_gate"].to(dt))
-    q, k, v = (t.float() for t in _mlstm_qkv(p, z.reshape(b, h, dh), dh))
-    gif = (z @ p["w_if"].to(dt)).float()
-    i_g = torch.exp(F.logsigmoid(gif[..., :h]))[..., None]   # (B, H, 1)
-    f_g = torch.exp(F.logsigmoid(gif[..., h:]))[..., None]
+    q, k, v = (t.float() for t in _mlstm_qkv(p, z.reshape(b, hl, dh), dh))
+    gif = z @ p["w_if"].to(dt)
+    if split:
+        gif = sharding.leave_model(gif)
+    gif = gif.float()
+    gi, gf = gif[..., :h], gif[..., h:]
+    if split:
+        gi, gf = sharding.slice_model(gi, -1), sharding.slice_model(gf, -1)
+    i_g = torch.exp(F.logsigmoid(gi))[..., None]         # (B, H, 1)
+    f_g = torch.exp(F.logsigmoid(gf))[..., None]
     C = f_g[..., None] * cache["C"] \
         + i_g[..., None] * k[..., :, None] * v[..., None, :]
     nrm = f_g * cache["n"] + i_g * k
     num = torch.einsum("bhd,bhde->bhe", q, C)
     den = torch.clamp(torch.einsum("bhd,bhd->bh", q, nrm).abs(), min=1.0)
-    out = (num / den[..., None]).reshape(b, up).to(dt)
+    out = (num / den[..., None]).reshape(b, hl * dh).to(dt)
     y = ((out * gate) @ p["w_down"].to(dt))[:, None]
+    if split:
+        y = sharding.leave_model(y)
     return shard(y, "btd"), {"C": C, "n": nrm, "len": cache["len"] + 1}
 
 
@@ -827,13 +982,18 @@ def _slstm_cell(p, cfg: ModelConfig, x_pre, state):
     return c_new, n_new, h_new, m_new
 
 
-def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> Params:
+def _slstm_shapes(cfg: ModelConfig, batch: int) -> dict:
+    """The whole sLSTM state's shapes, by cache key."""
     hh = cfg.n_heads
-    shape = (batch, hh, cfg.d_model // hh)
-    z = torch.zeros(shape, dtype=torch.float32, device=device)
-    return {"c": z, "n": z.clone(), "h": z.clone(),
-            "m": torch.full(shape, -1e30, dtype=torch.float32,
-                            device=device)}
+    return dict.fromkeys(("c", "n", "h", "m"),
+                         (batch, hh, cfg.d_model // hh))
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> Params:
+    """The zero state (``m`` at -1e30); under a model axis the rank's
+    blocks (``c``, ``n``, ``m`` over heads, ``h`` over the head dim, by
+    the cache rules)."""
+    return _zero_blocks(_slstm_shapes(cfg, batch), device, {"m": -1e30})
 
 
 def slstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -856,7 +1016,8 @@ def slstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
         x_pre = sharding.gather_model(x_pre, -1, partial=False)
     x_pre = x_pre.float()
     pp = {"rec_w": p["rec_w"].float()}
-    z = init_slstm_cache(cfg, b, x.device)
+    with sharding.use_sharding(sharding.ShardingCtx()):
+        z = init_slstm_cache(cfg, b, x.device)           # whole
     state = (z["c"], z["n"], z["h"], z["m"])
     hs = []
     for t in range(s):
@@ -869,15 +1030,29 @@ def slstm_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = shard(sharding.leave_model(y) if rows else y, "btd")
     if not with_cache:
         return y
-    return y, dict(zip(("c", "n", "h", "m"), state))
+    return y, _state_blocks(dict(zip(("c", "n", "h", "m"), state)))
 
 
 def slstm_step(p: Params, x_t: torch.Tensor, cache: Params,
                cfg: ModelConfig):
+    """One step.  Under a model axis the state's blocks are gathered
+    whole, every rank runs the cell on every head (as
+    :func:`slstm_fwd`'s loop) and keeps its blocks of the new state; the
+    pre-activations and ``w_down``'s product split as there."""
+    b, _, d = x_t.shape
     dt = x_t.dtype
-    x_pre = (x_t[:, 0] @ p["wx"].to(dt)).float()
-    state = (cache["c"], cache["n"], cache["h"], cache["m"])
-    c, n, h, m = _slstm_cell(p, cfg, x_pre, state)
-    out = h.reshape(x_t.shape[0], -1).to(dt)
+    wide = sharding.model_splits(4 * d)
+    rows = sharding.model_splits(d)
+    x_pre = x_t[:, 0] @ p["wx"].to(dt)
+    if wide:
+        x_pre = sharding.gather_model(x_pre, -1, partial=False)
+    x_pre = x_pre.float()
+    whole = _state_whole(cache, _slstm_shapes(cfg, b))
+    state = (whole["c"], whole["n"], whole["h"], whole["m"])
+    new = dict(zip(("c", "n", "h", "m"), _slstm_cell(p, cfg, x_pre, state)))
+    out = new["h"].reshape(b, -1).to(dt)
+    if rows:
+        out = sharding.slice_model(out, -1)
     y = (out @ p["w_down"].to(dt))[:, None]
-    return shard(y, "btd"), {"c": c, "n": n, "h": h, "m": m}
+    y = shard(sharding.leave_model(y) if rows else y, "btd")
+    return y, _state_blocks(new)

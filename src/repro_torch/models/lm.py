@@ -27,8 +27,21 @@ embedding is vocabulary-parallel (each rank looks up the tokens in its
 rows, the rows summed over the axis) and so is the loss (the
 log-sum-exp and the gold logit of each position combined over the axis,
 :class:`_VocabLSE`); norms outside the blocks are gathered whole.
-Serving keeps plain tensors, and raises under a model axis longer than 1
-(ROADMAP Queue 1 item 5a).
+
+Serving runs under the same context, its weights plain tensors or
+``DTensor``s (``make_ctx(mesh, fsdp=False)``: whole on the data axes,
+split over "model", as JAX's dry run stores them).  Each rank runs its
+own batch rows and holds its block of every cache leaf on the model axis
+(``sharding.cache_spec``): its KV heads, or its slots of every KV head
+(split-KV) where the axis does not divide them, its channels or heads of
+a recurrent state.  The logits come back whole on every model rank (the
+rank's vocabulary block gathered over the axis), so every model rank
+samples the same tokens.  Where the axis does not divide the KV heads,
+``decode_step`` needs the whole cache's ``max_len`` (and ``cross_len``)
+to tell a split slot axis from a whole one: a block's slot count alone
+does not say (at m = 4, 2 slots are a block of 8 or a whole cache of 2),
+and the cache keeps JAX's tree (``k``, ``v``, ``len``), arrays only,
+with no room for the count.
 """
 
 from __future__ import annotations
@@ -197,8 +210,13 @@ def block_fwd(p: Params, x, kind: str, cfg: ModelConfig, positions, *,
         out = L.attention_fwd(p["cross"], h, cfg, positions, causal=False,
                               kv_input=enc_out, rope=False)
         if with_cache:
-            # projected again, as in JAX, for the decode cache
+            # projected again, as in JAX, for the decode cache: the rank's
+            # KV heads, or its block of encoder positions (split-KV)
             ck, cv = _cross_kv(p["cross"], enc_out, cfg)
+            if L.kv_split_dim(cfg, ck.shape[2]) == 2:
+                n = ck.shape[2] // sharding.model_size()
+                lo = sharding.model_rank() * n
+                ck, cv = ck.narrow(2, lo, n), cv.narrow(2, lo, n)
             cache["cross_kv"] = {
                 "k": ck, "v": cv,
                 "len": torch.tensor(enc_out.shape[1], dtype=torch.int32,
@@ -213,24 +231,35 @@ def block_fwd(p: Params, x, kind: str, cfg: ModelConfig, positions, *,
 
 
 def _cross_kv(p: Params, enc_out, cfg: ModelConfig):
-    """The encoder output's cross-attention K/V, (B, KVH, Ts, dh) each."""
+    """The encoder output's cross-attention K/V, (B, KVH, Ts, dh) each, of
+    the KV heads whose columns ``wk`` / ``wv`` hold."""
     b, ts, _ = enc_out.shape
-    kvh, dh = cfg.n_kv_heads, cfg.dh
+    dh = cfg.dh
     dt = enc_out.dtype
-    k = (enc_out @ p["wk"].to(dt)).reshape(b, ts, kvh, dh).transpose(1, 2)
-    v = (enc_out @ p["wv"].to(dt)).reshape(b, ts, kvh, dh).transpose(1, 2)
+    k = (enc_out @ p["wk"].to(dt)).reshape(b, ts, -1, dh).transpose(1, 2)
+    v = (enc_out @ p["wv"].to(dt)).reshape(b, ts, -1, dh).transpose(1, 2)
     return k, v
 
 
+def _slots(cfg: ModelConfig, kind: str, max_len: int | None):
+    """The whole slot count of a ``kind`` layer's cache (None: unknown)."""
+    if max_len is None:
+        return None
+    return min(cfg.window, max_len) if kind == "attn_local" else max_len
+
+
 def block_step(p: Params, x_t, cache: Params, kind: str, cfg: ModelConfig,
-               pos):
-    """One-token decode.  Returns (x_t, cache)."""
-    p = L.compute_view(p, rule=L.model_rule(cfg))
+               pos, *, max_len: int | None = None,
+               cross_len: int | None = None):
+    """One-token decode.  Returns (x_t, cache).  ``max_len`` and
+    ``cross_len``: the whole caches' slots (:func:`decode_step`)."""
+    p = L.compute_view(p, rule=L.model_rule(cfg, step=True))
     h = L.apply_norm(p["norm1"], x_t, cfg.norm_eps)
     name = _mixer(kind)
     if name == "attn":
         out, c = L.attention_step(p["attn"], h, cache["attn"], cfg, pos,
-                                  window=_window(cfg, kind))
+                                  window=_window(cfg, kind),
+                                  slots=_slots(cfg, kind, max_len))
     else:
         out, c = _RECURRENT[kind].step(p[name], h, cache[name], cfg)
     cache = dict(cache, **{name: c})
@@ -238,7 +267,8 @@ def block_step(p: Params, x_t, cache: Params, kind: str, cfg: ModelConfig,
     if "cross" in p:
         h = L.apply_norm(p["norm_cross"], x_t, cfg.norm_eps)
         out, _ = L.attention_step(p["cross"], h, {}, cfg, pos,
-                                  cross_kv=cache["cross_kv"])
+                                  cross_kv=cache["cross_kv"],
+                                  slots=cross_len)
         x_t = x_t + out
     if "ffn" in p:
         x_t, _ = _ffn(p, x_t, cfg)
@@ -256,7 +286,8 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     else:
         c = {kind: _RECURRENT[kind].cache(cfg, batch, device)}
     if cross_len:
-        shape = (batch, cfg.n_kv_heads, cross_len, cfg.dh)
+        shape = sharding.cache_block_shape(
+            "k", (batch, cfg.n_kv_heads, cross_len, cfg.dh))
         c["cross_kv"] = {
             "k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -314,19 +345,23 @@ def _mask_pad(logits, cfg: ModelConfig, lo: int = 0):
     return logits.masked_fill(pad, -1e30)
 
 
-def _unemb(params: Params, cfg: ModelConfig):
-    name = "emb" if cfg.tie_embeddings else "unemb"
-    return L.compute_view({name: params[name]})[name]
-
-
 def _norm(p: Params, cfg: ModelConfig, x):
     """A norm outside the blocks (final, encoder), through its view."""
     return L.apply_norm(L.compute_view(p), x, cfg.norm_eps)
 
 
 def _logits(params: Params, cfg: ModelConfig, x):
-    return _mask_pad(shard(x @ _unemb(params, cfg).to(x.dtype).T, "btv"),
-                     cfg)
+    """The logits of ``x``, whole on every rank: under a model axis that
+    divides the padded vocabulary each rank computes its block, gathered
+    over the axis (JAX's ``out_shardings`` leave "model" off them)."""
+    name = "emb" if cfg.tie_embeddings else "unemb"
+    vocab = sharding.model_splits(padded_vocab(cfg))
+    w = L.compute_view({name: params[name]},
+                       rule=lambda _: 0 if vocab else None)[name]
+    lo = sharding.model_rank() * w.shape[0] if vocab else 0
+    logits = _mask_pad(shard(x @ w.to(x.dtype).T, "btv"), cfg, lo)
+    return sharding.gather_model(logits, -1, partial=False) if vocab \
+        else logits
 
 
 def _positions(cfg: ModelConfig, batch: dict, s: int, b: int, device):
@@ -506,64 +541,74 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int = 0):
     """Full-sequence forward returning the last position's logits and the
     per-layer decode caches: global-attn caches padded to ``max_len``
     slots, local-window caches laid out as rings, recurrent states after
-    the last position, and an encoder-decoder's cross-attention K/V."""
-    sharding.check_data_only(what="prefill", serving=True)
+    the last position, and an encoder-decoder's cross-attention K/V.
+    Under a model axis, each leaf the rank's block (module docstring),
+    taken as each layer's cache is made."""
+    sharding.check_data_only(what="prefill")
     tokens = batch["tokens"]
     b, s = tokens.shape
+    max_len = max(max_len, s)
     x = _embed(params, cfg, tokens, batch)
     positions = _positions(cfg, batch, s, b, tokens.device)
     enc_out = _encode(params, cfg, batch, tokens.device)
     unit, n_rep, tail = _layout(cfg)
     per_unit = [[] for _ in unit]
-    for r in range(n_rep):
+    for blks in zip(*(_split(blk, n_rep) for blk in params["blocks"])):
         for u, kind in enumerate(unit):
-            x, _, c = block_fwd(_rep(params["blocks"][u], r), x, kind, cfg,
-                                positions, enc_out=enc_out, with_cache=True)
-            per_unit[u].append(c)
+            x, _, c = block_fwd(blks[u], x, kind, cfg, positions,
+                                enc_out=enc_out, with_cache=True)
+            per_unit[u].append(_decode_layout(cfg, c, kind, s, max_len))
     stacked = [tree_map(lambda *xs: torch.stack(xs), *cs)
                for cs in per_unit]
     tail_caches = []
     for blk, kind in zip(params["tail"], tail):
         x, _, c = block_fwd(blk, x, kind, cfg, positions, enc_out=enc_out,
                             with_cache=True)
-        tail_caches.append(c)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+        tail_caches.append(_decode_layout(cfg, c, kind, s, max_len))
+    x = _norm(params["final_norm"], cfg, x)
     logits = _logits(params, cfg, x[:, -1:])
-    caches = {"blocks": stacked, "tail": tail_caches}
-    return logits, _finalize_caches(cfg, caches, s, max(max_len, s))
+    return logits, {"blocks": stacked, "tail": tail_caches}
 
 
-def _finalize_caches(cfg: ModelConfig, caches, s: int, max_len: int):
-    """Prefill attn caches come back prompt-length; re-lay them out for
-    decode: global-attn caches padded with zeros to ``max_len`` slots,
-    local-window caches to ``W = min(window, max_len)``-slot rings that
-    hold position p at slot ``p % W`` (the last W positions, rolled into
-    place; shorter prompts padded)."""
-    unit, _, tail = _layout(cfg)
+def _decode_layout(cfg: ModelConfig, cache: dict, kind: str, s: int,
+                   max_len: int) -> dict:
+    """A layer's prefill cache re-laid out for decode (its attention K/V
+    come back prompt-length): a global-attn cache padded with zeros to
+    ``max_len`` slots, a local-window cache to a ``W = min(window,
+    max_len)``-slot ring that holds position p at slot ``p % W`` (the last
+    W positions, rolled into place; shorter prompts padded).  Under
+    split-KV the rank takes its block of those slots: slot ``j`` holds
+    position ``j`` (zero past the prompt), or on a ring shorter than the
+    prompt ``s - W + (j - s + W) mod W``, JAX's whole-cache roll read at
+    the rank's slots."""
+    if "attn" not in cache:
+        return cache
+    k, v = cache["attn"]["k"], cache["attn"]["v"]       # slot axis -2
+    whole = _slots(cfg, kind, max_len)
+    lo, n = 0, whole
+    if L.kv_split_dim(cfg, whole) == 2:
+        n = whole // sharding.model_size()
+        lo = sharding.model_rank() * n
+    if lo == 0 and n == s <= whole:
+        return cache
+    j = torch.arange(lo, lo + n, device=k.device)
+    if s > whole:
+        src, keep = s - whole + (j - s + whole) % whole, None
+    else:
+        src, keep = j.clamp(max=s - 1), (j < s)[:, None]
 
-    def conv(cache, kind):
-        if "attn" not in cache:
-            return cache
-        k, v = cache["attn"]["k"], cache["attn"]["v"]   # slot axis -2
-        slots = min(cfg.window, max_len) if kind == "attn_local" else max_len
-        if k.shape[-2] > slots:
-            shift = (s - slots) % slots
-            k = torch.roll(k[..., s - slots:, :], shift, dims=-2)
-            v = torch.roll(v[..., s - slots:, :], shift, dims=-2)
-        elif k.shape[-2] < slots:
-            extra = (0, 0, 0, slots - k.shape[-2])
-            k = torch.nn.functional.pad(k, extra)
-            v = torch.nn.functional.pad(v, extra)
-        return dict(cache, attn={"k": k, "v": v, "len": cache["attn"]["len"]})
+    def lay(t):
+        out = t.index_select(-2, src)
+        return out if keep is None else torch.where(keep, out, 0)
 
-    return {"blocks": [conv(c, k) for c, k in zip(caches["blocks"], unit)],
-            "tail": [conv(c, k) for c, k in zip(caches["tail"], tail)]}
+    return dict(cache, attn={"k": lay(k), "v": lay(v),
+                             "len": cache["attn"]["len"]})
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
                 dtype=L.COMPUTE_DTYPE, cross_len: int = 0) -> dict:
     """Zero caches shaped for decode (``cross_len``: encoder positions of
-    the cross-attention K/V)."""
+    the cross-attention K/V); under a model axis the rank's blocks."""
     dev = resolve_device(device)
     unit, n_rep, tail = _layout(cfg)
     blocks = []
@@ -578,25 +623,29 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens_t, caches: dict,
-                pos):
+                pos, *, max_len: int | None = None,
+                cross_len: int | None = None):
     """One decode step.  tokens_t: (B, 1); pos: scalar or (B,) int32.
     Returns (logits (B, 1, V), caches); the stacked cache buffers are
-    written in place."""
-    sharding.check_data_only(what="decode_step", serving=True)
+    written in place.  ``max_len`` (the prefill's, or ``init_caches``')
+    and ``cross_len``: the whole caches' slots, needed only under a model
+    axis that does not divide the KV heads."""
+    sharding.check_data_only(what="decode_step")
     x = _embed(params, cfg, tokens_t)
     unit, n_rep, tail = _layout(cfg)
-    for r in range(n_rep):
+    lens = dict(max_len=max_len, cross_len=cross_len)
+    for r, blks in enumerate(zip(*(_split(blk, n_rep)
+                                   for blk in params["blocks"]))):
         for u, kind in enumerate(unit):
             node = caches["blocks"][u]
             views = _rep(node, r)
-            x, new = block_step(_rep(params["blocks"][u], r), x, views,
-                                kind, cfg, pos)
+            x, new = block_step(blks[u], x, views, kind, cfg, pos, **lens)
             _write_back(node, views, new, r)
     new_tail = []
     for blk, c, kind in zip(params["tail"], caches["tail"], tail):
-        x, c = block_step(blk, x, c, kind, cfg, pos)
+        x, c = block_step(blk, x, c, kind, cfg, pos, **lens)
         new_tail.append(c)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    x = _norm(params["final_norm"], cfg, x)
     return _logits(params, cfg, x), {"blocks": list(caches["blocks"]),
                                      "tail": new_tail}
 
@@ -623,12 +672,15 @@ def _snapshot_caches(cfg: ModelConfig, caches: dict) -> dict:
 
 
 def decode_multi(params: Params, cfg: ModelConfig, tokens, caches: dict,
-                 pos):
+                 pos, *, max_len: int | None = None,
+                 cross_len: int | None = None):
     """Teacher-forced decode over ``T`` tokens: token t is fed at position
     ``pos + t`` per row.  Returns ``(logits (B, T, V), caches, snaps)``
     with per-step rollback snapshots stacked on a leading T axis (each
     step copied straight into its slot: an xLSTM's matrix states are
-    held T + 1 times, not 2T + 1)."""
+    held T + 1 times, not 2T + 1).  Snapshots and rollback work on the
+    rank's cache blocks as they are (``max_len`` / ``cross_len``:
+    :func:`decode_step`)."""
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     if pos.ndim == 0:
         pos = pos.expand(tokens.shape[0])
@@ -636,7 +688,8 @@ def decode_multi(params: Params, cfg: ModelConfig, tokens, caches: dict,
     logits, snaps = [], None
     for t in range(n):
         lg, caches = decode_step(params, cfg, tokens[:, t:t + 1], caches,
-                                 pos + t)
+                                 pos + t, max_len=max_len,
+                                 cross_len=cross_len)
         logits.append(lg[:, 0])
         live = _snapshot_caches(cfg, caches)
         if snaps is None:

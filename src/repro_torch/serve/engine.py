@@ -15,6 +15,16 @@ length truncation and commits the tokens — through the recorded
 Each round makes ONE host sync: the loop condition and the round's
 statistics come back together.
 
+Under a sharding context with a "model" axis (``sharding.make_ctx(mesh,
+fsdp=False)``, the params ``sharding.distribute_params``' ``DTensor``s or
+plain tensors) ``generate`` runs on each rank over the rows it is given:
+the prefill and every decode step on the rank's heads, channels and
+cache blocks, the logits gathered whole, so every model rank drafts and
+commits the same tokens.  A greedy token is the same on every model rank
+by construction; a sampled one (``temperature > 0``) is model rank 0's
+draw, summed over the axis with the other ranks' zeros, since each rank
+draws from its own generator.
+
 Beyond the static ``generate`` batch, the engine serves a *stream* of
 requests through the paged session pool (``session_pool.py``):
 ``submit`` / ``step`` / ``drain`` admit sessions into free KV and token
@@ -30,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.cpm.reference import searchable
+from repro_torch.distributed import sharding
 from repro_torch.models import lm
 from . import kv_cache, program_paths, sampling
 
@@ -106,32 +117,41 @@ class Engine:
                                     max_len=self.max_len)
         caches = kv_cache.broadcast_lens(caches, b)
         pos = torch.full((b,), s, dtype=torch.int32, device=self.device)
+        # the whole caches' slots, for a model axis that splits their slots
+        lens = {"max_len": max(self.max_len, s),
+                "cross_len": (full["src_embeds"].shape[1]
+                              if self.cfg.enc_dec else None)}
         spec = (gen.ngram_spec > 0 and gen.temperature <= 0
                 and s >= min(gen.ngram_len, s - 1) + 2)
         if spec:
             out, stats = self._generate_spec(tokens, logits, caches, pos,
-                                             gen)
+                                             gen, lens)
         else:
             out, stats = self._generate_scan(tokens, logits, caches, pos,
-                                             gen, generator)
+                                             gen, generator, lens)
         prop = stats["proposed"]
         stats["acceptance_rate"] = stats["accepted"] / prop if prop else 0.0
         return out[:, : s + gen.max_new_tokens], stats
 
     def _sample(self, logits, gen: GenConfig, generator):
-        return sampling.sample(logits, generator, gen.temperature,
-                               gen.top_k, gen.top_p)
+        tok = sampling.sample(logits, generator, gen.temperature,
+                              gen.top_k, gen.top_p)
+        if gen.temperature > 0 and sharding.model_size() > 1:
+            mine = sharding.model_rank() == 0
+            tok = sharding.model_sum(tok if mine else torch.zeros_like(tok))
+        return tok
 
     # -- non-speculative: no per-token host sync ---------------------------
 
     def _generate_scan(self, tokens, logits, caches, pos, gen: GenConfig,
-                       generator):
+                       generator, lens: dict):
         b, _ = tokens.shape
         tok = self._sample(logits[:, -1], gen, generator)
         seq = [tok]
         for _ in range(gen.max_new_tokens - 1):
             logits, caches = lm.decode_step(self.params, self.cfg,
-                                            tok[:, None], caches, pos)
+                                            tok[:, None], caches, pos,
+                                            **lens)
             tok = self._sample(logits[:, -1], gen, generator)
             seq.append(tok)
             pos = pos + 1
@@ -141,7 +161,8 @@ class Engine:
 
     # -- batched prompt-lookup speculative decoding ------------------------
 
-    def _generate_spec(self, tokens, logits, caches, pos, gen: GenConfig):
+    def _generate_spec(self, tokens, logits, caches, pos, gen: GenConfig,
+                       lens: dict):
         b, s = tokens.shape
         max_new = gen.max_new_tokens
         # an active row's last verify round can write up to draft_len - 1
@@ -162,7 +183,7 @@ class Engine:
         while least_new < max_new:
             seq, draft = self._draft(buf, n_new, s, gen)
             logits, caches, snaps = lm.decode_multi(
-                self.params, self.cfg, seq, caches, pos)
+                self.params, self.cfg, seq, caches, pos, **lens)
             buf, n_new, caches, pos, acc, prop, emit = self._commit(
                 buf, n_new, caches, snaps, draft, logits, pos, s, gen)
             # the round's one host sync: loop condition + statistics

@@ -63,6 +63,7 @@ import torch
 from repro_torch.cpm.pool import (CPMBank, MultiBankScheduler, SessionTable,
                                   SlotAllocator)
 from repro_torch.cpm.pool.sessions import ACTIVE, DONE, PARKED
+from repro_torch.distributed import sharding
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
@@ -111,6 +112,17 @@ _POOL_FAMILIES = (
 _CHUNK_SECONDS = obs_metrics.histogram(
     "repro_pool_chunk_seconds",
     "wall seconds per decode chunk (dispatch, no forced sync)", ("pool",))
+
+
+def _check_model_axis(what: str) -> None:
+    """The paged pool runs on one model rank's whole caches: under a model
+    axis longer than 1 (its pages split over KV heads, ROADMAP Queue 1
+    item 5e; the JAX package never drives its pool there) it raises."""
+    m = sharding.model_size()
+    if m > 1:
+        raise NotImplementedError(
+            f"{what} under a model axis of size {m}: the paged session pool "
+            f"under tensor parallelism is ROADMAP Queue 1 item 5e")
 
 
 @dataclasses.dataclass
@@ -169,6 +181,7 @@ class SessionPool:
             raise NotImplementedError(
                 "session pool supports decoder-only models (cross-attention "
                 "pages are encoder-owned)")
+        _check_model_axis("the session pool")
         if slots <= 0 or n_banks <= 0 or slots % n_banks:
             raise ValueError(f"slots ({slots}) must be a positive multiple "
                              f"of n_banks ({n_banks})")
@@ -309,6 +322,7 @@ class SessionPool:
     def step(self) -> dict:
         """Admit -> decode ``chunk`` tokens for every live session ->
         retire.  Returns a stats snapshot (see :meth:`stats`)."""
+        _check_model_axis("a session pool step")
         self.last_chunk_s = 0.0
         self._admit()
         self._retire()                      # budget-1 sessions finish on admit

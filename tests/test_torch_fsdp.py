@@ -979,12 +979,14 @@ def test_cli_under_torchrun_trains_then_resumes(runs):
 # in process
 # ---------------------------------------------------------------------------
 
-def test_shard_raises_on_a_model_axis():
+def test_shard_raises_on_a_model_axis(monkeypatch):
     """A "model" axis longer than 1 is tensor parallelism: each rank hands
     ``shard`` its part of an activation, which comes back as it is, and
-    ``compute_view`` casts a plain leaf.  What still raises on that axis,
-    citing its ROADMAP item and never skipping the axis silently, is
-    sequence parallelism over it (``seq_shard``) and serving under it.
+    ``compute_view`` casts a plain leaf; serving runs under it too
+    (``check_data_only`` accepts it for prefill and decode).  What still
+    raises on that axis, citing its ROADMAP item and never skipping the
+    axis silently, is sequence parallelism over it (``seq_shard``, item
+    5c) and the data-axis expert layouts (``REPRO_EP_DATA``, item 5d).
     With "model" 1 (or folded into dp) ``shard`` returns its input."""
     from repro_torch.distributed import sharding as sh
 
@@ -997,8 +999,15 @@ def test_shard_raises_on_a_model_axis():
     assert view["wq"].dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
         sh.shard(x, "btf", sh.make_ctx(tp, seq_shard=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5a"):
-        sh.check_data_only(sh.make_ctx(tp), "prefill", serving=True)
+    for serving_ctx in (sh.make_ctx(tp), sh.make_ctx(tp, fsdp=False)):
+        for what in ("prefill", "decode_step"):
+            sh.check_data_only(serving_ctx, what)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5c"):
+        sh.check_data_only(sh.make_ctx(tp, seq_shard=True), "prefill")
+    monkeypatch.setattr(sh, "_EP_AXIS_DATA", True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5d"):
+        sh.shard(x, "ecd", sh.make_ctx(tp))
+    monkeypatch.setattr(sh, "_EP_AXIS_DATA", False)
     assert sh.shard(x, "btf", sh.make_ctx(tp, pure_dp=True)) is x
     dp = type("M", (), {"axis_names": ("data", "model"),
                         "shape": {"data": 4, "model": 1}})()

@@ -1,6 +1,7 @@
-"""The port stands alone: importing every ``repro_torch`` module, and
-``chip_smoke.py``, loads no JAX and nothing of the ``repro`` package;
-and the serving CLI runs end to end on the CPU."""
+"""The port stands alone: importing every ``repro_torch`` module,
+``chip_smoke.py`` and the distribution tools (``tools/train_dp_cards.py``,
+``tools/serve_tp_cards.py``) loads no JAX and nothing of the ``repro``
+package; and the serving CLI runs end to end on the CPU."""
 
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 sys.path.insert(0, {src!r})
 sys.path.insert(0, {root!r})
 import repro_torch
@@ -29,6 +30,10 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
+for tool in {tools!r}:
+    spec = importlib.util.spec_from_file_location(
+        "tool_" + tool.rsplit("/", 1)[-1][:-3], tool)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -43,7 +48,8 @@ _SLICE_MODULES = (
     "repro_torch.serve.http", "repro_torch.launch.train",
     "repro_torch.launch.serve", "repro_torch.models.layers",
     "repro_torch.models.lm",
-    "repro_torch.launch.mesh", "repro_torch.cpm.collectives",
+    "repro_torch.launch.mesh", "repro_torch.launch.specs",
+    "repro_torch.launch.dryrun", "repro_torch.cpm.collectives",
     "repro_torch.cpm.backends.mesh", "repro_torch.distributed",
     "repro_torch.distributed.sharding", "repro_torch.analysis",
     "repro_torch.analysis.roofline",
@@ -58,6 +64,11 @@ _SLICE_MODULES = (
         "seamless_m4t_large_v2", "xlstm_1_3b")))
 
 
+#: the scripts beside the package that run the port over process groups
+_TOOLS = (ROOT / "tools" / "train_dp_cards.py",
+          ROOT / "tools" / "serve_tp_cards.py")
+
+
 def _env():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -66,7 +77,8 @@ def _env():
 
 
 def test_no_jax_and_no_repro_module_is_loaded():
-    code = _PROBE.format(src=str(SRC), root=str(ROOT))
+    code = _PROBE.format(src=str(SRC), root=str(ROOT),
+                         tools=[str(t) for t in _TOOLS])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=_env(), cwd=ROOT)
     assert out.returncode == 0, out.stderr
@@ -77,7 +89,8 @@ def test_no_jax_and_no_repro_module_is_loaded():
 
 
 def test_port_sources_never_import_jax_or_repro():
-    for path in (SRC / "repro_torch").rglob("*.py"):
+    for path in (*(SRC / "repro_torch").rglob("*.py"), *_TOOLS,
+                 ROOT / "chip_smoke.py"):
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax",
