@@ -309,6 +309,20 @@ Phases, in order; any failure exits non-zero:
      implies; then the prefill and the scan decode timed, the plain path
      (no context, phase 5's) and the model-axis path alternately in the
      same phase, with the model axis's collectives a decode step.
+ 20. the paged session pool and the gateway under the "model" axis, run
+     right after phase 19 on its NCCL group of one rank, its context and
+     its distributed weights: phase 6's gateway traffic (12 requests over
+     ``POOL``) under ``make_ctx(mesh, fsdp=False)``, the launch counters
+     set to 0 just before and read just after: every request's tokens
+     equal phase 6's bit for bit, the same preemptions, flash at least
+     once a layer a prefill, the pool's kernels launched and no per-op
+     CPM kernel; a steady step under the axis launches one
+     ``gather_rows``, ``fused_stream`` and ``scatter_rows`` a bank with
+     no host sync in the chunk (``_steady_chunk``); then a steady
+     ``pool.step()`` timed on the plain path (phase 6's: no context,
+     plain tensors) and on the model axis's, in turns in the same phase,
+     with each path's device busy time and the model axis's collectives
+     a step.
 
 The lines before the last are the launch floor beside the kernels that
 run at it, the card (``nvidia-smi`` name and power limit) and one JSON
@@ -1483,29 +1497,30 @@ def _counts_delta(after, before):
     return {k: after[k] - before[k] for k in after}
 
 
-def serve_pool(torch, dev, cfg, params, record, tag="pool",
-               kernels=POOL_KERNELS):
-    """Phase 6 (see the module docstring) on ``cfg`` / ``params``, its
-    record in ``record[tag]``; each of ``kernels`` must launch.  Returns
-    the launch counts of the gateway run."""
+def _pool_gateway(torch, engine):
+    """Phase 6's gateway over ``engine``; fails unless the engine and the
+    pool's banks default to the kernels on the card."""
+    from repro_torch.serve import Gateway
+
+    gw = Gateway(engine, **POOL)
+    if engine.cpm_backend != "cuda" or \
+            {b.backend for b in gw.pool.banks} != {"cuda"}:
+        fail("the pool on the card does not default to the cuda banks")
+    return gw
+
+
+def _pool_traffic(torch, dev, gw, vocab: int):
+    """Phase 6's requests (``POOL_TRAFFIC``), each submitted once the
+    gateway's tick count reaches its arrival, ticked until done; the
+    launch counters set to 0 just before.  Returns ([(rid, prompt,
+    budget)], the tick reports, seconds, the launch counts)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import repeated_prompts
-    from repro_torch.serve import Engine, Gateway, GenConfig
 
-    # no backend named: on the card the engine and the pool's banks
-    # default to the kernels
-    engine = Engine(cfg, params, max_len=POOL_MAX_LEN)
-    gw = Gateway(engine, **POOL)
-    pool = gw.pool
-    if engine.cpm_backend != "cuda" or \
-            {b.backend for b in pool.banks} != {"cuda"}:
-        fail("the pool on the card does not default to the cuda banks")
     arrivals = []
     for i, (tick, n, plen, budget) in enumerate(POOL_TRAFFIC):
-        prompts = repeated_prompts(n, plen, cfg.vocab_size, 20 + i,
-                                   device=dev)
+        prompts = repeated_prompts(n, plen, vocab, 20 + i, device=dev)
         arrivals += [(tick, prompts[j], budget) for j in range(n)]
-
     ops.reset_launch_counts()                      # the pool path, counted
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1519,9 +1534,41 @@ def serve_pool(torch, dev, cfg, params, record, tag="pool",
         if gw.loop.ticks > 200:
             fail("the gateway did not drain in 200 ticks")
     torch.cuda.synchronize()
-    t_run = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    return rids, reports, time.perf_counter() - t0, ops.launch_counts()
+
+
+def _seat_steady(torch, dev, gw, vocab: int, budget: int = 24):
+    """Seat ``POOL["slots"]`` sessions of 64-token prompts with
+    ``budget`` tokens each and run the tick that admits them (and one
+    chunk): the next steps are steady."""
+    from repro_torch.launch.serve import repeated_prompts
+
+    for i in range(POOL["slots"]):
+        gw.submit(repeated_prompts(1, 64, vocab, 40 + i, device=dev)[0],
+                  budget)
+    gw.tick()
+
+
+def serve_pool(torch, dev, cfg, params, record, tag="pool",
+               kernels=POOL_KERNELS, keep=None):
+    """Phase 6 (see the module docstring) on ``cfg`` / ``params``, its
+    record in ``record[tag]``; each of ``kernels`` must launch.  Returns
+    the launch counts of the gateway run; ``keep`` (a dict) gets each
+    request's tokens in order (``"tokens"``) and the gateway's
+    ``"preemptions"``."""
+    from repro_torch.serve import Engine, GenConfig
+
+    # no backend named: on the card the engine and the pool's banks
+    # default to the kernels
+    engine = Engine(cfg, params, max_len=POOL_MAX_LEN)
+    gw = _pool_gateway(torch, engine)
+    pool = gw.pool
+    rids, reports, t_run, counts = _pool_traffic(torch, dev, gw,
+                                                 cfg.vocab_size)
     st = gw.stats()
+    if keep is not None:
+        keep.update(tokens=[gw.request(rid).tokens for rid, _, _ in rids],
+                    preemptions=st["preemptions"])
 
     # every request finished with its budget
     for rid, prompt, budget in rids:
@@ -1567,10 +1614,7 @@ def serve_pool(torch, dev, cfg, params, record, tag="pool",
           f"= {NEAR_TIE} x max(1, |logit|))")
 
     # one steady step: 8 sessions seated, none waiting, finishing or parked
-    for i in range(POOL["slots"]):
-        gw.submit(repeated_prompts(1, 64, cfg.vocab_size, 40 + i,
-                                   device=dev)[0], 24)
-    gw.tick()                                      # admission + one chunk
+    _seat_steady(torch, dev, gw, cfg.vocab_size)
     _, steady, step_ms, event_ms = _steady_chunk(torch, pool, pool.step)
     dispatch_s = pool.last_chunk_s
     chunk_tokens = POOL["slots"] * POOL["chunk"]
@@ -5095,9 +5139,12 @@ def _check_serve_tp_flash(torch, dev, card) -> dict:
             "flash_bound_ms": bnd, "flash_bound_by": by}
 
 
-def serve_tensor_parallel(torch, dev, record, card, gen, params):
-    """Phase 19 (see the module docstring).  Returns the launch counts of
-    its generate runs under the model axis."""
+def serve_tensor_parallel(torch, dev, record, card, gen, params,
+                          pool_run):
+    """Phase 19 (see the module docstring), then phase 20 on its group,
+    context and weights (``pool_run``: phase 6's tokens and
+    preemptions).  Returns the launch counts of phase 19's generate runs
+    and of phase 20's gateway run, both under the model axis."""
     import datetime
 
     import torch.distributed as dist
@@ -5242,14 +5289,147 @@ def serve_tensor_parallel(torch, dev, record, card, gen, params):
               f"step {rec['decode_step_collectives']}, "
               f"{rec['model_sum_call_us']:.1f} us of host time a call at "
               f"(4, 1, d); {card}")
-        del engine, dparams
+        rec["phase_s"] = time.perf_counter() - t_phase
+        del engine
+        pool_counts = serve_pool_tensor_parallel(
+            torch, dev, record, card, cfg, params, dparams, ctx, pool_run)
+        del dparams
     finally:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
-    rec["phase_s"] = time.perf_counter() - t_phase
     rec["card"] = card
     print(f"serve_tp: phase 19 took {rec['phase_s']:.1f}s")
     record["serve_tp"] = rec
+    return counts, pool_counts
+
+
+#: phase 20: timed steady steps a path, in turns, and the budget of the
+#: sessions they run (enough for the steps: 64-token prompts, 4 a chunk)
+TP_POOL_REPEATS, TP_POOL_BUDGET = 3, 64
+
+
+def serve_pool_tensor_parallel(torch, dev, record, card, cfg, params,
+                               dparams, ctx, pool_run):
+    """Phase 20 (see the module docstring) on phase 19's group and
+    context: phase 6's gateway traffic under the model axis, its steady
+    step checked, then a steady ``pool.step()`` timed on both paths in
+    turns.  Returns the gateway run's launch counts."""
+    import numpy as np
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.serve import Engine
+
+    t_phase = time.perf_counter()
+    rec = {"model": cfg.name, "layers": cfg.n_layers, **POOL,
+           "max_len": POOL_MAX_LEN, "traffic": POOL_TRAFFIC}
+    engine = Engine(cfg, dparams, max_len=POOL_MAX_LEN)
+    with sh.use_sharding(ctx):
+        gw = _pool_gateway(torch, engine)
+        pool = gw.pool
+        rids, _, t_run, counts = _pool_traffic(torch, dev, gw,
+                                               cfg.vocab_size)
+        st = gw.stats()
+        got = [gw.request(rid).tokens for rid, _, _ in rids]
+        equal = [np.array_equal(a, b) for a, b in zip(got,
+                                                      pool_run["tokens"])]
+        rec.update(requests=len(rids), run_s=t_run, launches=counts,
+                   tokens_equal=sum(equal), preemptions=st["preemptions"],
+                   phase6_preemptions=pool_run["preemptions"],
+                   restores=st["restores"], page_stalls=st["page_stalls"],
+                   prefill_launches=st["prefill_launches"],
+                   kv_page_shape=list(pool.caches["blocks"][0]["attn"]["k"]
+                                      .shape))
+        print(f"serve_tp_pool: phase 6's {len(rids)} requests through "
+              f"Gateway.tick under the model axis (m = "
+              f"{sh.model_size(ctx)}, pool leaf {rec['kv_page_shape']}): "
+              f"{sum(equal)}/{len(rids)} token streams equal phase 6's bit "
+              f"for bit; preemptions {st['preemptions']} (phase 6: "
+              f"{pool_run['preemptions']}), restores {st['restores']}, "
+              f"page stalls {st['page_stalls']}, prefill launches "
+              f"{st['prefill_launches']}; {t_run:.2f}s; launches {counts}; "
+              f"{card}")
+        if not all(equal) or len(equal) != len(pool_run["tokens"]):
+            fail(f"phase 20: tokens under the model axis differ from phase "
+                 f"6's: {equal}")
+        if st["preemptions"] != pool_run["preemptions"]:
+            fail(f"phase 20: {st['preemptions']} preemptions, phase 6 had "
+                 f"{pool_run['preemptions']}")
+        if counts["flash_attention"] < cfg.n_layers * st["prefill_launches"]:
+            fail(f"phase 20: flash_attention launched "
+                 f"{counts['flash_attention']} times for "
+                 f"{st['prefill_launches']} prefills of {cfg.n_layers} "
+                 f"layers")
+        for name in POOL_KERNELS:
+            if counts[name] <= 0:
+                fail(f"phase 20: {name} was not launched ({counts})")
+        if any(counts[name] for name in CPM_KERNELS + CPM2_KERNELS):
+            fail(f"phase 20: the pool path launched a per-op CPM kernel: "
+                 f"{counts}")
+        _seat_steady(torch, dev, gw, cfg.vocab_size)
+        _, steady, step_ms, event_ms = _steady_chunk(torch, pool, pool.step)
+        while gw.loop.pending():
+            gw.tick()
+        if gw.stats()["pages_free"] != pool.total_pages:
+            fail("phase 20: pages leaked after the drain")
+        rec.update(steady_launches=steady, steady_step_ms=step_ms,
+                   steady_step_device_ms=event_ms)
+        print(f"serve_tp_pool: a steady step under the model axis "
+              f"launched {steady}, no host sync in the chunk under "
+              f"set_sync_debug_mode('error'); {step_ms:.1f} ms")
+        del gw, pool
+
+    # a steady pool.step() on the plain path (phase 6's: no context, plain
+    # tensors) and on the model axis's, in turns
+    plain = Engine(cfg, params, max_len=POOL_MAX_LEN)
+    paths = {"plain": (plain, sh.ShardingCtx()), "model": (engine, ctx)}
+    gws = {}
+    for name, (eng, c) in paths.items():
+        with sh.use_sharding(c):
+            gws[name] = _pool_gateway(torch, eng)
+            _seat_steady(torch, dev, gws[name], cfg.vocab_size,
+                         TP_POOL_BUDGET)
+    times = {k: {"step_ms": []} for k in paths}
+    for _ in range(TP_POOL_REPEATS):
+        for name, (_, c) in paths.items():
+            with sh.use_sharding(c):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gws[name].pool.step()
+                torch.cuda.synchronize()
+                times[name]["step_ms"].append(
+                    (time.perf_counter() - t0) * 1e3)
+    for name, (_, c) in paths.items():
+        with sh.use_sharding(c):
+            pool = gws[name].pool
+            sh.reset_collective_counts()
+            pool.step()
+            torch.cuda.synchronize()
+            colls = sh.collective_counts()
+            busy_ms, top = profile_top(torch, pool.step)
+            t = times[name]
+            t.update(step_ms_best=min(t["step_ms"]), device_busy_ms=busy_ms,
+                     idle_share=1.0 - busy_ms / min(t["step_ms"]),
+                     top_kernels=top,
+                     collectives={k: {"calls": v["calls"],
+                                      "bytes": v["bytes"]}
+                                  for k, v in colls.items() if v["calls"]})
+            if pool.stats()["active"] != POOL["slots"]:
+                fail(f"phase 20: the timed {name} steps were not steady: "
+                     f"{pool.stats()}")
+    del gws, plain, engine
+    rec["times"] = times
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["card"] = card
+    record["serve_tp_pool"] = rec
+    pt, mt = times["plain"], times["model"]
+    print(f"serve_tp_pool: steady pool.step() ({POOL['slots']} rows x chunk "
+          f"{POOL['chunk']}) best of {TP_POOL_REPEATS} in turns: plain "
+          f"{pt['step_ms_best']:.1f} ms, model axis {mt['step_ms_best']:.1f} "
+          f"ms ({mt['step_ms_best'] / pt['step_ms_best'] - 1:+.1%}); device "
+          f"busy {pt['device_busy_ms']:.1f} / {mt['device_busy_ms']:.1f} ms "
+          f"(idle {pt['idle_share']:.3f} / {mt['idle_share']:.3f}); the "
+          f"model axis's collectives a step {mt['collectives']}; {card}")
+    print(f"serve_tp_pool: phase 20 took {rec['phase_s']:.1f}s")
     return counts
 
 
@@ -5417,7 +5597,8 @@ def main(argv=None) -> int:
     check_small_model(torch, dev)
     gen_counts, cfg, params, gen = serve_granite(torch, dev, args.layers,
                                                 record)
-    pool_counts = serve_pool(torch, dev, cfg, params, record)
+    pool_run = {}
+    pool_counts = serve_pool(torch, dev, cfg, params, record, keep=pool_run)
     # phase 14: the HTTP/SSE wire over the same weights
     http_counts = serve_http(torch, dev, cfg, params, record, card)
 
@@ -5447,9 +5628,9 @@ def main(argv=None) -> int:
     by_cost, record["generate_by_cost"] = check_generate_by_cost(
         torch, dev, gen, card)
     pool2_counts = check_pool_by_cost(torch, dev, gen)
-    # phase 19: serving under the model axis, on phase 5's weights
-    tp_serve_counts = serve_tensor_parallel(torch, dev, record, card, gen,
-                                            params)
+    # phases 19 and 20: serving under the model axis, on phase 5's weights
+    tp_serve_counts, tp_pool_counts = serve_tensor_parallel(
+        torch, dev, record, card, gen, params, pool_run)
     kernels[0].update(
         serve_tp_rank_ms=record["serve_tp"]["flash_ms"],
         serve_tp_rank_bound_ms=record["serve_tp"]["flash_bound_ms"],
@@ -5498,7 +5679,7 @@ def main(argv=None) -> int:
              "xlstm_pool": xl_pool_counts, "seamless_generate": ed_counts,
              "train": train_counts, "mesh": mesh_counts,
              "train_sharded": fsdp_counts, "train_tp": tp_counts,
-             "serve_tp": tp_serve_counts}
+             "serve_tp": tp_serve_counts, "serve_tp_pool": tp_pool_counts}
     for k in kernels:
         # each kernel's count on the newest path that runs it (the pool for
         # the serving kernels, phase 7, 8 or 9 for the per-op ones)

@@ -381,6 +381,30 @@ def cache_block_shape(name: str, shape: tuple[int, ...],
     return tuple(out)
 
 
+def split_kv_slots(whole: int, page: int | None = None,
+                   ctx: ShardingCtx | None = None,
+                   device=None) -> torch.Tensor:
+    """The slots of a whole cache of ``whole`` slots that the rank's slots
+    hold under split-KV (the model axis splitting the cache's slot axis):
+    for a static cache (``page`` None) its contiguous block; for a paged
+    pool of page size ``page`` its ``q = page / m`` slots of every page,
+    local slot ``i`` holding slot ``(i // q) * page + r * q + i % q`` (``r``
+    the model rank), so that the page table, the page ids and seating
+    stay the same on every rank.  Increasing in ``i``.  The one place the
+    map lives: the attention masks, the writer of a decode step's K/V and
+    the prefill's layout read it."""
+    c = ctx or _CTX
+    m = model_size(c)
+    pg = whole if page is None else page
+    if pg % m or whole % pg:
+        raise ValueError(f"a split-KV cache of {whole} slots in pages of "
+                         f"{pg} over a model axis of {m}: the page must "
+                         f"divide the cache and the axis the page")
+    q = pg // m
+    i = torch.arange(whole // m, device=device)
+    return (i // q) * pg + model_rank(c) * q + i % q
+
+
 # ---------------------------------------------------------------------------
 # parameter partition rules
 # ---------------------------------------------------------------------------

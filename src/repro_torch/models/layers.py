@@ -364,24 +364,24 @@ def kv_split_dim(cfg: ModelConfig, slots: int | None,
     return dim
 
 
-def _split_kv_attention(q, k, v, live, lo: int):
+def _split_kv_attention(q, k, v, live, held):
     """Decode attention of q (B, H, 1, D), every q head, against the
-    rank's block of slots ``lo ..`` of a (B, KVH, S / m, D) cache, the
-    whole cache's first ``live`` slots (a scalar or (B,)) live: each rank
+    rank's block of a (B, KVH, S / m, D) cache, its slots the whole
+    cache's slots ``held`` (``sharding.split_kv_slots``), the whole
+    cache's first ``live`` slots (a scalar or (B,)) live: each rank
     takes its block's maximum, sum of exponentials and weighted V, the
     maxima combined with ``sharding.model_max``, the sums in one
     ``sharding.model_sum``.  ``ref.decode_attention_ref``'s operations
     otherwise, so float32 results agree to rounding."""
     b, h, _, d = q.shape
-    kvh, sl = k.shape[1], k.shape[2]
+    kvh = k.shape[1]
     ct = torch.float32 if q.dtype == torch.float32 else torch.bfloat16
     qf = (q[:, :, 0].reshape(b, kvh, h // kvh, d)
           * ref._in_dtype(d ** -0.5, q.dtype)).to(ct)
     s = qf.float() @ k.to(ct).float().transpose(-1, -2)   # (B, KVH, G, sl)
-    idx = lo + torch.arange(sl, device=q.device)
     cl = torch.as_tensor(live, device=q.device)
     lim = cl if cl.ndim == 0 else cl[:, None, None, None]
-    s = torch.where(idx < lim, s, ref.NEG_INF)
+    s = torch.where(held < lim, s, ref.NEG_INF)
     mx = sharding.model_max(s.amax(-1, keepdim=True))
     e = torch.exp(s - mx)
     part = sharding.model_sum(torch.cat(
@@ -390,10 +390,11 @@ def _split_kv_attention(q, k, v, live, lo: int):
     return out.reshape(b, h, 1, d).to(q.dtype)
 
 
-def _attend_cache(q, ck, cv, live, cfg: ModelConfig, kdim):
+def _attend_cache(q, ck, cv, live, cfg: ModelConfig, kdim, held=None):
     """Decode attention of the rank's q heads (every q head where the
     model axis does not split them) against a cache block split on
-    ``kdim`` (:func:`kv_split_dim`).  Split-KV gathers the q heads,
+    ``kdim`` (:func:`kv_split_dim`; ``held``: the whole cache's slots
+    that a split-KV block holds).  Split-KV gathers the q heads,
     combines every head's partial results over the axis and keeps the
     rank's; a cache whole on every rank is read at the KV heads the
     rank's q heads use."""
@@ -401,8 +402,7 @@ def _attend_cache(q, ck, cv, live, cfg: ModelConfig, kdim):
     if kdim == 2:
         if split:
             q = sharding.gather_model(q, 1, partial=False)
-        o = _split_kv_attention(q, ck, cv, live,
-                                sharding.model_rank() * ck.shape[2])
+        o = _split_kv_attention(q, ck, cv, live, held)
         if split:
             hl = cfg.n_heads // sharding.model_size()
             o = o.narrow(1, sharding.model_rank() * hl, hl)
@@ -414,7 +414,7 @@ def _attend_cache(q, ck, cv, live, cfg: ModelConfig, kdim):
 
 def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
                    cfg: ModelConfig, pos, *, window=None, cross_kv=None,
-                   slots: int | None = None):
+                   slots: int | None = None, page: int | None = None):
     """One-token decode.  x_t: (B, 1, d); pos: scalar or (B,) int32.
 
     The new k/v are written into ``cache["k"]`` / ``cache["v"]`` at slot
@@ -430,8 +430,10 @@ def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
     Under a model axis the rank runs its q heads where the axis divides
     them (``wo``'s partial sums summed over it) against its cache block
     (:func:`kv_split_dim`; ``slots``: the whole cache's slot count, or
-    the cross length); under split-KV only the rank holding slot ``pos %
-    slots`` writes the new k/v."""
+    the cross length; ``page``: the page size where the cache is a paged
+    pool's logical view, whose split-KV slots interleave by page,
+    ``sharding.split_kv_slots``); under split-KV only the rank holding
+    slot ``pos % slots`` writes the new k/v."""
     b = x_t.shape[0]
     dh, dt = cfg.dh, x_t.dtype
     split = sharding.model_splits(cfg.n_heads)
@@ -441,8 +443,10 @@ def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
         if "bq" in p:
             q = q + p["bq"].to(dt)
         q = q.reshape(b, 1, -1, dh).transpose(1, 2)
-        o = _attend_cache(q, ck, cv, cross_kv["len"], cfg,
-                          kv_split_dim(cfg, slots, ck.shape[2]))
+        kdim = kv_split_dim(cfg, slots, ck.shape[2])
+        held = (sharding.split_kv_slots(slots, device=x_t.device)
+                if kdim == 2 else None)
+        o = _attend_cache(q, ck, cv, cross_kv["len"], cfg, kdim, held)
         y = o.transpose(1, 2).reshape(b, 1, -1) @ p["wo"].to(dt)
         return shard(sharding.leave_model(y) if split else y, "btd"), cache
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x_t.device)
@@ -463,18 +467,20 @@ def attention_step(p: Params, x_t: torch.Tensor, cache: Params,
     rows = torch.arange(b, device=x_t.device)
     slot_b = slot if per_row else slot.expand(b)
     k_new, v_new = k[:, :, 0].to(ck.dtype), v[:, :, 0].to(cv.dtype)
+    held = None
     if kdim == 2:
         # split-KV: the rank holding the slot writes it, the others write
         # back what they hold
-        local = slot_b - sharding.model_rank() * ck.shape[2]
-        own = ((local >= 0) & (local < ck.shape[2]))[:, None, None]
-        slot_b = local.clamp(0, ck.shape[2] - 1)
+        held = sharding.split_kv_slots(whole, page, device=x_t.device)
+        local = torch.searchsorted(held, slot_b).clamp(max=ck.shape[2] - 1)
+        own = (held[local] == slot_b)[:, None, None]
+        slot_b = local
         k_new = torch.where(own, k_new, ck[rows, :, slot_b])
         v_new = torch.where(own, v_new, cv[rows, :, slot_b])
     ck[rows, :, slot_b] = k_new
     cv[rows, :, slot_b] = v_new
     live = pos + 1 if window is None else torch.clamp(pos + 1, max=whole)
-    o = _attend_cache(q, ck, cv, live, cfg, kdim)
+    o = _attend_cache(q, ck, cv, live, cfg, kdim, held)
     y = o.transpose(1, 2).reshape(b, 1, -1) @ p["wo"].to(dt)
     y = shard(sharding.leave_model(y) if split else y, "btd")
     return y, {"k": ck, "v": cv, "len": pos + 1}

@@ -248,18 +248,25 @@ def _slots(cfg: ModelConfig, kind: str, max_len: int | None):
     return min(cfg.window, max_len) if kind == "attn_local" else max_len
 
 
+def _page(kind: str, page_size: int | None) -> int | None:
+    """The page size of a ``kind`` layer's cache where a session pool
+    pages it (its global-attention layers'), else None."""
+    return page_size if kind == "attn" else None
+
+
 def block_step(p: Params, x_t, cache: Params, kind: str, cfg: ModelConfig,
                pos, *, max_len: int | None = None,
-               cross_len: int | None = None):
-    """One-token decode.  Returns (x_t, cache).  ``max_len`` and
-    ``cross_len``: the whole caches' slots (:func:`decode_step`)."""
+               cross_len: int | None = None, page_size: int | None = None):
+    """One-token decode.  Returns (x_t, cache).  ``max_len``,
+    ``cross_len`` and ``page_size``: :func:`decode_step`."""
     p = L.compute_view(p, rule=L.model_rule(cfg, step=True))
     h = L.apply_norm(p["norm1"], x_t, cfg.norm_eps)
     name = _mixer(kind)
     if name == "attn":
         out, c = L.attention_step(p["attn"], h, cache["attn"], cfg, pos,
                                   window=_window(cfg, kind),
-                                  slots=_slots(cfg, kind, max_len))
+                                  slots=_slots(cfg, kind, max_len),
+                                  page=_page(kind, page_size))
     else:
         out, c = _RECURRENT[kind].step(p[name], h, cache[name], cfg)
     cache = dict(cache, **{name: c})
@@ -537,13 +544,17 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
-def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int = 0):
+def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int = 0,
+            page_size: int | None = None):
     """Full-sequence forward returning the last position's logits and the
     per-layer decode caches: global-attn caches padded to ``max_len``
     slots, local-window caches laid out as rings, recurrent states after
     the last position, and an encoder-decoder's cross-attention K/V.
     Under a model axis, each leaf the rank's block (module docstring),
-    taken as each layer's cache is made."""
+    taken as each layer's cache is made; ``page_size``: a session pool's,
+    whose split-KV global-attn blocks hold the rank's slots of every
+    page (``sharding.split_kv_slots``), ready to seat without a
+    collective."""
     sharding.check_data_only(what="prefill")
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -557,41 +568,43 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, max_len: int = 0):
         for u, kind in enumerate(unit):
             x, _, c = block_fwd(blks[u], x, kind, cfg, positions,
                                 enc_out=enc_out, with_cache=True)
-            per_unit[u].append(_decode_layout(cfg, c, kind, s, max_len))
+            per_unit[u].append(_decode_layout(cfg, c, kind, s, max_len,
+                                              _page(kind, page_size)))
     stacked = [tree_map(lambda *xs: torch.stack(xs), *cs)
                for cs in per_unit]
     tail_caches = []
     for blk, kind in zip(params["tail"], tail):
         x, _, c = block_fwd(blk, x, kind, cfg, positions, enc_out=enc_out,
                             with_cache=True)
-        tail_caches.append(_decode_layout(cfg, c, kind, s, max_len))
+        tail_caches.append(_decode_layout(cfg, c, kind, s, max_len,
+                                          _page(kind, page_size)))
     x = _norm(params["final_norm"], cfg, x)
     logits = _logits(params, cfg, x[:, -1:])
     return logits, {"blocks": stacked, "tail": tail_caches}
 
 
 def _decode_layout(cfg: ModelConfig, cache: dict, kind: str, s: int,
-                   max_len: int) -> dict:
+                   max_len: int, page: int | None = None) -> dict:
     """A layer's prefill cache re-laid out for decode (its attention K/V
     come back prompt-length): a global-attn cache padded with zeros to
     ``max_len`` slots, a local-window cache to a ``W = min(window,
     max_len)``-slot ring that holds position p at slot ``p % W`` (the last
     W positions, rolled into place; shorter prompts padded).  Under
-    split-KV the rank takes its block of those slots: slot ``j`` holds
-    position ``j`` (zero past the prompt), or on a ring shorter than the
-    prompt ``s - W + (j - s + W) mod W``, JAX's whole-cache roll read at
-    the rank's slots."""
+    split-KV the rank takes its slots ``j`` of those
+    (``sharding.split_kv_slots``: its block, or with ``page`` its part of
+    every page): slot ``j`` holds position ``j`` (zero past the prompt),
+    or on a ring shorter than the prompt ``s - W + (j - s + W) mod W``,
+    JAX's whole-cache roll read at the rank's slots."""
     if "attn" not in cache:
         return cache
     k, v = cache["attn"]["k"], cache["attn"]["v"]       # slot axis -2
     whole = _slots(cfg, kind, max_len)
-    lo, n = 0, whole
     if L.kv_split_dim(cfg, whole) == 2:
-        n = whole // sharding.model_size()
-        lo = sharding.model_rank() * n
-    if lo == 0 and n == s <= whole:
+        j = sharding.split_kv_slots(whole, page, device=k.device)
+    elif s == whole:
         return cache
-    j = torch.arange(lo, lo + n, device=k.device)
+    else:
+        j = torch.arange(whole, device=k.device)
     if s > whole:
         src, keep = s - whole + (j - s + whole) % whole, None
     else:
@@ -624,16 +637,18 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None,
 
 def decode_step(params: Params, cfg: ModelConfig, tokens_t, caches: dict,
                 pos, *, max_len: int | None = None,
-                cross_len: int | None = None):
+                cross_len: int | None = None, page_size: int | None = None):
     """One decode step.  tokens_t: (B, 1); pos: scalar or (B,) int32.
     Returns (logits (B, 1, V), caches); the stacked cache buffers are
     written in place.  ``max_len`` (the prefill's, or ``init_caches``')
     and ``cross_len``: the whole caches' slots, needed only under a model
-    axis that does not divide the KV heads."""
+    axis that does not divide the KV heads; ``page_size``: a session
+    pool's, where ``caches`` is its logical view (its split-KV
+    global-attn slots interleaved by page)."""
     sharding.check_data_only(what="decode_step")
     x = _embed(params, cfg, tokens_t)
     unit, n_rep, tail = _layout(cfg)
-    lens = dict(max_len=max_len, cross_len=cross_len)
+    lens = dict(max_len=max_len, cross_len=cross_len, page_size=page_size)
     for r, blks in enumerate(zip(*(_split(blk, n_rep)
                                    for blk in params["blocks"]))):
         for u, kind in enumerate(unit):

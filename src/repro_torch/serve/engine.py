@@ -23,13 +23,16 @@ cache blocks, the logits gathered whole, so every model rank drafts and
 commits the same tokens.  A greedy token is the same on every model rank
 by construction; a sampled one (``temperature > 0``) is model rank 0's
 draw, summed over the axis with the other ranks' zeros, since each rank
-draws from its own generator.
+draws from its own generator (``sampling.shared_draw``, the session
+pool's rule too).
 
 Beyond the static ``generate`` batch, the engine serves a *stream* of
 requests through the paged session pool (``session_pool.py``):
 ``submit`` / ``step`` / ``drain`` admit sessions into free KV and token
 pages mid-flight, decode every live page, and retire finished sessions
-so their pages go straight back to the allocator.
+so their pages go straight back to the allocator.  They run under the
+same context: every rank of a model group runs the same pool on the same
+submissions, each data rank its own.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.cpm.reference import searchable
-from repro_torch.distributed import sharding
 from repro_torch.models import lm
 from . import kv_cache, program_paths, sampling
 
@@ -136,10 +138,7 @@ class Engine:
     def _sample(self, logits, gen: GenConfig, generator):
         tok = sampling.sample(logits, generator, gen.temperature,
                               gen.top_k, gen.top_p)
-        if gen.temperature > 0 and sharding.model_size() > 1:
-            mine = sharding.model_rank() == 0
-            tok = sharding.model_sum(tok if mine else torch.zeros_like(tok))
-        return tok
+        return sampling.shared_draw(tok) if gen.temperature > 0 else tok
 
     # -- non-speculative: no per-token host sync ---------------------------
 

@@ -31,6 +31,12 @@ are the host arrays ``Gateway.stream`` / ``aresult`` already hand out, so
 mounting it changes no kernel launch of a decode chunk and adds no host
 sync inside one.
 
+Under a "model" axis longer than 1 the frontend refuses to mount
+(``NotImplementedError``): every rank of a model group must tick on the
+same submissions, and the wire takes them on one rank only, so the
+others would wait forever.  Forwarding each tick's submissions and
+cancels from model rank 0 to the others is ROADMAP Queue 1 item 5f.
+
 The module also ships the minimal client half (``request``,
 ``sse_events``, :class:`SSEDecoder`) the tests and ``chip_smoke.py`` use
 — incremental SSE parsing that is correct under arbitrary byte-chunk
@@ -46,6 +52,7 @@ from typing import Any, AsyncIterator, Callable
 
 import numpy as np
 
+from repro_torch.distributed import sharding
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
 from repro_torch.obs.export import iter_trace_chunks
@@ -137,6 +144,13 @@ class HttpFrontend:
                  slo_monitor: SloMonitor | None = None,
                  recorder_dir: str = "artifacts/flightrec",
                  flight_last_n: int = 256):
+        m = sharding.model_size()
+        if m > 1:
+            raise NotImplementedError(
+                f"the HTTP frontend under a model axis of size {m}: every "
+                f"model rank must tick on the same submissions, and "
+                f"forwarding them from model rank 0 is ROADMAP Queue 1 "
+                f"item 5f")
         self.gateway = gateway
         self.host = host
         self.port = port

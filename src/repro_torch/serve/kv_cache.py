@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models.lm import tree_map
 
 
@@ -105,14 +106,41 @@ def _map_attn_nodes(caches, cfg, site_fn):
     return {"blocks": blocks, "tail": tail}
 
 
+def page_slots(cfg, page_size: int) -> int:
+    """The slots of a page that a rank's block of a global-attn pool leaf
+    holds: every slot where the model axis divides the KV heads (the
+    rank's KV heads of every page) or there is none, else (split-KV)
+    ``page_size / m``, the rank's part of every page
+    (``sharding.split_kv_slots``).  Raises ``ValueError`` where split-KV
+    needs the axis to divide the page and it does not (a model without
+    global attention pages nothing)."""
+    m = sharding.model_size()
+    if not sharding.model_parallel() or sharding.model_splits(
+            cfg.n_kv_heads) or not any(attn_sites(cfg)):
+        return page_size
+    if page_size % m:
+        raise ValueError(
+            f"page_size ({page_size}) must be a multiple of the model axis "
+            f"({m}): its {cfg.n_kv_heads} KV heads do not split over the "
+            f"axis, so each rank holds page_size / {m} slots of every page")
+    return page_size // m
+
+
 def paged_pool(caches, cfg, n_pages: int, page_size: int):
     """Re-layout zero-initialized decode caches for paged serving: every
     global-attn k/v leaf becomes a pool of ``n_pages`` sub-pages plus the
-    sink page; ``len`` leaves keep their per-slot shapes."""
+    sink page; ``len`` leaves keep their per-slot shapes.  Under a model
+    axis, the rank's block: ``(n_pages + 1, KVH / m, page_size, dh)``
+    where the axis divides the KV heads, else (split-KV) ``(n_pages + 1,
+    KVH, page_size / m, dh)`` (:func:`page_slots`).  The gathers, scatters
+    and seats below work on either block as it is: a logical row is the
+    rank's slots of each page in page order."""
+    pg = page_slots(cfg, page_size)
+
     def site(a, stacked):
         k = a["k"]
         kvh, dh = k.shape[-3], k.shape[-1]
-        shp = (n_pages + 1, kvh, page_size, dh)
+        shp = (n_pages + 1, kvh, pg, dh)
         if stacked:
             shp = (k.shape[0],) + shp
         return dict(a, k=torch.zeros(shp, dtype=k.dtype, device=k.device),

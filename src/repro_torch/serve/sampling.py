@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.cpm.reference import comparable
+from repro_torch.distributed import sharding
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -78,3 +79,14 @@ def sample_rows(logits: torch.Tensor, generator: torch.Generator | None,
     gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
     sampled = torch.argmax(x + gumbel, dim=-1).to(torch.int32)
     return torch.where(temperature > 0, sampled, greedy(logits))
+
+
+def shared_draw(tok: torch.Tensor) -> torch.Tensor:
+    """A sampled token the same on every rank of a "model" axis: model
+    rank 0's draw, summed over the axis with the other ranks' zeros, since
+    each rank draws from its own generator.  ``tok`` itself without a
+    model axis longer than 1."""
+    if sharding.model_size() <= 1:
+        return tok
+    mine = sharding.model_rank() == 0
+    return sharding.model_sum(tok if mine else torch.zeros_like(tok))

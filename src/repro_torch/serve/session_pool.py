@@ -36,6 +36,21 @@ nothing back to the host between its gather and its scatter: no
 host-side between chunks (``_ensure_pages``) with enough pages for the
 next chunk; when a bank runs dry the youngest sessions park.
 
+Under a "model" axis (``sharding.make_ctx(mesh, fsdp=False)``, of any
+size) every rank of a model group runs the same host logic on the same
+submissions, as JAX's pool runs under GSPMD; each data rank is a replica
+given its own.  A rank's device state is its block of the pool: every
+global-attn pool leaf holds the rank's KV heads of every page where the
+axis divides them, else (split-KV) every KV head at the rank's
+``page_size / m`` slots of every page (``kv_cache.page_slots``,
+``sharding.split_kv_slots``), so the page table, the allocator, page
+ids, grants, the sink page and the dirty masks are the same on every
+rank, and seating, parking and restoring run no collective.  Rings,
+recurrent states and ``len`` keep their per-slot blocks.  A parked
+image is the rank's own and restores on the rank that parked it; a
+sampled token is model rank 0's draw (``sampling.shared_draw``), a
+greedy one the same on every rank by construction.
+
 Bookkeeping is CPM all the way down: free-slot and free-page lookups are
 §6 ``compare`` + Rule-6 drains on the allocator's metadata devices, the
 LRU victim a §7.5 ``global_limit("min")``.  The host keeps mirrors
@@ -63,7 +78,6 @@ import torch
 from repro_torch.cpm.pool import (CPMBank, MultiBankScheduler, SessionTable,
                                   SlotAllocator)
 from repro_torch.cpm.pool.sessions import ACTIVE, DONE, PARKED
-from repro_torch.distributed import sharding
 from repro_torch.models import lm
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
@@ -114,23 +128,14 @@ _CHUNK_SECONDS = obs_metrics.histogram(
     "wall seconds per decode chunk (dispatch, no forced sync)", ("pool",))
 
 
-def _check_model_axis(what: str) -> None:
-    """The paged pool runs on one model rank's whole caches: under a model
-    axis longer than 1 (its pages split over KV heads, ROADMAP Queue 1
-    item 5e; the JAX package never drives its pool there) it raises."""
-    m = sharding.model_size()
-    if m > 1:
-        raise NotImplementedError(
-            f"{what} under a model axis of size {m}: the paged session pool "
-            f"under tensor parallelism is ROADMAP Queue 1 item 5e")
-
-
 @dataclasses.dataclass
 class PageState:
     """Host-side parking image of one preempted session: its LIVE KV
     sub-pages flattened to a logical ``n_pages * page_size`` row per
     global-attn leaf (``len`` leaves ride along, all on the CPU), the
-    decode position, the current token and its token row."""
+    decode position, the current token and its token row.  Under a model
+    axis, the rank's block of those pages (its KV heads, or its slots of
+    each page), restored on the same rank."""
     caches: Any                        # {"blocks": [...], "tail": [...]}
     pos: int
     cur: int
@@ -181,7 +186,6 @@ class SessionPool:
             raise NotImplementedError(
                 "session pool supports decoder-only models (cross-attention "
                 "pages are encoder-owned)")
-        _check_model_axis("the session pool")
         if slots <= 0 or n_banks <= 0 or slots % n_banks:
             raise ValueError(f"slots ({slots}) must be a positive multiple "
                              f"of n_banks ({n_banks})")
@@ -322,7 +326,6 @@ class SessionPool:
     def step(self) -> dict:
         """Admit -> decode ``chunk`` tokens for every live session ->
         retire.  Returns a stats snapshot (see :meth:`stats`)."""
-        _check_model_axis("a session pool step")
         self.last_chunk_s = 0.0
         self._admit()
         self._retire()                      # budget-1 sessions finish on admit
@@ -479,8 +482,9 @@ class SessionPool:
         sampler's sort, which returns the same argmax."""
         if not (temp > 0).any():
             return sampling.greedy(logits)
-        return sampling.sample_rows(logits, self._rng, self._dev(temp),
-                                    self._dev(topk), self._dev(topp))
+        return sampling.shared_draw(sampling.sample_rows(
+            logits, self._rng, self._dev(temp), self._dev(topk),
+            self._dev(topp)))
 
     def _admit_bucket(self, bucket, seated: dict[int, int]) -> None:
         """Check a same-prompt-length bucket of fresh sessions in with one
@@ -497,7 +501,8 @@ class SessionPool:
                                   args={"sessions": k, "prompt_len": s}):
                 logits, caches1 = lm.prefill(engine.params, cfg,
                                              {"tokens": prompts},
-                                             max_len=self.max_len)
+                                             max_len=self.max_len,
+                                             page_size=self.page_size)
             caches1 = kv_cache.broadcast_lens(caches1, k)
             first = self._sample(
                 logits[:, -1],
@@ -739,11 +744,12 @@ class SessionPool:
         logical = kv_cache.logical_view(self.caches, cfg, page_tbl)
         toks = []
         for _ in range(self.chunk):
-            logits, logical = lm.decode_step(engine.params, cfg, cur[:, None],
-                                             logical, pos)
+            logits, logical = lm.decode_step(
+                engine.params, cfg, cur[:, None], logical, pos,
+                max_len=self.max_len, page_size=self.page_size)
             nxt = sampling.greedy(logits[:, -1]) if greedy_only else \
-                sampling.sample_rows(logits[:, -1], self._rng, temp, topk,
-                                     topp)
+                sampling.shared_draw(sampling.sample_rows(
+                    logits[:, -1], self._rng, temp, topk, topp))
             cur = torch.where(live, nxt, 0)
             pos = torch.where(live, pos + 1, pos)
             toks.append(cur)

@@ -38,9 +38,7 @@ Held (float32 compute):
     (teacher forcing over the reference's tokens) is within ``TIE`` of
     the step's largest logit;
   * ``Engine.generate`` sampled at temperature 1, each rank's generator
-    seeded differently: tokens equal on every model rank bit for bit;
-  * the session pool and the gateway under a model axis raise, citing
-    ROADMAP Queue 1 item 5e.
+    seeded differently: tokens equal on every model rank bit for bit.
 """
 
 from __future__ import annotations
@@ -121,7 +119,7 @@ from repro_torch.configs import get_config
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import convert, layers, lm
-from repro_torch.serve import Engine, GenConfig, Gateway, kv_cache
+from repro_torch.serve import Engine, GenConfig, kv_cache
 from repro_torch.train._tree import leaves_with_path
 
 layers.COMPUTE_DTYPE = torch.float32
@@ -186,18 +184,6 @@ with sh.use_sharding(ctx):
             eb, GenConfig(max_new_tokens=NEW, temperature=1.0),
             generator=torch.Generator().manual_seed(rank))
         res[f"{name}|engine|sampled"] = toks.numpy()
-
-    cfg = get_config("granite-8b").smoke()
-    with open(f"{shared}/params_granite-8b.pkl", "rb") as f:
-        eng = Engine(cfg, convert.params_from_numpy(pickle.load(f), "cpu"),
-                     max_len=ENGINE_LEN)
-    for what, make in (("pool", lambda: eng.session_pool(slots=4)),
-                       ("gateway", lambda: Gateway(eng, slots=4))):
-        try:
-            make()
-            res[f"raises|{what}"] = "no error"
-        except NotImplementedError as e:
-            res[f"raises|{what}"] = str(e)
 
 np.savez(f"{out}/rank{rank}.npz", **{k: np.asarray(v)
                                      for k, v in res.items()})
@@ -554,14 +540,3 @@ def test_sampled_tokens_agree_across_model_ranks(runs, name, tag):
         d = r // m
         np.testing.assert_array_equal(ours[key][:, :S],
                                       batch["tokens"][d * b:(d + 1) * b])
-
-
-@pytest.mark.parametrize("what", ["pool", "gateway"])
-def test_pool_and_gateway_raise_under_a_model_axis(runs, what):
-    """The paged pool (and the gateway over it) refuse a model axis
-    longer than 1, citing its ROADMAP item, on every rank."""
-    for tag, (_, m) in MESHES.items():
-        for ours in runs[tag]:
-            msg = str(ours[f"raises|{what}"])
-            assert "ROADMAP Queue 1 item 5e" in msg, (tag, msg)
-            assert f"model axis of size {m}" in msg

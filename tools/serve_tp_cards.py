@@ -6,7 +6,9 @@ every cache.
 
     torchrun --standalone --nproc-per-node 4 tools/serve_tp_cards.py
     torchrun --standalone --nproc-per-node 4 tools/serve_tp_cards.py \\
-        --device cpu --no-full        # gloo, (a) only
+        --device cpu --no-full        # gloo, (a) and (c)'s smoke part
+    torchrun --standalone --nproc-per-node 4 tools/serve_tp_cards.py \\
+        --parts c                     # the session pool only
 
 (a) the six families' smoke configs (granite-8b, qwen2-vl-7b,
     recurrentgemma-9b, granite-moe-1b-a400m, xlstm-1.3b,
@@ -26,6 +28,20 @@ every cache.
     which must equal ``launch/dryrun.py``'s argument bytes for this mesh
     and batch (its decode cell at ``max_len`` slots, less the token and
     the position).
+(c) the paged session pool and the gateway under the axis: the smoke
+    families but seamless (the pool serves decoder-only models) at (1, 4)
+    and (2, 2), float32 compute, pages of 4 slots (split-KV pages where
+    their 2 KV heads, 1 for recurrentgemma, do not divide 4), a burst
+    that preempts, each data rank its own requests: tokens equal on every
+    model rank and, as in (a), to rank 0's unsharded gateway; then
+    full-depth granite-8b at (1, 4), bf16 weights, ``chip_smoke.py``'s
+    phase-20 traffic (phase 6's 12 requests over ``POOL``): tokens equal
+    on every rank and to the unsharded pool run on rank 0's card (bit
+    for bit, else each token within ``chip_smoke.NEAR_TIE`` of the
+    unsharded model's largest logit, as phase 6 holds the pool to solo
+    generation), the KV page bytes a card against ``L x 2 x (n_pages +
+    1) x KVH / m x page_size x dh x c`` (a quarter of the unsharded
+    pool's), a steady ``pool.step()``'s ms, device busy and NCCL time.
 Rank 0 prints the card (``nvidia-smi`` name and power limit) and one
 JSON line; the script exits non-zero where a check fails.
 """
@@ -53,7 +69,8 @@ from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import repeated_prompts  # noqa: E402
 from repro_torch.models import layers as L, lm  # noqa: E402
-from repro_torch.serve import Engine, GenConfig  # noqa: E402
+from repro_torch.serve import Engine, Gateway, GenConfig  # noqa: E402
+from repro_torch.serve.gateway import PreemptConfig  # noqa: E402
 from repro_torch.train._tree import leaves_with_path  # noqa: E402
 
 CONFIGS = ("granite-8b", "qwen2-vl-7b", "recurrentgemma-9b",
@@ -72,13 +89,13 @@ def _params(cfg, dev, ctx, seed: int, dtype=None):
     keeping its block (``dtype``: cast every >=2-D leaf first)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def keep(name, t):
-        if dtype is not None and t.ndim >= 2:
-            t = t.to(dtype)
-        return sh.distribute_leaf(name, t, ctx)
+    def cast(t):
+        return t.to(dtype) if dtype is not None and t.ndim >= 2 else t
 
-    if ctx.mesh is None:
-        return lm.init_params(cfg, gen, dev)
+    def keep(name, t):
+        t = cast(t)
+        return t if ctx.mesh is None else sh.distribute_leaf(name, t, ctx)
+
     with L.leaf_hook(keep):
         return lm.init_params(cfg, gen, dev)
 
@@ -156,10 +173,9 @@ def _teacher_gaps(engine, batch, seq) -> np.ndarray:
     return (top[..., -1] - top[..., -2]) / np.abs(lg).max(-1)
 
 
-def _agree(got, want, gaps) -> bool:
-    """Equal in every row up to its first differing step, which a
-    near-tie at or before it explains."""
-    s = SMALL["prompt"]
+def _agree(got, want, gaps, s: int = SMALL["prompt"]) -> bool:
+    """Equal in every row up to its first differing step after the
+    ``s``-token prompt, which a near-tie at or before it explains."""
     for r in range(got.shape[0]):
         diff = np.nonzero(got[r, s:] != want[r, s:])[0]
         if diff.size and gaps[r, :diff[0] + 1].min() > TIE:
@@ -290,12 +306,189 @@ def _full(dev) -> dict:
     return out
 
 
+#: (c)'s smoke gateway: pages of 4 slots, chunks of 3, a burst that
+#: preempts; (arrival tick, prompt length, budget) of its requests
+POOL_SMALL = dict(slots=2, chunk=3, page_size=4, pages_per_bank=8,
+                  preempt=PreemptConfig(min_resident=1, min_remaining=1,
+                                        max_parks=3))
+POOL_ARRIVALS = ((0, 6, 12), (0, 7, 12), (2, 5, 3), (2, 5, 3), (3, 6, 3))
+POOL_LEN = 24
+POOL_CONFIGS = CONFIGS[:-1]                  # decoder-only
+
+
+def _replay(gw, prompts, arrivals):
+    """Each request submitted when the gateway's tick count reaches its
+    arrival, ticked until done; returns each request's tokens."""
+    rids, nxt = [], 0
+    while nxt < len(arrivals) or gw.loop.pending():
+        while nxt < len(arrivals) and arrivals[nxt][0] <= gw.loop.ticks:
+            rids.append(gw.submit(prompts[nxt], arrivals[nxt][-1]))
+            nxt += 1
+        gw.tick()
+    return [torch.as_tensor(gw.request(r).tokens) for r in rids]
+
+
+def _pool_prompts(cfg, dev, d: int) -> list:
+    g = torch.Generator().manual_seed(50 + d)
+    return [torch.randint(0, cfg.vocab_size, (s,), generator=g).to(dev)
+            for _, s, _ in POOL_ARRIVALS]
+
+
+def _gaps(engine, prompt, seq) -> np.ndarray:
+    """Top-2 logit gaps of the unsharded model teacher-forced over one
+    request's ``seq``, each over the step's largest |logit|."""
+    with torch.no_grad():
+        x, _ = lm.forward(engine.params, engine.cfg,
+                          {"tokens": seq.to(prompt.device)[None]},
+                          remat=False)
+        lg = lm._logits(engine.params, engine.cfg, x).float().cpu().numpy()
+    s = prompt.shape[0]
+    lg = lg[0, s - 1:-1, :engine.cfg.vocab_size]
+    top = np.sort(lg, -1)
+    return (top[:, -1] - top[:, -2]) / np.abs(lg).max(-1)
+
+
+def _pool_small(dev, model: int) -> dict:
+    """(c)'s smoke part at a (N / model, model) mesh."""
+    mesh = make_host_mesh(model=model, device=dev.type)
+    ctx = sh.make_ctx(mesh, fsdp=False)
+    dp, dr, m = sh.dp_size(ctx), sh.dp_rank(ctx), sh.model_size(ctx)
+    out = {}
+    L.COMPUTE_DTYPE = torch.float32
+    for name in POOL_CONFIGS:
+        cfg = get_config(name).smoke()
+        with sh.use_sharding(ctx):
+            eng = Engine(cfg, _params(cfg, dev, ctx, 41), max_len=POOL_LEN)
+            got = _replay(Gateway(eng, **POOL_SMALL),
+                          _pool_prompts(cfg, dev, dr), POOL_ARRIVALS)
+        width = max(t.shape[0] for t in got)
+        mine = torch.stack([torch.nn.functional.pad(t, (0, width - len(t)),
+                                                    value=-1) for t in got])
+        every = _gather_rows(mine.to(dev), ctx).cpu()   # (N, requests, W)
+        res = {}
+        if dist.get_rank() == 0:
+            plain = Engine(cfg, _params(cfg, dev, sh.ShardingCtx(), 41),
+                           max_len=POOL_LEN)
+            same = all(torch.equal(every[r], every[r - r % m])
+                       for r in range(len(every)))
+            agree = equal = True
+            for d in range(dp):
+                ps = _pool_prompts(cfg, dev, d)
+                want = _replay(Gateway(plain, **POOL_SMALL), ps,
+                               POOL_ARRIVALS)
+                for i, (p, w) in enumerate(zip(ps, want)):
+                    g_ = every[d * m, i, :len(w)]
+                    equal &= bool(torch.equal(g_, w))
+                    agree &= _agree(g_.numpy()[None], w.numpy()[None],
+                                    _gaps(plain, p, w.to(dev))[None],
+                                    s=p.shape[0])
+            res = {"ranks_equal": same, "agree": agree, "equal": equal}
+        out[name] = res
+    L.COMPUTE_DTYPE = torch.bfloat16
+    return out
+
+
+def _kv_page_bytes(pool) -> int:
+    """Bytes of the pool's global-attention K/V page leaves on this card."""
+    from repro_torch.serve import kv_cache
+
+    ub, ut = kv_cache.attn_sites(pool.engine.cfg)
+    nodes = [pool.caches["blocks"][u]["attn"] for u in ub] + \
+        [pool.caches["tail"][t]["attn"] for t in ut]
+    return sum(a[k].numel() * a[k].element_size() for a in nodes
+               for k in ("k", "v"))
+
+
+def _pool_full(dev) -> dict:
+    """(c)'s full-depth part: granite-8b at (1, N) behind the gateway."""
+    n = dist.get_world_size()
+    mesh = make_host_mesh(model=n, device=dev.type)
+    ctx = sh.make_ctx(mesh, fsdp=False)
+    cfg = get_config("granite-8b")
+    torch.cuda.reset_peak_memory_stats(dev)
+    with sh.use_sharding(ctx):
+        params = _params(cfg, dev, ctx, 0, torch.bfloat16)
+        eng = Engine(cfg, params, max_len=cs.POOL_MAX_LEN)
+        gw = cs._pool_gateway(torch, eng)
+        rids, _, run_s, counts = cs._pool_traffic(torch, dev, gw,
+                                                  cfg.vocab_size)
+        st = gw.stats()
+        pool = gw.pool
+        page_bytes = _kv_page_bytes(pool)
+        kvh, pg = cfg.n_kv_heads, cs.POOL["page_size"]
+        want_bytes = (cfg.n_layers * 2 * (pool.total_pages + 1)
+                      * (kvh // n) * pg * cfg.dh
+                      * pool.caches["blocks"][0]["attn"]["k"].element_size())
+        toks = [torch.as_tensor(gw.request(r).tokens) for r, _, _ in rids]
+        width = max(len(t) for t in toks)
+        mine = torch.stack([torch.nn.functional.pad(t, (0, width - len(t)),
+                                                    value=-1) for t in toks])
+        every = _gather_rows(mine.to(dev), ctx).cpu()
+        # a steady step: every slot seated, timed, profiled
+        cs._seat_steady(torch, dev, gw, cfg.vocab_size, 64)
+        step_ms = []
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.perf_counter()
+            pool.step()
+            _sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        sh.reset_collective_counts()
+        pool.step()
+        colls = {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                 for k, v in sh.collective_counts().items() if v["calls"]}
+        ev = cs._device_events(torch, pool.step)
+        steady = pool.stats()["active"] == cs.POOL["slots"]
+        del gw, pool, eng, params
+    torch.cuda.empty_cache()
+    out = {"mesh": [1, n], "requests": len(rids), "run_s": run_s,
+           "preemptions": st["preemptions"], "restores": st["restores"],
+           "prefill_launches": st["prefill_launches"], "launches": counts,
+           "ranks_equal": bool(all(torch.equal(every[0], t) for t in every)),
+           "kv_page_bytes": page_bytes, "kv_page_bytes_formula": want_bytes,
+           "step_ms": step_ms, "step_ms_best": min(step_ms),
+           "steady": steady, "step_busy_ms": cs._ms(ev),
+           "step_nccl_ms": _nccl(ev), "step_collectives": colls,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    if dist.get_rank() == 0:
+        # the unsharded pool on this card: the same weights, whole
+        with sh.use_sharding(sh.ShardingCtx()):
+            plain = Engine(cfg, _params(cfg, dev, sh.ShardingCtx(), 0,
+                                        torch.bfloat16),
+                           max_len=cs.POOL_MAX_LEN)
+            gw = cs._pool_gateway(torch, plain)
+            prids, _, plain_s, _ = cs._pool_traffic(torch, dev, gw,
+                                                    cfg.vocab_size)
+            out["plain_kv_page_bytes"] = _kv_page_bytes(gw.pool)
+            out["plain_run_s"] = plain_s
+            out["plain_preemptions"] = gw.stats()["preemptions"]
+            identical, worst, ok = 0, 0.0, True
+            for i, (rid, prompt, _) in enumerate(prids):
+                want = torch.as_tensor(gw.request(rid).tokens)
+                got = every[0, i, :len(want)]
+                if torch.equal(got, want):
+                    identical += 1
+                    continue
+                gaps, tol, _ = cs._solo_gaps(torch, plain, prompt,
+                                             got.to(dev))
+                worst = max(worst, float(gaps.max()))
+                ok &= float(gaps.max()) <= tol
+            out.update(identical=identical, near_tie_ok=bool(ok),
+                       largest_gap=worst)
+            del gw, plain
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu: gloo)")
     ap.add_argument("--no-full", action="store_true",
-                    help="run (a) only")
+                    help="skip the full-depth runs of (b) and (c)")
+    ap.add_argument("--parts", default="abc",
+                    help="which of (a), (b), (c) to run (default abc)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -308,18 +501,28 @@ def main(argv=None) -> int:
     rec = {"ranks": n, "backend": dist.get_backend(),
            "device": (torch.cuda.get_device_name(dev)
                       if dev.type == "cuda" else "cpu"),
-           "small": {f"1x{n}": _small(dev, n)}}
-    if n % 2 == 0 and n > 2:
-        rec["small"][f"{n // 2}x2"] = _small(dev, 2)
-    if dev.type == "cuda" and not args.no_full:
+           "small": {}, "pool_small": {}}
+    meshes = [n] + ([2] if n % 2 == 0 and n > 2 else [])
+    full = dev.type == "cuda" and not args.no_full
+    for m in meshes:
+        tag = f"{n // m}x{m}"
+        if "a" in args.parts:
+            rec["small"][tag] = _small(dev, m)
+        if "c" in args.parts:
+            rec["pool_small"][tag] = _pool_small(dev, m)
+    if full and "b" in args.parts:
         rec["full"] = _full(dev)
+    if full and "c" in args.parts:
+        rec["pool_full"] = _pool_full(dev)
     bad = []
     if dist.get_rank() == 0:
-        for tag, by_cfg in rec["small"].items():
-            for name, res in by_cfg.items():
-                for kind, r in res.items():
-                    if not (r["ranks_equal"] and r["agree"]):
-                        bad.append(f"{tag} {name} {kind}: {r}")
+        for part in ("small", "pool_small"):
+            for tag, by_cfg in rec[part].items():
+                for name, res in by_cfg.items():
+                    for kind, r in (res.items() if part == "small"
+                                    else [("gateway", res)]):
+                        if not (r["ranks_equal"] and r["agree"]):
+                            bad.append(f"{part} {tag} {name} {kind}: {r}")
         f = rec.get("full")
         if f and not (f["ranks_equal"] and f["spec_equals_scan"]
                       and f["bytes_equal"]):
@@ -327,6 +530,17 @@ def main(argv=None) -> int:
                        f"== scan {f['spec_equals_scan']}, bytes "
                        f"{f['held_bytes']} vs the dry run's "
                        f"{f['dryrun_bytes']}")
+        f = rec.get("pool_full")
+        if f and not (f["ranks_equal"] and f["near_tie_ok"] and f["steady"]
+                      and f["kv_page_bytes"] == f["kv_page_bytes_formula"]
+                      and f["kv_page_bytes"] * n
+                      == f["plain_kv_page_bytes"]):
+            bad.append(f"pool at full depth: ranks equal "
+                       f"{f['ranks_equal']}, tokens within near-ties "
+                       f"{f['near_tie_ok']}, steady {f['steady']}, KV page "
+                       f"bytes {f['kv_page_bytes']} vs the formula's "
+                       f"{f['kv_page_bytes_formula']} and the unsharded "
+                       f"pool's {f['plain_kv_page_bytes']}")
         if dev.type == "cuda":
             print(cs.nvidia_smi_line())
         print(json.dumps(rec))
